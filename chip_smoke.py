@@ -7,15 +7,22 @@ JAX or of the JAX package, and catches nothing: any failure ends it with a
 non-zero exit code and without the final result line.
 
 1. Set-up: prints the card's name and power limit, builds every CUDA
-   kernel of the port from gslora_tpu_torch/csrc (one source so far:
-   attention.cu) and prints the build time.
-2. Kernel phase: each kernel of the main path against its plain PyTorch
-   version on the card, at the flagship shape and at ragged ones, each
-   output held to a tolerance scaled to its own size
-   (ops/attention.plain_mismatch); times of the kernel, the plain version and
-   the nearest single PyTorch call (library yardstick, never used by the
-   port) with CUDA events, and each kernel's bound from its bytes and
-   operations at this card's published rates.
+   kernel of the port from gslora_tpu_torch/csrc (attention.cu and
+   group_lasso.cu, one nvcc each, started together) and prints the build
+   times.
+2. Kernel phase: each kernel against its plain PyTorch version on the
+   card, at every shape the driven paths give it (K1: train, eval, fused
+   and prototype batches, derived from the paths' configs) and at ragged
+   ones, each output held to a
+   tolerance scaled to its own size (ops/attention.plain_mismatch,
+   ops/group_lasso.group_mismatch); times of the kernel, the plain version
+   and the nearest single PyTorch call (library yardstick, never used by
+   the port) with CUDA events, and each kernel's bound from its bytes and
+   operations at this card's published rates. The group kernels (K2 prox,
+   K3 norms and rescale, and the fused group-Lasso through autograd) run
+   at the flagship LoRA shapes and two ragged ones, fp32 and bf16, with an
+   all-zero layer and a threshold that kills one layer and shrinks the
+   others.
 3. Model check: the flagship model's embeddings, logits and LoRA
    gradients (bf16, dropout off, 4 images) with attention through the
    kernels against the same with the kernels' plain version
@@ -27,7 +34,13 @@ non-zero exit code and without the final result line.
    through the kernels (launch counts equal what the path implies). Then
    times the bench recipe (bf16 params, merged LoRA, fused dual batch,
    prototypes, 24 images per stream).
-5. Prints the kernels line, then the result line.
+5. Continual phase: the port's train_forget_cl CLI (GS-LoRA++) on the card
+   at the same width and depth, 2 tasks x 1 epoch, with the prox step
+   (kernel K2 after every optimizer update), EMA and per-task prototypes.
+   Checks finite per-task accuracies and losses, the old-class accuracy of
+   task 1, both task checkpoints, K2 launched once per training step and
+   K1's counts equal to what the path implies.
+6. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
@@ -39,6 +52,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -46,7 +60,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA GPU visible; this check runs only on the "
              "card")
 
-from gslora_tpu_torch.cli import train_forget  # noqa: E402
+from gslora_tpu_torch.cli import train_forget, train_forget_cl  # noqa: E402
 from gslora_tpu_torch.cli.common import build_datasets  # noqa: E402
 from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
                                      OptimConfig, ViTConfig, build_parser,
@@ -54,6 +68,8 @@ from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
 from gslora_tpu_torch.data.splits import (make_order_list,  # noqa: E402
                                           ratio_subset,
                                           split_by_class_window)
+from gslora_tpu_torch.engine.continual import (PROTO_BATCH,  # noqa: E402
+                                               split_task_data)
 from gslora_tpu_torch.engine.forget import make_forget_step  # noqa: E402
 from gslora_tpu_torch.engine.state import (ForgetState,  # noqa: E402
                                            make_optimizer)
@@ -62,6 +78,7 @@ from gslora_tpu_torch.losses.classification import (  # noqa: E402
 from gslora_tpu_torch.models.vit import ViT, init_vit_params  # noqa: E402
 from gslora_tpu_torch.ops import attention as A  # noqa: E402
 from gslora_tpu_torch.ops import cuda_build  # noqa: E402
+from gslora_tpu_torch.ops import group_lasso as G  # noqa: E402
 
 DEV = torch.device("cuda")
 SCALE = 512 ** -0.5  # the flagship's attention scale, dim**-0.5
@@ -73,17 +90,34 @@ N_TOKENS, HEAD_DIM = 197, 64
 # below this bound unless a layout or an index is wrong.
 MODEL_TOL = 3e-2
 
-# Published dense rates (NVIDIA data sheets): bytes/s of device memory and
-# bf16 tensor-core FLOP/s, keyed by a substring of the card's name.
-PEAKS = [("H200", 4.8e12, 989e12), ("H100 PCIe", 2.0e12, 756e12),
-         ("H100 NVL", 3.9e12, 835e12), ("H100", 3.35e12, 989e12)]
+# Published dense rates (NVIDIA data sheets): bytes/s of device memory,
+# bf16 tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores, keyed
+# by a substring of the card's name.
+PEAKS = [("H200", 4.8e12, 989e12, 67e12),
+         ("H100 PCIe", 2.0e12, 756e12, 51e12),
+         ("H100 NVL", 3.9e12, 835e12, 60e12),
+         ("H100", 3.35e12, 989e12, 67e12)]
+SOURCES = ("attention", "group_lasso")
+# The flagship FFN LoRA: L, r, d, m (rank 8 on ViT-P8S8, depth 6)
+LORA_SHAPE = (6, 8, 512, 2048)
 
 
 def card_rates(name: str):
-    for key, bw, flops in PEAKS:
+    for key, bw, flops, fp32_flops in PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, fp32_flops
     raise RuntimeError(f"no published rates for card {name!r}")
+
+
+def build_all():
+    """One nvcc per source, all started together; seconds per source."""
+    def timed(name):
+        t0 = time.perf_counter()
+        cuda_build.build(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(timed, SOURCES)))
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -135,14 +169,27 @@ def max_err(got, want, names, what):
     return max(m["max_abs"] for m in stats.values())
 
 
+def path_shapes():
+    """(batch x heads, tokens) of every attention the driven paths launch,
+    from their configs: the train batch, the eval batch, the bench
+    recipe's fused batch (train + forget) and the continual path's
+    prototype batch."""
+    shapes = set()
+    for argv in (MAIN_ARGV, CL_ARGV):
+        cfg = config_from_args(build_parser().parse_args(argv))
+        bs, m = cfg.data.batch_size, cfg.model
+        for b in (bs, bs * cfg.data.test_batch_scale, 2 * bs, PROTO_BATCH):
+            shapes.add((b * m.heads, m.seq_len))
+    return sorted(shapes)
+
+
 def kernel_phase(bw, peak):
-    """K1 forward and backward against the plain version; timings and
-    bounds at the flagship shape."""
+    """K1 forward and backward against the plain version at every shape
+    the driven paths give it and two ragged ones; timings and bounds at
+    the flagship shape."""
     errs = {"fwd": 0.0, "bwd": 0.0}
-    # the bench recipe's fused batch, the CLI path's train batch (24 x 8
-    # heads) and eval batch (5 x 24 x 8), then two ragged shapes
-    shapes = ((FLAGSHIP_BH, N_TOKENS, 0), (24 * 8, N_TOKENS, 4),
-              (120 * 8, N_TOKENS, 5), (6, 17, 1), (3, 70, 2))
+    shapes = [(bh, n, seed) for seed, (bh, n) in enumerate(path_shapes(), 3)]
+    shapes += [(6, 17, 1), (3, 70, 2)]
     for bh, n, seed in shapes:
         q, k, v, g = inputs(bh, n, HEAD_DIM, seed)
         o = A.attention_fwd_kernel(q, k, v, SCALE)
@@ -200,6 +247,120 @@ def kernel_phase(bw, peak):
               f"plain {t['plain_ms']:.4f} ms, library "
               f"{t['library_ms']:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
               f"ms ({rows[-1]['bound_by']})", flush=True)
+    return rows
+
+
+def lora_factors(shape, dtype, seed):
+    """The four FFN LoRA factors on the card, layer l scaled by (l + 1)
+    and layer 0 all zero (for L > 1), and a threshold between the two
+    smallest live layer norms: that layer dies, the larger ones shrink."""
+    L, r, d, m = shape
+    g = torch.Generator().manual_seed(seed)
+    ts = []
+    for shp in ((L, r, d), (L, m, r), (L, r, m), (L, d, r)):
+        t = 0.3 * torch.randn(shp, generator=g) * \
+            torch.arange(1, L + 1).reshape(-1, 1, 1)
+        if L > 1:
+            t[0] = 0.0
+        ts.append(t.to(DEV, dtype))
+    live = sorted(x for x in G.group_norms_plain(*ts).tolist() if x > 0)
+    thr = 0.5 * live[0] if len(live) == 1 else 0.5 * (live[0] + live[1])
+    return ts, thr
+
+
+def group_max_err(got, want, what, norms=False):
+    """Largest abs error of a group kernel's outputs; raises unless each
+    is within ops/group_lasso.group_mismatch's tolerance."""
+    stats = [G.group_mismatch(a, b, norms=norms) for a, b in zip(got, want)]
+    bad = [m for m in stats if not m["ok"]]
+    if bad:
+        raise AssertionError(f"{what}: kernel disagrees with the plain "
+                             f"version (norms rel {G.NORM_RTOL}, fp32 "
+                             f"{G.FP32_TOL} of max, bf16 1 ulp): {stats}")
+    return max(m["max_abs"] for m in stats)
+
+
+def group_phase(bw, fp32_peak):
+    """K2 and K3 against their plain versions (flagship LoRA shapes and
+    two ragged ones, fp32 and bf16, a zero layer, a killing threshold),
+    the fused group-Lasso through autograd, and timings at the flagship
+    in fp32 (the LoRA's dtype on the main path)."""
+    errs = {"group_prox": 0.0, "group_norms": 0.0, "group_scale": 0.0}
+    for shape in (LORA_SHAPE, (1, 1, 1, 3), (3, 5, 17, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            where = f"{shape} {str(dtype)[6:]}"
+            ts, thr = lora_factors(shape, dtype, seed=shape[1])
+            norms = G.group_norms_kernel(*ts)
+            prox = G.group_prox_kernel(*ts, thr)
+            inv = (1.0 / torch.clamp_min(norms, 1e-12)).to(dtype)
+            scaled = G.group_scale_kernel(*ts, inv)
+            leaves = [t.clone().requires_grad_(True) for t in ts]
+            value = G.group_lasso_fused(*leaves)
+            value.backward()
+            torch.cuda.synchronize()
+            want_n = G.group_norms_plain(*ts)
+            want_inv = (1.0 / torch.clamp_min(want_n, 1e-12)).to(dtype)
+            errs["group_norms"] = max(
+                errs["group_norms"],
+                group_max_err([norms], [want_n], f"norms {where}", True),
+                group_max_err([value.detach().reshape(1)],
+                              [want_n.sum().reshape(1)],
+                              f"group-Lasso value {where}", True))
+            prox_want = G.group_prox_plain(*ts, thr)
+            errs["group_prox"] = max(errs["group_prox"], group_max_err(
+                prox, prox_want, f"prox {where}"))
+            errs["group_scale"] = max(
+                errs["group_scale"],
+                group_max_err(scaled, G.group_scale_plain(*ts, inv),
+                              f"scale {where}"),
+                group_max_err([t.grad for t in leaves],
+                              G.group_scale_plain(*ts, want_inv),
+                              f"group-Lasso grads {where}"))
+            killed = int((G.group_norms_plain(*prox_want) == 0).sum())
+            print(f"group kernels vs plain at {where}: thr {thr:.4f} "
+                  f"kills {killed} of {shape[0]} layers; max abs "
+                  f"{json.dumps(errs)}", flush=True)
+
+    ts, thr = lora_factors(LORA_SHAPE, torch.float32, seed=9)
+    inv = (1.0 / torch.clamp_min(G.group_norms_plain(*ts), 1e-12))
+    numel = sum(t.numel() for t in ts)
+    L, nbytes = LORA_SHAPE[0], numel * 4
+    note = ("no single PyTorch call computes a per-layer group norm over "
+            "four tensors")
+    timed = {
+        # bytes: each input read once, each output written once;
+        # operations: square-and-add per element (+ multiply to scale)
+        "group_prox": (lambda: G.group_prox_kernel(*ts, thr),
+                       lambda: G.group_prox_plain(*ts, thr),
+                       2 * nbytes, 3 * numel, ":147"),
+        "group_norms": (lambda: G.group_norms_kernel(*ts),
+                        lambda: G.group_norms_plain(*ts),
+                        nbytes + 4 * L, 2 * numel, ":57"),
+        "group_scale": (lambda: G.group_scale_kernel(*ts, inv),
+                        lambda: G.group_scale_plain(*ts, inv),
+                        2 * nbytes + 4 * L, numel, ":81"),
+    }
+    rows = []
+    with torch.no_grad():
+        for name, (kern, plain, nb, ops, line) in timed.items():
+            # 20 plain calls (~20 launches each) stay inside the launch
+            # queue, so they too are all queued before the device wakes
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain, iters=20)
+            t_bytes, t_ops = nb / bw * 1e3, ops / fp32_peak * 1e3
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "gslora_tpu_torch/csrc/group_lasso.cu",
+                "replaces": "gslora_tpu/ops/group_lasso.py" + line,
+                "launches": None, "max_abs_err": errs[name],
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "library_note": note,
+                "shape": list(LORA_SHAPE), "dtype": "float32",
+            })
+            print(f"{name} at {LORA_SHAPE} fp32: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
+                  f"({rows[-1]['bound_by']})", flush=True)
     return rows
 
 
@@ -276,18 +437,28 @@ def expected_launches(argv):
     return depth * (2 * evals + protos + train_fwd), (depth - 1) * train_fwd
 
 
+def reset_counts():
+    A.reset_launch_counts()
+    G.reset_launch_counts()
+
+
+def read_counts():
+    return {"attention_fwd": A.FWD_LAUNCHES, "attention_bwd": A.BWD_LAUNCHES,
+            "group_prox": G.PROX_LAUNCHES, "group_norms": G.NORMS_LAUNCHES,
+            "group_scale": G.SCALE_LAUNCHES}
+
+
 def main_path_phase():
     with tempfile.TemporaryDirectory() as out:
         argv = MAIN_ARGV + ["--outdir", out]
         want_fwd, want_bwd = expected_launches(argv)
         torch.cuda.synchronize()
-        A.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         report = train_forget.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"attention_fwd": A.FWD_LAUNCHES,
-                    "attention_bwd": A.BWD_LAUNCHES}
+        launches = read_counts()
         with open(os.path.join(out, "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
     for key in ("forget_acc", "remain_acc", "best_H_mean",
@@ -299,9 +470,11 @@ def main_path_phase():
     if not losses or not all(math.isfinite(v) for _, v in losses):
         raise AssertionError(f"main path: missing or non-finite losses "
                              f"{losses[:8]}")
-    if launches != {"attention_fwd": want_fwd, "attention_bwd": want_bwd}:
+    want = {"attention_fwd": want_fwd, "attention_bwd": want_bwd,
+            "group_prox": 0, "group_norms": 0, "group_scale": 0}
+    if launches != want:
         raise AssertionError(f"main path launched {launches}; the path "
-                             f"implies fwd {want_fwd}, bwd {want_bwd}")
+                             f"implies {want}")
     print(f"main path: train_forget depth 6 dim 512 bs 24, 1 epoch on the "
           f"card in {wall:.1f} s; forget_acc {report['forget_acc']:.2f} "
           f"remain_acc {report['remain_acc']:.2f} best_H "
@@ -360,27 +533,133 @@ def bench_phase(card):
         "loss_total": loss, "card": card}), flush=True)
 
 
+CL_ARGV = ["-d", "synthetic", "-n", "VIT", "--vit_depth", "6",
+           "--head", "CosFace", "--lora_rank", "8", "-b", "24", "-e", "1",
+           "--lr", "1e-2", "--warmup-epochs", "0", "--BND", "110",
+           "--alpha", "0.01", "--one_stage", "--num_tasks", "2",
+           "--num_of_first_cls", "90", "--per_forget_cls", "10",
+           "--structure_mode", "prox", "--prototype", "--BND_pro", "18",
+           "--pro_r_weight", "0.01", "--cl_beta_list", "0.15", "0.2",
+           "--cl_prof_list", "0.01", "0.02", "--average_weight",
+           "--ema_epoch", "0", "--compute_dtype", "bfloat16"]
+
+
+def expected_cl_launches(argv):
+    """K1 and K2 launches the continual path implies, per task: the
+    old-class evals before and after training (task > 0), the prototypes
+    (batches of 500), the before / EMA / final evals of test forget and
+    remain, and two training forwards per step ('depth' forward launches
+    per forward, 'depth - 1' backward per training forward); K2 once per
+    training step."""
+    cfg = config_from_args(build_parser().parse_args(argv))
+    f, bs = cfg.forget, cfg.data.batch_size
+    assert cfg.num_epoch == 1 and f.ema_epoch == 0 and f.average_weight
+    train, test = build_datasets(cfg)
+    order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    test_bs = bs * cfg.data.test_batch_scale
+    fwd = steps = 0
+    for task in range(f.num_tasks):
+        data, old = split_task_data(cfg, train, test, order, task,
+                                    cfg.data.seed + task)
+        n = batches(len(data.train_remain), bs)  # remain drives the epoch
+        assert n < cfg.ver_freq
+        evals = batches(len(data.test_forget), test_bs) + \
+            batches(len(data.test_remain), test_bs)
+        old_evals = 2 * batches(len(old), test_bs) \
+            if old is not None and len(old) else 0
+        protos = batches(len(data.train_forget), 500) + \
+            batches(len(data.train_remain), 500)
+        fwd += 3 * evals + old_evals + protos + 2 * n
+        steps += n
+    depth = cfg.model.depth
+    return {"attention_fwd": depth * fwd,
+            "attention_bwd": (depth - 1) * 2 * steps,
+            "group_prox": steps, "group_norms": 0, "group_scale": 0}
+
+
+def continual_phase():
+    """The CL CLI on the card: GS-LoRA++ with the prox step and EMA over
+    2 tasks at flagship width; wall time per task from the report."""
+    with tempfile.TemporaryDirectory() as out:
+        argv = CL_ARGV + ["--outdir", out]
+        want = expected_cl_launches(argv)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        report = train_forget_cl.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(out, "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        missing = [t for t in range(2) if not os.path.exists(os.path.join(
+            out, "task-level", f"Backbone_task_{t}.pth"))]
+    if missing:
+        raise AssertionError(f"continual: no checkpoint of tasks {missing}")
+    if [r["task"] for r in report] != [0, 1]:
+        raise AssertionError(f"continual: report of tasks "
+                             f"{[r['task'] for r in report]}")
+    for r in report:
+        vals = [r[k] for k in ("forget_acc_before", "forget_acc",
+                               "remain_acc", "best_H_mean")] + r["norm_list"]
+        if r["task"] == 1:
+            vals.append(r["old_acc"])
+        if not all(v is not None and math.isfinite(v) for v in vals):
+            raise AssertionError(f"continual: task {r['task']}: {r}")
+    losses = [v for rec in logged for k, v in rec.items()
+              if k.startswith("loss_")]
+    ema = [rec for rec in logged if "Test forget-ema Accuracy" in rec]
+    if not losses or not all(math.isfinite(v) for v in losses) or \
+            len(ema) != 2:
+        raise AssertionError(f"continual: losses {losses[:8]}, EMA evals "
+                             f"{len(ema)}")
+    if launches != want:
+        raise AssertionError(f"continual path launched {launches}; the "
+                             f"path implies {want}")
+    per_task = [r["time_to_forget_s"] for r in report]
+    print("continual " + json.dumps({
+        "recipe": "train_forget_cl GS-LoRA++, prox, EMA, prototypes, "
+                  "depth 6 dim 512 bs 24, 2 tasks x 1 epoch, bf16 compute",
+        "wall_s": wall, "time_to_forget_s": per_task,
+        "old_acc_task1": report[1]["old_acc"],
+        "norm_list_task1": report[1]["norm_list"],
+        "launches": launches}), flush=True)
+    return launches
+
+
 def main():
+    t_script = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     card = smi.splitlines()[0]
-    bw, peak = card_rates(torch.cuda.get_device_name(0))
+    bw, peak, fp32_peak = card_rates(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    cuda_build.build("attention")
-    print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    builds = build_all()
+    print(f"built kernels in {time.perf_counter() - t0:.1f} s: " +
+          ", ".join(f"{k} {v:.1f} s" for k, v in builds.items()), flush=True)
 
-    rows = kernel_phase(bw, peak)
+    rows = kernel_phase(bw, peak) + group_phase(bw, fp32_peak)
     model_check()
-    launches = main_path_phase()
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    main_launches = main_path_phase()
     bench_phase(card)
+    cl_launches = continual_phase()
+    for row in rows:
+        # each kernel's count from the path it serves: K1 the single-step
+        # main path, K2 the continual path; K3 is on neither
+        name = row["name"]
+        own = main_launches if name.startswith("attention") else cl_launches
+        row["launches"] = own[name]
+        row["launches_by_path"] = {"train_forget": main_launches[name],
+                                   "train_forget_cl": cl_launches[name]}
 
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,14 @@
 gslora_tpu/checkpoints/io.py).
 
 Reference policy (engine.py:465-497): save only on a new best H-mean,
-keep at most 2 checkpoints next to config.txt. A checkpoint is a
-``torch.save`` of the flat state dict (the JAX pytree paths as names,
+keep at most 2 checkpoints next to config.txt; task-level
+``Backbone_task_{i}`` snapshots between continual tasks. A checkpoint is
+a ``torch.save`` of the flat state dict (the JAX pytree paths as names,
 models/convert.py), copied to host memory.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -99,3 +101,18 @@ class BestHCheckpointer:
 
     def latest(self) -> str | None:
         return self._saved[-1] if self._saved else None
+
+
+def save_task_checkpoint(workdir: str, task: int, tree: Any,
+                         extra: dict | None = None) -> str:
+    """Per-task snapshot (train_own_forget_cl.py:1696-1714):
+    ``task-level/Backbone_task_{task}.pth`` in the :func:`save_params`
+    format, and ``task_{task}_meta.json`` with ``extra``."""
+    tdir = os.path.join(workdir, "task-level")
+    os.makedirs(tdir, exist_ok=True)
+    path = os.path.join(tdir, f"Backbone_task_{task}.pth")
+    save_params(path, tree)
+    if extra:
+        with open(os.path.join(tdir, f"task_{task}_meta.json"), "w") as f:
+            json.dump(extra, f, indent=2)
+    return path

@@ -16,7 +16,8 @@ from __future__ import annotations
 import json
 import os
 
-from gslora_tpu_torch.cli.common import build_datasets, build_params
+from gslora_tpu_torch.cli.common import build_datasets, build_params, \
+    param_summary
 from gslora_tpu_torch.config import build_parser, config_from_args
 from gslora_tpu_torch.data.splits import (few_shot_subset, make_order_list,
                                           open_single_windows, ratio_subset,
@@ -75,10 +76,7 @@ def main(argv=None):
 
     logger = MetricLogger(use_wandb=cfg.log_wandb, outdir=cfg.outdir,
                           config=json.loads(cfg.to_json()))
-    n_base = sum(t.numel() for t in _leaves(params["base"]))
-    n_lora = sum(t.numel() for t in _leaves(params["lora"]))
-    print("params:", json.dumps({"base": n_base, "lora": n_lora,
-                                 "total": n_base + n_lora}))
+    print("params:", json.dumps(param_summary(params)))
     res = run_forget_training(cfg, params, data, logger=logger,
                               workdir=cfg.outdir)
     # run name assembled from hyperparameters at exit
@@ -97,14 +95,6 @@ def main(argv=None):
             json.dump(report, fh, indent=2)
     logger.finish()
     return report
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 if __name__ == "__main__":

@@ -1,0 +1,190 @@
+"""Continual forgetting task loop, GS-LoRA / GS-LoRA++ (port of
+gslora_tpu/engine/continual.py; reference train_own_forget_cl.py:515-1763,
+the one_stage method).
+
+Task boundary: the reference saves the eval-mode (loralib-MERGED)
+state_dict at task end and re-loads + LoRA-reinits at the next task start
+(:523-536, :1696-1714). Here that is the fold ``base <- merged(base,
+lora); lora <- reinit`` with no file round-trip; task snapshots are still
+written. The parameters live on ``cfg.device`` for the whole run.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, List, Optional
+
+import torch
+
+from gslora_tpu_torch.checkpoints.io import save_task_checkpoint
+from gslora_tpu_torch.config import RunConfig
+from gslora_tpu_torch.data.folders import Dataset
+from gslora_tpu_torch.data.pipeline import BatchLoader
+from gslora_tpu_torch.data.splits import (few_shot_subset, open_task_windows,
+                                          ratio_subset,
+                                          split_by_class_window,
+                                          task_windows)
+from gslora_tpu_torch.engine.ema import merged_params
+from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
+from gslora_tpu_torch.engine.loop import ForgetData, ForgetResult, _dtype, \
+    resolve_device, run_forget_training
+from gslora_tpu_torch.engine.prototypes import calculate_prototypes
+from gslora_tpu_torch.lora.core import reinit_lora
+from gslora_tpu_torch.metrics.logging import MetricLogger
+
+PROTO_BATCH = 500  # per-task prototype batch (cl.py:634-644)
+
+
+@dataclass
+class TaskResult:
+    task: int
+    result: ForgetResult
+    old_acc: Optional[float] = None
+    # old-class accuracy right AFTER the task-boundary fold and BEFORE
+    # this task trains: separates what the fold (merge + reinit) does to
+    # previously forgotten classes from what this task's training does
+    old_acc_before: Optional[float] = None
+
+
+@dataclass
+class ContinualResult:
+    tasks: List[TaskResult] = field(default_factory=list)
+    final_params: Any = None
+
+
+def split_task_data(cfg: RunConfig, train_ds: Dataset, test_ds: Dataset,
+                    order_list: List[int], task: int, seed: int
+                    ) -> tuple[ForgetData, Optional[Dataset]]:
+    """Per-task window split + few-shot/ratio subsetting
+    (train_own_forget_cl.py:546-750). Returns (data, test_old)."""
+    f = cfg.forget
+    test_open = None
+    if f.open_cls_num > 0:
+        # open classes live at the front of the order list and are never
+        # replayed (train_own_forget_cl_open.py:413-463)
+        (s1, e1), (s2, e2), (os_, oe) = open_task_windows(
+            f.num_of_first_cls, f.per_forget_cls, f.open_cls_num, task)
+        _, test_open = split_by_class_window(test_ds, order_list, 0, 0,
+                                             os_, oe)
+    else:
+        s1, e1, s2, e2 = task_windows(f.num_of_first_cls, f.per_forget_cls,
+                                      task)
+    remain_train, forget_train = split_by_class_window(train_ds, order_list,
+                                                       s1, e1, s2, e2)
+    remain_test, forget_test = split_by_class_window(test_ds, order_list,
+                                                     s1, e1, s2, e2)
+    if f.few_shot:
+        # distinct seeds: the forget and remain draws must be uncorrelated
+        forget_sub = few_shot_subset(forget_train, f.few_shot_num, seed)
+        remain_sub = few_shot_subset(remain_train, f.few_shot_num,
+                                     seed + 7919)
+    else:
+        forget_sub = ratio_subset(forget_train, f.data_ratio, seed)
+        remain_sub = ratio_subset(remain_train, f.data_ratio, seed)
+    data = ForgetData(train_forget=forget_sub, train_remain=remain_sub,
+                      test_forget=forget_test, test_remain=remain_test,
+                      test_open=test_open)
+    test_old = None
+    if task > 0:
+        # classes forgotten by earlier tasks: order_list[e2 : NUM_CLASS]
+        # (cl.py:543-545 old_st/old_en)
+        _, test_old = split_by_class_window(test_ds, order_list, 0, 0, e2,
+                                            cfg.model.num_class)
+    return data, test_old
+
+
+def _detached(tree, device=None):
+    """A tree of plain tensors (parameters detached), moved to device."""
+    return {k: _detached(v, device) if isinstance(v, dict)
+            else v.detach().to(device if device is not None else v.device)
+            for k, v in tree.items()}
+
+
+def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
+                             test_ds: Dataset, order_list: List[int],
+                             logger: Optional[MetricLogger] = None,
+                             workdir: Optional[str] = None
+                             ) -> ContinualResult:
+    """GS-LoRA(++) over cfg.forget.num_tasks tasks on ``cfg.device``.
+
+    Every task after the first starts with the fold (reference merged
+    save + reload + LoRA reinit, cl.py:523-536); the reinit draws from one
+    CPU generator seeded with the run's seed."""
+    logger = logger or MetricLogger()
+    model, lora, f = cfg.model, cfg.lora, cfg.forget
+    device = resolve_device(cfg.device)
+    cdt = _dtype(cfg)
+    eval_step = make_eval_step(model, lora, compute_dtype=cdt)
+    test_bs = cfg.data.batch_size * cfg.data.test_batch_scale
+    pad = device.type != "cpu"  # static batch shapes on the card
+    u8 = cfg.data.uint8_transfer
+    out = ContinualResult()
+    generator = torch.Generator().manual_seed(cfg.data.seed)
+    params = _detached(params, device)
+
+    def loader(ds, bs):
+        return BatchLoader(ds, bs, shuffle=False, prefetch=0,
+                           mask_padding=pad, uint8_transfer=u8)
+
+    for task in range(f.num_tasks):
+        if task > 0:
+            # task boundary: fold LoRA into the base, fresh LoRA
+            # (reference merged-save + reload + reinit, cl.py:523-536)
+            with torch.no_grad():
+                params = {
+                    "base": merged_params(params["base"], params["lora"],
+                                          lora.scaling),
+                    "lora": reinit_lora(generator, params["lora"]),
+                }
+        data, test_old = split_task_data(cfg, train_ds, test_ds, order_list,
+                                         task, cfg.data.seed + task)
+
+        def old_eval(p):
+            return eval_accuracy(eval_step, p, loader(test_old, test_bs))
+
+        old_acc_before = None
+        if test_old is not None and len(test_old) > 0:
+            # post-fold, pre-training: a bounce seen HERE is the fold's
+            # doing; one seen only after training is the task's
+            old_acc_before = old_eval(params)
+            logger.log({f"Task {task} old Accuracy before": old_acc_before})
+
+        protos = None
+        if f.prototype:
+            # prototypes from the CURRENT backbone over the task subsets
+            # (cl.py:634-644)
+            pb = list(loader(data.train_forget, PROTO_BATCH)) + \
+                list(loader(data.train_remain, PROTO_BATCH))
+            protos = calculate_prototypes(params, pb, model, lora,
+                                          model.num_class, compute_dtype=cdt)
+
+        beta = f.cl_beta_list[task] if task < len(f.cl_beta_list) else f.beta
+        w_pro_f = f.cl_prof_list[task] if task < len(f.cl_prof_list) else \
+            f.pro_f_weight
+
+        res = run_forget_training(
+            cfg, params, data, logger=logger,
+            workdir=f"{workdir}/task_{task}" if workdir else None,
+            protos=protos, beta=beta, pro_f_weight=w_pro_f,
+            seed_offset=task * 1000,
+            h_eps=1e-8,  # CL H-mean guard (engine_cl.py:279)
+            continual=True)  # engine_cl: remain drives, no alpha gate
+        params = _detached(res.state.params)
+
+        old_acc = None
+        if test_old is not None and len(test_old) > 0:
+            old_acc = old_eval(params)
+            logger.log({f"Task {task} old Accuracy": old_acc})
+        if workdir:
+            with torch.no_grad():
+                merged = merged_params(params["base"], params["lora"],
+                                       lora.scaling)
+            save_task_checkpoint(
+                workdir, task, {"base": merged},
+                extra={"task": task, "best_h": res.best_h,
+                       "forget_acc": res.forget_acc,
+                       "remain_acc": res.remain_acc, "old_acc": old_acc})
+        out.tasks.append(TaskResult(task=task, result=res, old_acc=old_acc,
+                                    old_acc_before=old_acc_before))
+
+    out.final_params = params
+    return out

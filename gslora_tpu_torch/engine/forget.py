@@ -19,8 +19,10 @@ from gslora_tpu_torch.lora.core import group_lasso
 from gslora_tpu_torch.losses.classification import (bounded_forget_loss,
                                                     cross_entropy,
                                                     top1_accuracy)
-from gslora_tpu_torch.losses.prototype import hinged_prototype_losses
+from gslora_tpu_torch.losses.prototype import hinged_prototype_losses, \
+    prototype_loss
 from gslora_tpu_torch.models.vit import vit_apply
+from gslora_tpu_torch.ops.group_lasso import fp32_threshold, lora_group_prox
 
 
 def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
@@ -38,21 +40,41 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
     scalars: dict of floats {beta, alpha, lr, bnd, bnd_pro, w_pro_f,
     w_pro_r}; metrics: dict of 0-dim tensors, the JAX step's keys.
 
-    structure_mode "loss" (reference-faithful: alpha * group-Lasso as a
-    differentiated term, engine.py:269-274) is ported; "prox" needs kernel
-    K2 and ``grad_accum > 1`` the two-phase gate scheme, both still to
-    port. trainable: "lora" (only the LoRA subtree updates) or "base"
-    (all base parameters, the reference's lora_rank=0 path); the state
-    must be created with the same value.
+    structure_mode:
+      "loss" — reference-faithful: alpha * group-Lasso as a differentiated
+               term (engine.py:269-274);
+      "prox" — the group soft-threshold (kernel K2) applied to the LoRA
+               after the optimizer update, threshold fp32(lr)·fp32(alpha);
+               no structure term in the loss. FFN LoRA only.
+
+    trainable: "lora" (only the LoRA subtree updates) or "base" (all base
+    parameters, the reference's lora_rank=0 path); the state must be
+    created with the same value.
+
+    grad_accum > 1 runs each dual batch as that many micro-batch pairs,
+    exactly: ``relu(BND - CE_f)`` and ``relu(BND_pro - L_pro_f)`` gate on
+    the GLOBAL batch means, so a forward-only gate pass first takes the
+    masked sums of every data term (the global means, the gates and the
+    metrics), then a grad pass differentiates the gated-linear surrogate,
+    whose micro-gradients sum to the full-batch gradient. Each micro-batch
+    draws the same dropout masks in both passes (its generator state is
+    saved before the gate pass and restored for the grad pass); gradients
+    accumulate in fp32. A batch that grad_accum does not divide (in either
+    stream) runs unaccumulated, as in the JAX step.
     """
     use_proto = fcfg.prototype if use_prototype is None else use_prototype
-    if structure_mode == "prox":
-        raise NotImplementedError("structure_mode='prox' (kernel K2) is not "
-                                  "ported yet")
-    if structure_mode != "loss":
+    if structure_mode not in ("loss", "prox"):
         raise ValueError(f"unknown structure_mode {structure_mode!r}")
-    if grad_accum != 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet")
+    use_prox = structure_mode == "prox"
+    if use_prox and lora.rank > 0 and lora.pos != "FFN":
+        # the prox handles the FFN placement only; training with no
+        # structure pressure at all would corrupt experiments
+        raise ValueError(
+            "structure_mode='prox' supports lora_pos='FFN' only; use the "
+            "reference-faithful structure_mode='loss' for Attention LoRA")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    train_base = trainable == "base"
 
     def forward(params, xf, yf, xr, yr, generator):
         """Dual-stream forward -> (logits_f, emb_f, logits_r, emb_r)."""
@@ -68,13 +90,17 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
         logits_r, emb_r = vit_apply(params, xr, yr, model, lora, **kw)
         return logits_f, emb_f, logits_r, emb_r
 
+    def structure(params):
+        if use_prox:
+            return torch.zeros(())
+        return group_lasso(params["lora"], fcfg.group_type, fcfg.group_pos)
+
     def loss_fn(params, xf, yf, xr, yr, protos, sc, generator):
         logits_f, emb_f, logits_r, emb_r = forward(params, xf, yf, xr, yr,
                                                    generator)
         ce_r = cross_entropy(logits_r, yr)
         l_forget = bounded_forget_loss(logits_f, yf, sc["bnd"])
-        l_struct = group_lasso(params["lora"], fcfg.group_type,
-                               fcfg.group_pos)
+        l_struct = structure(params)
         if use_proto:
             l_proto, l_pro_f_hinged, l_pro_r = hinged_prototype_losses(
                 emb_f, yf, emb_r, yr, protos,
@@ -96,16 +122,107 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
         }
         return total, metrics
 
+    def micro_sums(params, xf, yf, xr, yr, protos, generator):
+        """Masked per-sample SUMS (and valid counts) of every data term
+        over one micro-batch pair: each loss is a masked mean with a
+        max(valid, 1) denominator, so mean * valid is the masked sum (an
+        all-padding micro-batch adds 0)."""
+        logits_f, emb_f, logits_r, emb_r = forward(params, xf, yf, xr, yr,
+                                                   generator)
+        wf = torch.sum((yf >= 0).float())
+        wr = torch.sum((yr >= 0).float())
+        s = {"nf": wf, "nr": wr,
+             "ce_f": cross_entropy(logits_f, yf) * wf,
+             "ce_r": cross_entropy(logits_r, yr) * wr,
+             "acc_f": top1_accuracy(logits_f, yf) * wf,
+             "acc_r": top1_accuracy(logits_r, yr) * wr}
+        if use_proto:
+            dist = fcfg.prototype_distance
+            s["pro_f"] = prototype_loss(emb_f, yf, protos, dist) * wf
+            s["pro_r"] = prototype_loss(emb_r, yr, protos, dist) * wr
+        return s
+
+    def accum_grads(state, leaves, xf, yf, xr, yr, protos, sc, generator):
+        """Gradients over ``grad_accum`` micro-batch pairs, equal to the
+        full-batch gradient (JAX ``_accum_grads``, forget.py:177-261)."""
+        n = grad_accum
+        params = state.params
+        micros = list(zip(*(t.split(t.shape[0] // n)
+                            for t in (xf, yf, xr, yr))))
+        # phase 1: forward only; each micro-batch's generator state first
+        gen_states, sums = [], None
+        with torch.no_grad():
+            for mb in micros:
+                gen_states.append(generator.get_state()
+                                  if generator is not None else None)
+                s = micro_sums(params, *mb, protos, generator)
+                sums = s if sums is None else {k: sums[k] + s[k] for k in s}
+        nf = torch.clamp(sums["nf"], min=1.0)
+        nr = torch.clamp(sums["nr"], min=1.0)
+        ce_f, ce_r = sums["ce_f"] / nf, sums["ce_r"] / nr
+        l_forget = torch.relu(sc["bnd"] - ce_f)
+        # relu' is 0 AT the kink, so the gate is the strict inequality
+        gate_f = (sc["bnd"] - ce_f > 0).float()
+        l_struct = structure(params)
+        if use_proto:
+            l_pro_f, l_pro_r = sums["pro_f"] / nf, sums["pro_r"] / nr
+            hinged = torch.relu(sc["bnd_pro"] - l_pro_f)
+            gate_p = (sc["bnd_pro"] - l_pro_f > 0).float()
+            l_proto = sc["w_pro_f"] * hinged + sc["w_pro_r"] * l_pro_r
+        else:
+            hinged = l_pro_r = l_proto = gate_p = torch.zeros(())
+        total = sc["beta"] * l_forget + ce_r + sc["alpha"] * l_struct + \
+            l_proto
+        metrics = {
+            "loss_total": total,
+            "loss_forget": sc["beta"] * l_forget,
+            "loss_remain": ce_r,
+            "loss_structure": sc["alpha"] * l_struct,
+            "loss_prototype_forget": sc["w_pro_f"] * hinged,
+            "loss_prototype_remain": sc["w_pro_r"] * l_pro_r,
+            "acc_forget": sums["acc_f"] / nf,
+            "acc_remain": sums["acc_r"] / nr,
+        }
+
+        # phase 2: the gated-linear surrogate, same dropout masks
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        for mb, gen_state in zip(micros, gen_states):
+            if generator is not None:
+                generator.set_state(gen_state)
+            s = micro_sums(params, *mb, protos, generator)
+            g = (-sc["beta"] * gate_f * s["ce_f"]) / nf + s["ce_r"] / nr
+            if use_proto:
+                g = g + (-sc["w_pro_f"] * gate_p * s["pro_f"]) / nf \
+                    + sc["w_pro_r"] * s["pro_r"] / nr
+            if not train_base and not use_prox:
+                # data-independent; 1/n per micro-batch sums to it once
+                g = g + sc["alpha"] * group_lasso(
+                    params["lora"], fcfg.group_type, fcfg.group_pos) / n
+            for acc, gi in zip(gsum, torch.autograd.grad(g, leaves)):
+                acc.add_(gi.float())
+        grads = [acc.to(p.dtype) for acc, p in zip(gsum, leaves)]
+        return grads, metrics
+
     def step(state: ForgetState, xf, yf, xr, yr, protos,
              scalars: Dict[str, float], generator=None):
         if state.trainable != trainable:
             raise ValueError(f"state trains {state.trainable!r}, the step "
                              f"{trainable!r}")
         leaves = state.trainable_params()
-        total, metrics = loss_fn(state.params, xf, yf, xr, yr, protos,
-                                 scalars, generator)
-        grads = torch.autograd.grad(total, leaves)
+        if grad_accum > 1 and xf.shape[0] % grad_accum == 0 and \
+                xr.shape[0] % grad_accum == 0:
+            grads, metrics = accum_grads(state, leaves, xf, yf, xr, yr,
+                                         protos, scalars, generator)
+        else:
+            # grad_accum == 1, or a ragged tail batch the micro split
+            # cannot cut evenly: run it unaccumulated
+            total, metrics = loss_fn(state.params, xf, yf, xr, yr, protos,
+                                     scalars, generator)
+            grads = torch.autograd.grad(total, leaves)
         optimizer.update(leaves, grads, state.opt_state, scalars["lr"])
+        if use_prox and not train_base:
+            lora_group_prox(state.params["lora"],
+                            fp32_threshold(scalars["lr"], scalars["alpha"]))
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

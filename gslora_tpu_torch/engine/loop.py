@@ -6,9 +6,10 @@ train_own_forget.py:722-826).
   cycles mid-epoch (engine.py:53/237; cycling engine.py:416-421);
 * eval on test forget/remain before training, every VER_FREQ batches and
   at the end, with H-mean-gated checkpointing (engine.py:381-409);
-* per-epoch alpha-warmup/beta-decay and timm cosine LR.
+* per-epoch alpha-warmup/beta-decay and timm cosine LR;
+* EMA of the merged model after ema_epoch (train_own_forget.py:783-826).
 
-EMA of the merged model and a device mesh are still to port.
+A device mesh is still to port.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from gslora_tpu_torch.config import RunConfig
 from gslora_tpu_torch.data.folders import Dataset
 from gslora_tpu_torch.data.pipeline import BatchLoader, CyclingLoader, \
     DevicePrefetcher
+from gslora_tpu_torch.engine.ema import ema_init, ema_update
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
     make_eval_step
 from gslora_tpu_torch.engine.forget import make_forget_step, scalars_for_epoch
@@ -52,6 +54,7 @@ class ForgetResult:
     remain_acc: float
     open_acc: Optional[float] = None
     norm_list: List[float] = field(default_factory=list)
+    ema: Any = None  # fp32 merged-model EMA tree (average_weight)
     history: List[Dict] = field(default_factory=list)
     wallclock_s: float = 0.0  # time-to-forget (BASELINE.json metric)
 
@@ -90,8 +93,6 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     ALWAYS drives the epoch (engine_cl.py:50-60) and the structure loss
     has no bare alpha_epoch gate."""
     model, lora, fcfg = cfg.model, cfg.lora, cfg.forget
-    if fcfg.average_weight:
-        raise NotImplementedError("EMA (--average_weight) is not ported yet")
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
@@ -167,6 +168,7 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     best_h = 0.0  # reference highest_H_mean init (train_own_forget.py:548)
     last = {"forget_acc": forget_acc_before, "remain_acc": remain_acc_before,
             "open_acc": None}
+    ema = None
     history: List[Dict] = []
 
     def run_eval(epoch):
@@ -223,6 +225,23 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
             logger.log({"images_per_sec": ep_images / dt,
                         "epoch": epoch, "lr": lr}, step=batch)
 
+        # EMA of the merged model (train_own_forget.py:783-826)
+        if fcfg.average_weight:
+            p = state.params
+            if epoch == fcfg.ema_epoch:
+                ema = ema_init(p["base"], p["lora"], lora.scaling)
+            elif epoch > fcfg.ema_epoch and ema is not None:
+                ema = ema_update(ema, p["base"], p["lora"], lora.scaling,
+                                 fcfg.ema_decay)
+            if ema is not None:
+                ema_params = {"base": ema, "lora": {}}
+                logger.log({
+                    "Test forget-ema Accuracy": eval_accuracy(
+                        eval_step, ema_params, test_batches(data.test_forget)),
+                    "Test remain-ema Accuracy": eval_accuracy(
+                        eval_step, ema_params, test_batches(data.test_remain)),
+                }, step=batch)
+
     run_eval(cfg.num_epoch - 1)
     if ckpt:
         ckpt.wait()  # drain any in-flight async save before returning
@@ -232,5 +251,5 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     return ForgetResult(
         state=state, best_h=best_h, forget_acc_before=forget_acc_before,
         forget_acc=last["forget_acc"], remain_acc=last["remain_acc"],
-        open_acc=last["open_acc"], norm_list=norms, history=history,
+        open_acc=last["open_acc"], norm_list=norms, ema=ema, history=history,
         wallclock_s=time.perf_counter() - run_t0)

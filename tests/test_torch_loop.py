@@ -41,15 +41,15 @@ MODEL = dict(image_size=16, patch_size=8, dim=32, depth=2, heads=2,
              emb_dropout=0.0, head_type="CosFace")
 
 
-def _run_config(C, **extra):
+def _run_config(C, fkw=(), epochs=1, **extra):
     return C.RunConfig(
         model=C.ViTConfig(**MODEL), lora=C.LoraConfig(rank=4),
-        optim=C.OptimConfig(lr=1e-2, warmup_epochs=0, epochs=1),
+        optim=C.OptimConfig(lr=1e-2, warmup_epochs=0, epochs=epochs),
         forget=C.ForgetConfig(bnd=10.0, beta=0.3, alpha=5e-4, alpha_epoch=0,
                               prototype=True, pro_f_weight=0.01,
-                              pro_r_weight=0.01),
+                              pro_r_weight=0.01, **dict(fkw)),
         data=C.DataConfig(batch_size=8, data_mode="synthetic"),
-        num_epoch=1, ver_freq=3, disp_freq=1, compute_dtype="float32",
+        num_epoch=epochs, ver_freq=3, disp_freq=1, compute_dtype="float32",
         **extra)
 
 
@@ -77,15 +77,18 @@ def _data(synth, split, Data):
                 test_forget=forget_te, test_remain=remain_te)
 
 
-def test_one_epoch_matches_jax_loop():
+def _jax_params():
     p = jax_init(jax.random.key(0), jc.ViTConfig(**MODEL), jc.LoraConfig(4))
     rng = np.random.RandomState(1)
     for name in ("B1", "B2"):
         p["lora"]["ffn"][name] = jnp.asarray(
             0.05 * rng.randn(*p["lora"]["ffn"][name].shape)
             .astype(np.float32))
-    p = jax.tree.map(np.asarray, p)
+    return jax.tree.map(np.asarray, p)
 
+
+def test_one_epoch_matches_jax_loop():
+    p = _jax_params()
     jrec, trec = _Recorder(), _Recorder()
     jres = jax_run(_run_config(jc), jax.tree.map(jnp.asarray, p),
                    _data(jax_synth, jax_split, JaxData), logger=jrec)
@@ -107,6 +110,37 @@ def test_one_epoch_matches_jax_loop():
     got = flatten_tree(tres.state.params["lora"])
     for name, w in want.items():
         np.testing.assert_allclose(got[name].detach().numpy(), w, rtol=5e-3,
+                                   atol=5e-5, err_msg=name)
+
+
+def test_ema_matches_jax_loop():
+    """EMA of the merged model (average_weight, ema_epoch 0, 2 epochs):
+    init after epoch 0, one update after epoch 1, an eval of it each."""
+    p = _jax_params()
+    fkw = {"average_weight": True, "ema_epoch": 0, "ema_decay": 0.9}
+    jrec, trec = _Recorder(), _Recorder()
+    jres = jax_run(_run_config(jc, fkw, epochs=2),
+                   jax.tree.map(jnp.asarray, p),
+                   _data(jax_synth, jax_split, JaxData), logger=jrec)
+    tres = run_forget_training(_run_config(tc, fkw, epochs=2, device="cpu"),
+                               params_from_jax(p),
+                               _data(synthetic_face_dataset,
+                                     split_by_class_window, ForgetData),
+                               logger=trec)
+
+    def ema_logs(rec):
+        return [(step, m["Test forget-ema Accuracy"],
+                 m["Test remain-ema Accuracy"]) for step, m in rec.records
+                if "Test forget-ema Accuracy" in m]
+
+    assert len(ema_logs(trec)) == len(ema_logs(jrec)) == 2
+    np.testing.assert_allclose(ema_logs(trec), ema_logs(jrec), atol=5e-3)
+    want = flatten_tree(jax.tree.map(np.asarray, jres.ema))
+    got = flatten_tree(tres.ema)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        assert got[name].dtype == torch.float32
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=5e-3,
                                    atol=5e-5, err_msg=name)
 
 
@@ -157,8 +191,8 @@ def test_cli_runs_end_to_end_on_cpu(tiny_cli, tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--SCRUB"], "scrub"), (["--dp"], "--dp"), (["-r", "x.pth"], "-r"),
-    (["--average_weight"], "EMA"), (["--aug_num", "3", "--prototype"],
-                                     "RandAugment"),
+    (["--opt", "adam"], "adam"), (["--aug_num", "3", "--prototype"],
+                                  "RandAugment"),
 ])
 def test_cli_unported_paths_raise(tiny_cli, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
