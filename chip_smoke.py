@@ -12,13 +12,17 @@ non-zero exit code and without the final result line.
    times.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card, at every shape the driven paths give it (K1: train, eval, fused
-   and prototype batches, derived from the paths' configs) and at ragged
-   ones, each output held to a
+   and prototype batches, derived from the paths' configs), at ragged
+   ones and at the edges of K1's 64-row tiles and 16-key blocks, each
+   output held to a
    tolerance scaled to its own size (ops/attention.plain_mismatch,
    ops/group_lasso.group_mismatch); times of the kernel, the plain version
    and the nearest single PyTorch call (library yardstick, never used by
    the port) with CUDA events, and each kernel's bound from its bytes and
-   operations at this card's published rates. The group kernels (K2 prox,
+   operations at this card's published rates. K1 is also timed at each
+   path shape, L2-warm and L2-cold, with its backward's two launches
+   apart, and its blocks per SM, registers and spills are printed. The
+   group kernels (K2 prox,
    K3 norms and rescale, and the fused group-Lasso through autograd) run
    at the flagship LoRA shapes and two ragged ones, fp32 and bf16, with an
    all-zero layer and a threshold that kills one layer and shrinks the
@@ -150,6 +154,26 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_cold_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of ``fn`` with a cold L2: before each call a
+    64 MB write (more than the H100's 50 MB L2) evicts its inputs, and each
+    call is timed by its own pair of events, so the flush is not counted.
+    As in :func:`cuda_ms`, everything queues behind a device-side sleep."""
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=DEV)
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(1 << 25)
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def inputs(bh, n, d, seed):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn(bh, n, d, generator=g).to(DEV, torch.bfloat16)
@@ -183,70 +207,128 @@ def path_shapes():
     return sorted(shapes)
 
 
+# Two ragged shapes, and the edges of K1's 64-row tiles and 16-key blocks
+# up to the longest sequence: (bh, n, d)
+EDGE_SHAPES = [(6, 17, 64), (3, 70, 64), (7, 63, 64), (7, 64, 64),
+               (7, 65, 64), (5, 128, 64), (5, 129, 64), (5, 193, 64),
+               (5, 208, 64), (4, 232, 64), (4, A.KERNEL_MAX_N, 64),
+               (3, A.KERNEL_MAX_N, 128)]
+
+
+def k1_bounds(bh, n, d, bw, peak):
+    """Least time of K1 forward and backward at (bh, n, d): bytes (4 and 7
+    bf16 (bh, n, d) tensors, each read or written once) against products
+    (2 and 5 sets of 2 bh n^2 d FLOPs) at the card's rates; (ms, which)."""
+    tensor_bytes, matmul = bh * n * d * 2, 2 * bh * n * n * d
+    out = {}
+    for name, nt, nm in (("fwd", 4, 2), ("bwd", 7, 5)):
+        t_bytes = nt * tensor_bytes / bw * 1e3
+        t_ops = nm * matmul / peak * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def kernel_phase(bw, peak):
     """K1 forward and backward against the plain version at every shape
-    the driven paths give it and two ragged ones; timings and bounds at
-    the flagship shape."""
+    the driven paths give it and at the tile edges; warm and L2-cold times
+    at each path shape; plain, library and the backward's two launches at
+    the flagship shape; occupancy of the three kernels."""
     errs = {"fwd": 0.0, "bwd": 0.0}
-    shapes = [(bh, n, seed) for seed, (bh, n) in enumerate(path_shapes(), 3)]
-    shapes += [(6, 17, 1), (3, 70, 2)]
-    for bh, n, seed in shapes:
-        q, k, v, g = inputs(bh, n, HEAD_DIM, seed)
+    shapes = [(bh, n, HEAD_DIM, seed)
+              for seed, (bh, n) in enumerate(path_shapes(), 3)]
+    shapes += [(bh, n, d, seed) for seed, (bh, n, d) in
+               enumerate(EDGE_SHAPES, 20)]
+    for bh, n, d, seed in shapes:
+        q, k, v, g = inputs(bh, n, d, seed)
         o = A.attention_fwd_kernel(q, k, v, SCALE)
         torch.cuda.synchronize()
         errs["fwd"] = max(errs["fwd"], max_err(
             [o], [A.attention_fwd_plain(q, k, v, SCALE)], ["o"],
-            f"attention forward at {(bh, n, HEAD_DIM)}"))
+            f"attention forward at {(bh, n, d)}"))
         grads = A.attention_bwd_kernel(q, k, v, g, SCALE)
         torch.cuda.synchronize()
         errs["bwd"] = max(errs["bwd"], max_err(
             grads, A.attention_bwd_plain(q, k, v, g, SCALE),
-            ["dq", "dk", "dv"], f"attention backward at {(bh, n, HEAD_DIM)}"))
+            ["dq", "dk", "dv"], f"attention backward at {(bh, n, d)}"))
+
+    occupancy = A.kernel_info(N_TOKENS, HEAD_DIM)
+    print(f"attention kernels at n={N_TOKENS}, d={HEAD_DIM}: " +
+          json.dumps(occupancy), flush=True)
+
+    by_shape = {"fwd": {}, "bwd": {}}
+    with torch.no_grad():
+        for bh, n in path_shapes():
+            q, k, v, g = inputs(bh, n, HEAD_DIM, 7)
+            bounds = k1_bounds(bh, n, HEAD_DIM, bw, peak)
+            for key, fn in (
+                    ("fwd", lambda: A.attention_fwd_kernel(q, k, v, SCALE)),
+                    ("bwd", lambda: A.attention_bwd_kernel(q, k, v, g,
+                                                           SCALE))):
+                by_shape[key][f"{bh}x{n}x{HEAD_DIM}"] = {
+                    "ms": cuda_ms(fn), "cold_ms": cuda_cold_ms(fn),
+                    "bound_ms": bounds[key][0]}
+    print("attention kernel times by path shape (warm, L2-cold, bound): " +
+          json.dumps(by_shape), flush=True)
 
     bh, n, d = FLAGSHIP_BH, N_TOKENS, HEAD_DIM
     q, k, v, g = inputs(bh, n, d, 3)
-    tensor_bytes = bh * n * d * 2
-    matmul = 2 * bh * n * n * d  # FLOPs of one (n x n x d) product set
     # library yardsticks: SDPA forward; its backward alone (autograd.grad
     # over one recorded forward, which saved its row statistics)
     q4, k4, v4, g4 = (t.reshape(bh // 8, 8, n, d) for t in (q, k, v, g))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
     out_l = sdpa(ql, kl, vl, scale=SCALE)
-    rows = []
     with torch.no_grad():
+        _, stats = A.attention_bwd_rows_kernel(q, k, v, g, SCALE)
+        split = {"rows_ms": cuda_ms(
+                     lambda: A.attention_bwd_rows_kernel(q, k, v, g, SCALE)),
+                 "keys_ms": cuda_ms(
+                     lambda: A.attention_bwd_keys_kernel(q, k, v, g, stats,
+                                                         SCALE))}
         fwd = {"ms": cuda_ms(lambda: A.attention_fwd_kernel(q, k, v, SCALE)),
                "plain_ms": cuda_ms(
                    lambda: A.attention_fwd_plain(q, k, v, SCALE), iters=20),
-               "library_ms": cuda_ms(lambda: sdpa(q4, k4, v4, scale=SCALE)),
-               "bytes": 4 * tensor_bytes, "flops": 2 * matmul}
+               "library_ms": cuda_ms(lambda: sdpa(q4, k4, v4, scale=SCALE))}
         bwd = {"ms": cuda_ms(
                    lambda: A.attention_bwd_kernel(q, k, v, g, SCALE)),
                "plain_ms": cuda_ms(
                    lambda: A.attention_bwd_plain(q, k, v, g, SCALE),
-                   iters=20),
-               "bytes": 7 * tensor_bytes, "flops": 5 * matmul}
+                   iters=20)}
     bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         out_l, (ql, kl, vl), g4, retain_graph=True))
+    print(f"attention backward at ({bh}, {n}, {d}): rows launch "
+          f"{split['rows_ms']:.4f} ms, keys launch {split['keys_ms']:.4f} "
+          f"ms", flush=True)
+    flagship = f"{bh}x{n}x{d}"
+    bounds = k1_bounds(bh, n, d, bw, peak)
+    rows = []
     for name, line, t in (("attention_fwd", ":149", fwd),
                           ("attention_bwd", ":179", bwd)):
-        t_bytes, t_ops = t["bytes"] / bw * 1e3, t["flops"] / peak * 1e3
+        key = name[-3:]
         rows.append({
             "name": name, "route": "cuda",
             "source": "gslora_tpu_torch/csrc/attention.cu",
             "replaces": "gslora_tpu/ops/attention.py" + line,
             "launches": None,
-            "max_abs_err": errs[name[-3:]],
+            "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             "library_ms": t["library_ms"],
             "shape": [bh, n, d],
+            "cold_ms": by_shape[key][flagship]["cold_ms"],
+            "ms_by_shape": by_shape[key],
+            "occupancy": {kn: occupancy[kn] for kn in occupancy
+                          if kn.startswith("forward" if key == "fwd"
+                                           else "backward")},
         })
-        print(f"{name} at ({bh}, {n}, {d}) bf16: kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, library "
-              f"{t['library_ms']:.4f} ms, bound {max(t_bytes, t_ops):.4f} "
-              f"ms ({rows[-1]['bound_by']})", flush=True)
+        if key == "bwd":
+            rows[-1]["split_ms"] = split
+        print(f"{name} at ({bh}, {n}, {d}) bf16: kernel {t['ms']:.4f} ms "
+              f"(L2-cold {rows[-1]['cold_ms']:.4f}), plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]})",
+              flush=True)
     return rows
 
 

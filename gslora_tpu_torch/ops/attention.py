@@ -12,11 +12,14 @@ residuals in device memory):
         dq = bf16(ddots) k · scale, dk = bf16(ddots)ᵀ q · scale
 
 On the card both directions run in ``csrc/attention.cu`` (CUDA C++ for
-sm_90a, bound with ctypes; the source notes its design and bound). The
-plain version below computes the same function with the same rounding
-points in eager PyTorch; it runs for tensors on the CPU and is what the
-kernel is held against on the card. There is no fallback: a CUDA tensor
-goes to the kernel, or the wrapper raises.
+sm_90a with wgmma and TMA, bound with ctypes; the source notes its
+design and bound). The backward is two launches: a rows kernel (dq and the
+row statistics m, l, 1/l, D = rowsum(dp ⊙ p) of each query row) and a keys
+kernel (dk, dv from those statistics); ``BWD_LAUNCHES`` counts the pair
+once. The plain version below computes the same function with the same
+rounding points in eager PyTorch; it runs for tensors on the CPU and is
+what the kernel is held against on the card. There is no fallback: a CUDA
+tensor goes to the kernel, or the wrapper raises.
 """
 from __future__ import annotations
 
@@ -30,6 +33,12 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# Longest sequence the kernels take: a 64-row query tile keeps its whole
+# score row, padded to a multiple of 16 keys, in registers.
+KERNEL_MAX_N = 256
+# fp32 row statistics the backward's first launch leaves for its second, one
+# plane each: m, l, 1 / l and D = rowsum(dp ⊙ p)
+STATS = ("m", "l", "inv_l", "D")
 _LIB = None
 
 # How far a kernel output (bf16) may sit from the plain version's. Both
@@ -80,6 +89,41 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def attention_bwd_stats_plain(q, k, v, g, scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The row statistics of the kernel's backward, fp32 (BH, n) each:
+    m = max of the scaled scores, l = sum of exp(scores - m) and
+    D = rowsum(dp ⊙ p) with fp32 p and dp."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    g = g.to(q.dtype).float()
+    dots = torch.einsum("xid,xjd->xij", qf, kf) * scale
+    m = dots.amax(dim=-1)
+    e = torch.exp(dots - m[..., None])
+    l_ = e.sum(dim=-1)
+    p = e / l_[..., None]
+    dp = torch.einsum("xid,xjd->xij", g, vf)
+    return m, l_, torch.sum(dp * p, dim=-1)
+
+
+def attention_bwd_from_stats_plain(q, k, v, g, scale: float, m, l_, dsum
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The backward as the kernel splits it: p = exp(scores - m) / l and
+    ddots = p ⊙ (dp - D) from the row statistics, then dq, dk, dv as in
+    :func:`attention_bwd_plain`."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    g = g.to(q.dtype).float()
+    dots = torch.einsum("xid,xjd->xij", qf, kf) * scale
+    p = torch.exp(dots - m[..., None]) / l_[..., None]
+    dv = torch.einsum("xij,xid->xjd", p.to(q.dtype).float(), g)
+    dp = torch.einsum("xid,xjd->xij", g, vf)
+    dd = (p * (dp - dsum[..., None])).to(q.dtype).float()
+    dq = torch.einsum("xij,xjd->xid", dd, kf) * scale
+    dk = torch.einsum("xij,xid->xjd", dd, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def attention_bwd_plain(q, k, v, g, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What ``_bwd_kernel`` (gslora_tpu/ops/attention.py:99-125) computes:
@@ -109,15 +153,21 @@ def _lib():
         lib = load("attention")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gslora_attn_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, cf, vp]
-        lib.gslora_attn_fwd.restype = ci
-        lib.gslora_attn_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                        ci, cf, vp]
-        lib.gslora_attn_bwd.restype = ci
-        for fn in (lib.gslora_attn_fwd_smem, lib.gslora_attn_bwd_smem):
-            fn.argtypes = [ci, ci]
-            fn.restype = ctypes.c_longlong
-        lib.gslora_attn_max_smem.argtypes = []
-        lib.gslora_attn_max_smem.restype = ctypes.c_longlong
+        lib.gslora_attn_bwd_rows.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                             ci, cf, vp]
+        lib.gslora_attn_bwd_keys.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+                                             ci, ci, cf, vp]
+        lib.gslora_attn_kernel_info.argtypes = [ci, ci, ci,
+                                                ctypes.POINTER(ci)]
+        for fn in (lib.gslora_attn_fwd, lib.gslora_attn_bwd_rows,
+                   lib.gslora_attn_bwd_keys, lib.gslora_attn_kernel_info,
+                   lib.gslora_attn_max_n, lib.gslora_attn_stats):
+            fn.restype = ci
+        if (lib.gslora_attn_max_n(), lib.gslora_attn_stats()) != \
+                (KERNEL_MAX_N, len(STATS)):
+            raise RuntimeError("csrc/attention.cu and ops/attention.py "
+                               "disagree on the longest sequence or the "
+                               "row statistics")
         _LIB = lib
     return _LIB
 
@@ -141,18 +191,15 @@ def _check_kernel_args(*ts: torch.Tensor) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention kernel needs contiguous tensors "
                              "aligned to 16 bytes")
-    d = q.shape[-1]
+    bh, n, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernel is built for head dims "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-
-
-def _check_smem(need: int, what: str, n: int, d: int) -> None:
-    limit = _lib().gslora_attn_max_smem()
-    if need <= 0 or need > limit:
-        raise ValueError(f"attention {what} kernel at n={n}, d={d} needs "
-                         f"{need} bytes of shared memory per block "
-                         f"(limit {limit})")
+    if not 1 <= n <= KERNEL_MAX_N or bh < 1:
+        raise ValueError(f"attention kernel takes 1 <= n <= {KERNEL_MAX_N} "
+                         f"tokens (a query tile's score row lives in "
+                         f"registers) and at least one slice, got bh={bh}, "
+                         f"n={n}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -161,37 +208,83 @@ def _raise_on(err: int, what: str) -> None:
                            f"error {err}")
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def attention_fwd_kernel(q, k, v, scale: float) -> torch.Tensor:
     """Launch the forward kernel on the current stream."""
     global FWD_LAUNCHES
     _check_kernel_args(q, k, v)
     bh, n, d = q.shape
-    lib = _lib()
-    _check_smem(lib.gslora_attn_fwd_smem(n, d), "forward", n, d)
     o = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _raise_on(lib.gslora_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  o.data_ptr(), bh, n, d, float(scale),
-                                  stream), "forward")
+    _raise_on(_lib().gslora_attn_fwd(q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), o.data_ptr(), bh, n, d,
+                                     float(scale), _stream(q)), "forward")
     FWD_LAUNCHES += 1
     return o
 
 
-def attention_bwd_kernel(q, k, v, g, scale: float):
-    """Launch the recompute-backward kernel on the current stream."""
-    global BWD_LAUNCHES
+def attention_bwd_rows_kernel(q, k, v, g, scale: float):
+    """The backward's first launch alone: dq and the row statistics, a
+    (4, BH, n) fp32 tensor with the planes of ``STATS``. Not counted in
+    ``BWD_LAUNCHES`` (a backward counts once, in
+    :func:`attention_bwd_kernel`); the card tests and ``chip_smoke.py``
+    call it to check and time the two launches apart."""
     _check_kernel_args(q, k, v, g)
     bh, n, d = q.shape
-    lib = _lib()
-    _check_smem(lib.gslora_attn_bwd_smem(n, d), "backward", n, d)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _raise_on(lib.gslora_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                  dv.data_ptr(), bh, n, d, float(scale),
-                                  stream), "backward")
+    dq = torch.empty_like(q)
+    stats = torch.empty(len(STATS), bh, n, dtype=torch.float32,
+                        device=q.device)
+    _raise_on(_lib().gslora_attn_bwd_rows(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), stats.data_ptr(), bh, n, d, float(scale),
+        _stream(q)), "backward rows")
+    return dq, stats
+
+
+def attention_bwd_keys_kernel(q, k, v, g, stats, scale: float):
+    """The backward's second launch alone: dk and dv from the statistics
+    of :func:`attention_bwd_rows_kernel`. Not counted, as that one."""
+    _check_kernel_args(q, k, v, g)
+    bh, n, d = q.shape
+    if (stats.shape != (len(STATS), bh, n) or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"attention backward: statistics must be a "
+                         f"contiguous ({len(STATS)}, {bh}, {n}) float32 "
+                         f"tensor on {q.device}")
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    _raise_on(_lib().gslora_attn_bwd_keys(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        stats.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, n, d,
+        float(scale), _stream(q)), "backward keys")
+    return dk, dv
+
+
+def attention_bwd_kernel(q, k, v, g, scale: float):
+    """Launch the recompute backward (rows, then keys) on the current
+    stream; one count in ``BWD_LAUNCHES``."""
+    global BWD_LAUNCHES
+    dq, stats = attention_bwd_rows_kernel(q, k, v, g, scale)
+    dk, dv = attention_bwd_keys_kernel(q, k, v, g, stats, scale)
     BWD_LAUNCHES += 1
     return dq, dk, dv
+
+
+KERNEL_NAMES = ("forward", "backward rows", "backward keys")
+
+
+def kernel_info(n: int, d: int) -> dict:
+    """For each of the three kernels at (n, d): blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    spill (local) bytes per thread, shared memory per block."""
+    lib, out = _lib(), (ctypes.c_int * 4)()
+    info = {}
+    for which, name in enumerate(KERNEL_NAMES):
+        _raise_on(lib.gslora_attn_kernel_info(which, n, d, out), name)
+        info[name] = dict(zip(("blocks_per_sm", "registers", "spill_bytes",
+                               "smem_bytes"), list(out)))
+    return info
 
 
 # ---------------------------------------------------------------------------

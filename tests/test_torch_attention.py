@@ -9,10 +9,13 @@ seed, both sides fp32. Also on the CPU: the tolerance the kernel is held
 to (``plain_mismatch``) passes a reordering of the sums and rejects
 planted faults at the flagship's n, d and scale.
 
-Card cases (marker ``cuda``): the CUDA kernel (csrc/attention.cu) against
-the plain version in bf16, at the flagship shape and at ragged shapes. They
-skip without a GPU. JAX is imported only inside the CPU cases, so on a
-machine with a card and without JAX they run as
+Card cases (marker ``cuda``): the CUDA kernels (csrc/attention.cu) against
+the plain version in bf16, at the flagship shape, at ragged shapes and on
+the edges of the 64-row tiles and 16-key blocks up to the longest
+sequence; the backward's row statistics against
+``attention_bwd_stats_plain``; the length limit; and that two launches
+repeat bit for bit. They skip without a GPU. JAX is imported only inside
+the CPU cases, so on a machine with a card and without JAX they run as
 ``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``.
 """
 import numpy as np
@@ -106,6 +109,26 @@ def test_bhnd_front_end_and_plain_flag_agree():
     for plain in (False, True):
         o = A.fused_attention_bhnd(q, k, v, 0.3, plain=plain)
         torch.testing.assert_close(o.reshape(6, 9, 8), flat, rtol=0, atol=0)
+
+
+def test_backward_from_row_statistics_matches_plain():
+    """The kernel's split of the backward (row statistics m, l and
+    D = rowsum(dp ⊙ p) first, then p = exp(s - m) / l and ddots from them)
+    is the direct backward: in fp32 the two agree to float rounding
+    (rtol 1e-5, atol 1e-6 on values of order 1e-2 to 1)."""
+    rng = np.random.RandomState(4)
+    q, k, v, g = (torch.from_numpy(_randn(rng, (3, 70, 16)))
+                  for _ in range(4))
+    m, l_, dsum = A.attention_bwd_stats_plain(q, k, v, g, 0.25)
+    assert m.shape == l_.shape == dsum.shape == (3, 70)
+    got = A.attention_bwd_from_stats_plain(q, k, v, g, 0.25, m, l_, dsum)
+    want = A.attention_bwd_plain(q, k, v, g, 0.25)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+    dots = torch.einsum("xid,xjd->xij", q, k) * 0.25
+    torch.testing.assert_close(m, dots.amax(-1), rtol=0, atol=0)
+    torch.testing.assert_close(torch.logsumexp(dots, -1), m + torch.log(l_),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -222,8 +245,14 @@ def _assert_matches_plain(got, want, names, where):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,n,d", [(384, 197, 64), (6, 17, 64), (5, 1, 64),
-                                    (3, 33, 16), (2, 70, 32), (2, 40, 128)])
+@pytest.mark.parametrize("bh,n,d", [
+    (384, 197, 64), (6, 17, 64), (5, 1, 64), (3, 33, 16), (2, 70, 32),
+    (2, 40, 128),
+    # edges of the 64-row tiles, of the 16-key blocks and of a last query
+    # tile of 1 to 3 such blocks, and the longest sequence
+    (7, 63, 64), (7, 64, 64), (7, 65, 64), (5, 128, 64), (5, 129, 64),
+    (5, 49, 64), (5, 193, 64), (5, 208, 64), (4, 232, 64),
+    (4, A.KERNEL_MAX_N, 64), (3, A.KERNEL_MAX_N, 128)])
 def test_kernel_matches_plain(cuda_device, bh, n, d):
     q, k, v, g = _card_inputs(bh, n, d, cuda_device)
     o = A.attention_fwd_kernel(q, k, v, FLAGSHIP_SCALE)
@@ -258,3 +287,45 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
         A.attention_fwd_kernel(q[..., :8].contiguous(),
                                k[..., :8].contiguous(),
                                v[..., :8].contiguous(), 0.1)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_one_past_the_longest_sequence(cuda_device):
+    q, k, v, g = _card_inputs(1, A.KERNEL_MAX_N + 1, 64, cuda_device)
+    with pytest.raises(ValueError, match=f"n <= {A.KERNEL_MAX_N}"):
+        A.attention_fwd_kernel(q, k, v, 0.1)
+    with pytest.raises(ValueError, match=f"n <= {A.KERNEL_MAX_N}"):
+        A.attention_bwd_kernel(q, k, v, g, 0.1)
+
+
+@pytest.mark.cuda
+def test_kernel_repeats_bit_for_bit(cuda_device):
+    """No atomics and a fixed order of every sum: a second launch on the
+    same inputs gives the same bits."""
+    q, k, v, g = _card_inputs(96, 197, 64, cuda_device, seed=2)
+    first = [A.attention_fwd_kernel(q, k, v, FLAGSHIP_SCALE),
+             *A.attention_bwd_kernel(q, k, v, g, FLAGSHIP_SCALE)]
+    second = [A.attention_fwd_kernel(q, k, v, FLAGSHIP_SCALE),
+              *A.attention_bwd_kernel(q, k, v, g, FLAGSHIP_SCALE)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,d", [(384, 197, 64), (5, 65, 32)])
+def test_backward_row_statistics_match_plain(cuda_device, bh, n, d):
+    """The rows kernel's m, l and D against attention_bwd_stats_plain on the
+    same bf16 inputs: fp32 values that differ only in the order of sums,
+    each held to 1e-4 of its largest magnitude; its 1 / l is the correctly
+    rounded reciprocal of its l."""
+    q, k, v, g = _card_inputs(bh, n, d, cuda_device, seed=5)
+    _, stats = A.attention_bwd_rows_kernel(q, k, v, g, FLAGSHIP_SCALE)
+    torch.cuda.synchronize()
+    got = dict(zip(A.STATS, stats))
+    want = A.attention_bwd_stats_plain(q, k, v, g, FLAGSHIP_SCALE)
+    for name, b in zip(("m", "l", "D"), want):
+        err = float((got[name] - b).abs().max())
+        print(f"row statistics {name} at {(bh, n, d)}: max abs {err}")
+        assert err <= 1e-4 * float(b.abs().max()), name
+    assert torch.equal(got["inv_l"], 1.0 / got["l"])
