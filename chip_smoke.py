@@ -24,9 +24,12 @@ non-zero exit code and without the final result line.
    apart, and its blocks per SM, registers and spills are printed. The
    group kernels (K2 prox,
    K3 norms and rescale, and the fused group-Lasso through autograd) run
-   at the flagship LoRA shapes and two ragged ones, fp32 and bf16, with an
-   all-zero layer and a threshold that kills one layer and shrinks the
-   others.
+   at the flagship LoRA shapes, ViT-B/16's rank-8 LoRA and two ragged
+   ones, fp32 and bf16, with an all-zero layer and a threshold that kills
+   one layer and shrinks the others, the flagship also on the prox's
+   streamed path; then their cluster size, the clusters the card holds
+   at once, the launch floor (an empty kernel of group_lasso.cu through
+   the same ctypes path) and their times at both LoRA shapes.
 3. Model check: the flagship model's embeddings, logits and LoRA
    gradients (bf16, dropout off, 4 images) with attention through the
    kernels against the same with the kernels' plain version
@@ -83,6 +86,8 @@ from gslora_tpu_torch.models.vit import ViT, init_vit_params  # noqa: E402
 from gslora_tpu_torch.ops import attention as A  # noqa: E402
 from gslora_tpu_torch.ops import cuda_build  # noqa: E402
 from gslora_tpu_torch.ops import group_lasso as G  # noqa: E402
+from gslora_tpu_torch.tools import group_bench as GB  # noqa: E402
+from gslora_tpu_torch.utils.timing import cuda_cold_ms, cuda_ms  # noqa: E402
 
 DEV = torch.device("cuda")
 SCALE = 512 ** -0.5  # the flagship's attention scale, dim**-0.5
@@ -122,56 +127,6 @@ def build_all():
 
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         return dict(zip(SOURCES, pool.map(timed, SOURCES)))
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device milliseconds per call of ``fn`` on the current stream.
-
-    The timed calls queue behind a device-side sleep, so the host has
-    enqueued all of them before the first starts, and the events time the
-    device's work back to back rather than the host's dispatch (which for
-    a library call can take longer than its kernels)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    cycles = 1 << 25  # ~17 ms at the H100's boost clock
-    for _ in range(3):
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        queued_in_time = not start.query()
-        torch.cuda.synchronize()
-        if queued_in_time:
-            break
-        cycles *= 4
-    else:
-        print("timing: the device woke before the host had queued every "
-              "call; this time includes host dispatch", flush=True)
-    return start.elapsed_time(end) / iters
-
-
-def cuda_cold_ms(fn, iters: int = 20) -> float:
-    """Mean device milliseconds of ``fn`` with a cold L2: before each call a
-    64 MB write (more than the H100's 50 MB L2) evicts its inputs, and each
-    call is timed by its own pair of events, so the flush is not counted.
-    As in :func:`cuda_ms`, everything queues behind a device-side sleep."""
-    flush = torch.empty(16 << 20, dtype=torch.float32, device=DEV)
-    fn()
-    torch.cuda.synchronize()
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(1 << 25)
-    for start, end in pairs:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
 def inputs(bh, n, d, seed):
@@ -332,24 +287,6 @@ def kernel_phase(bw, peak):
     return rows
 
 
-def lora_factors(shape, dtype, seed):
-    """The four FFN LoRA factors on the card, layer l scaled by (l + 1)
-    and layer 0 all zero (for L > 1), and a threshold between the two
-    smallest live layer norms: that layer dies, the larger ones shrink."""
-    L, r, d, m = shape
-    g = torch.Generator().manual_seed(seed)
-    ts = []
-    for shp in ((L, r, d), (L, m, r), (L, r, m), (L, d, r)):
-        t = 0.3 * torch.randn(shp, generator=g) * \
-            torch.arange(1, L + 1).reshape(-1, 1, 1)
-        if L > 1:
-            t[0] = 0.0
-        ts.append(t.to(DEV, dtype))
-    live = sorted(x for x in G.group_norms_plain(*ts).tolist() if x > 0)
-    thr = 0.5 * live[0] if len(live) == 1 else 0.5 * (live[0] + live[1])
-    return ts, thr
-
-
 def group_max_err(got, want, what, norms=False):
     """Largest abs error of a group kernel's outputs; raises unless each
     is within ops/group_lasso.group_mismatch's tolerance."""
@@ -363,19 +300,28 @@ def group_max_err(got, want, what, norms=False):
 
 
 def group_phase(bw, fp32_peak):
-    """K2 and K3 against their plain versions (flagship LoRA shapes and
-    two ragged ones, fp32 and bf16, a zero layer, a killing threshold),
-    the fused group-Lasso through autograd, and timings at the flagship
-    in fp32 (the LoRA's dtype on the main path)."""
+    """K2 and K3 against their plain versions (the flagship LoRA, ViT-B/16's
+    rank-8 LoRA and two ragged shapes, fp32 and bf16, a zero layer, a
+    killing threshold; the flagship also on the streamed path), the fused
+    group-Lasso through autograd; then the cluster size, the clusters the
+    card holds at once, the launch floor, and the three kernels' times at
+    both LoRA shapes in fp32 (the LoRA's dtype on the main path)."""
     errs = {"group_prox": 0.0, "group_norms": 0.0, "group_scale": 0.0}
-    for shape in (LORA_SHAPE, (1, 1, 1, 3), (3, 5, 17, 33)):
+    cases = [(shape, "default") for shape in
+             (LORA_SHAPE, GB.SHAPES["vit_b16_r8"], (1, 1, 1, 3),
+              (3, 5, 17, 33))] + [(LORA_SHAPE, "streamed")]
+    for shape, path in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            where = f"{shape} {str(dtype)[6:]}"
-            ts, thr = lora_factors(shape, dtype, seed=shape[1])
-            norms = G.group_norms_kernel(*ts)
-            prox = G.group_prox_kernel(*ts, thr)
+            where = f"{shape} {str(dtype)[6:]} {path}"
+            ts, thr = GB.lora_factors(shape, dtype, seed=shape[1])
+            L, r, d, m = shape
+            plan = G.group_plan(L, r * d, m * r, r * m, d * r, dtype,
+                                max_share_bytes=0) \
+                if path == "streamed" else None
+            norms = G.group_norms_kernel(*ts, plan=plan)
+            prox = G.group_prox_kernel(*ts, thr, plan=plan)
             inv = (1.0 / torch.clamp_min(norms, 1e-12)).to(dtype)
-            scaled = G.group_scale_kernel(*ts, inv)
+            scaled = G.group_scale_kernel(*ts, inv, plan=plan)
             leaves = [t.clone().requires_grad_(True) for t in ts]
             value = G.group_lasso_fused(*leaves)
             value.backward()
@@ -403,46 +349,67 @@ def group_phase(bw, fp32_peak):
                   f"kills {killed} of {shape[0]} layers; max abs "
                   f"{json.dumps(errs)}", flush=True)
 
-    ts, thr = lora_factors(LORA_SHAPE, torch.float32, seed=9)
-    inv = (1.0 / torch.clamp_min(G.group_norms_plain(*ts), 1e-12))
-    numel = sum(t.numel() for t in ts)
-    L, nbytes = LORA_SHAPE[0], numel * 4
-    note = ("no single PyTorch call computes a per-layer group norm over "
-            "four tensors")
-    timed = {
-        # bytes: each input read once, each output written once;
-        # operations: square-and-add per element (+ multiply to scale)
-        "group_prox": (lambda: G.group_prox_kernel(*ts, thr),
-                       lambda: G.group_prox_plain(*ts, thr),
-                       2 * nbytes, 3 * numel, ":147"),
-        "group_norms": (lambda: G.group_norms_kernel(*ts),
-                        lambda: G.group_norms_plain(*ts),
-                        nbytes + 4 * L, 2 * numel, ":57"),
-        "group_scale": (lambda: G.group_scale_kernel(*ts, inv),
-                        lambda: G.group_scale_plain(*ts, inv),
-                        2 * nbytes + 4 * L, numel, ":81"),
-    }
-    rows = []
+    plans = {label: GB.cluster_report(shape)
+             for label, shape in GB.SHAPES.items()}
+    floor = GB.launch_floor(LORA_SHAPE[0])
+    print("group kernels' plans (cluster size C, on chip, share bytes, "
+          "cudaOccupancyMaxActiveClusters by C): " + json.dumps(plans) +
+          "; launch floor (empty kernel, ms): " + json.dumps(floor),
+          flush=True)
+    by_shape = {name: {} for name in errs}
     with torch.no_grad():
-        for name, (kern, plain, nb, ops, line) in timed.items():
-            # 20 plain calls (~20 launches each) stay inside the launch
-            # queue, so they too are all queued before the device wakes
-            ms, plain_ms = cuda_ms(kern), cuda_ms(plain, iters=20)
-            t_bytes, t_ops = nb / bw * 1e3, ops / fp32_peak * 1e3
-            rows.append({
-                "name": name, "route": "cuda",
-                "source": "gslora_tpu_torch/csrc/group_lasso.cu",
-                "replaces": "gslora_tpu/ops/group_lasso.py" + line,
-                "launches": None, "max_abs_err": errs[name],
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "library_note": note,
-                "shape": list(LORA_SHAPE), "dtype": "float32",
-            })
-            print(f"{name} at {LORA_SHAPE} fp32: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
-                  f"({rows[-1]['bound_by']})", flush=True)
+        for label, shape in GB.SHAPES.items():
+            ts, thr = GB.lora_factors(shape, torch.float32, seed=9)
+            bounds = GB.group_bounds(shape, 4, bw, fp32_peak)
+            for name, fn in GB.kernel_calls(ts, thr).items():
+                by_shape[name][label] = {"ms": cuda_ms(fn),
+                                         "bound_ms": bounds[name][0]}
+        ts, thr = GB.lora_factors(LORA_SHAPE, torch.float32, seed=9)
+        inv = 1.0 / torch.clamp_min(G.group_norms_plain(*ts), 1e-12)
+        # 20 plain calls (~20 launches each) stay inside the launch queue,
+        # so they too are all queued before the device wakes
+        plain_ms = {
+            "group_prox": cuda_ms(lambda: G.group_prox_plain(*ts, thr),
+                                  iters=20),
+            "group_norms": cuda_ms(lambda: G.group_norms_plain(*ts),
+                                   iters=20),
+            "group_scale": cuda_ms(lambda: G.group_scale_plain(*ts, inv),
+                                   iters=20)}
+    bounds = GB.group_bounds(LORA_SHAPE, 4, bw, fp32_peak)
+    flagship = plans["flagship"]
+    rows = []
+    for name, line in (("group_prox", ":147"), ("group_norms", ":57"),
+                       ("group_scale", ":81")):
+        clustered = name != "group_scale"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gslora_tpu_torch/csrc/group_lasso.cu",
+            "replaces": "gslora_tpu/ops/group_lasso.py" + line,
+            "launches": None, "max_abs_err": errs[name],
+            "ms": by_shape[name]["flagship"]["ms"],
+            "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a per-layer "
+                            "group norm over four tensors",
+            "shape": list(LORA_SHAPE), "dtype": "float32",
+            "ms_by_shape": by_shape[name],
+            "launch_floor_ms": floor["cluster_grid_ms" if clustered
+                                     else "scale_grid_ms"],
+            "launch_floor_one_block_ms": floor["one_block_ms"],
+            "cluster": {"size": flagship["cluster"],
+                        "max_active_clusters":
+                            flagship["max_active_clusters"][
+                                str(flagship["cluster"])],
+                        "onchip": flagship["onchip"]}
+            if clustered else {"size": None,
+                               "blocks_per_layer": G.SCALE_BLOCKS},
+        })
+        print(f"{name} at {LORA_SHAPE} fp32: kernel {rows[-1]['ms']:.4f} ms "
+              f"(ViT-B/16 r8: {by_shape[name]['vit_b16_r8']['ms']:.4f}), "
+              f"plain {plain_ms[name]:.4f} ms, bound {bounds[name][0]:.5f} "
+              f"ms ({bounds[name][1]}), launch floor "
+              f"{rows[-1]['launch_floor_ms']:.4f} ms", flush=True)
     return rows
 
 

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -37,25 +37,30 @@ def _nvcc() -> str:
                        "toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _source(name: str, src: Optional[Path]) -> Path:
+    return CSRC_DIR / f"{name}.cu" if src is None else Path(src)
+
+
+def library_path(name: str, src: Optional[Path] = None) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` (or from ``src``,
+    under the name ``name``) lives."""
+    code = _source(name, src).read_bytes()
+    key = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists. The
-    compiler's report (registers, shared memory and spills from
-    ``-Xptxas -v``) goes to ``_build/<name>.log``; a failed build raises
-    with it."""
-    out = library_path(name)
+def build(name: str, src: Optional[Path] = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or the source ``src``) unless an
+    up-to-date library exists. The compiler's report (registers, shared
+    memory and spills from ``-Xptxas -v``) goes to ``_build/<name>.log``;
+    a failed build raises with it."""
+    out = library_path(name, src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = BUILD_DIR / f"{name}.log"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name, src))]
     with open(log, "w") as fh:
         rc = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT).returncode
     if rc != 0:
@@ -64,8 +69,9 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (or of ``src``, under the
+    name ``name``), built first if needed."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        _loaded[name] = ctypes.CDLL(str(build(name, src)))
     return _loaded[name]

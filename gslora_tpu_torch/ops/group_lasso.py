@@ -17,7 +17,9 @@ group_lasso`` (eps inside the sqrt). As in the JAX package it is on no
 training path; the forget step's ``structure_mode="prox"`` runs K2.
 
 On the card all three run in ``csrc/group_lasso.cu`` (CUDA C++ for sm_90a,
-bound with ctypes; the source notes its design and bound). The plain
+bound with ctypes; the source notes its design and bound): each layer is
+spread over C blocks, one thread-block cluster per layer for the prox and
+the norms, by the launch plan that ``group_plan`` computes. The plain
 versions compute the same functions with the same rounding points; they
 run for tensors on the CPU and are what the kernels are held against on
 the card. A CUDA tensor goes to the kernel, or the wrapper raises.
@@ -25,7 +27,9 @@ the card. A CUDA tensor goes to the kernel, or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +40,20 @@ NORMS_LAUNCHES = 0
 SCALE_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
 _LIB = None
+
+# Launch plan defaults: blocks per layer of the prox and the norms (one
+# cluster per layer; 8 is the portable cluster size, 16 needs the card's
+# leave), blocks per layer of the rescale (no cluster), and the shared
+# memory a prox block may hold its share in. The kernels refuse more than
+# SMEM_LIMIT bytes and more than MAX_CLUSTER / MAX_BLOCKS blocks.
+CLUSTER = 8
+SCALE_BLOCKS = 16
+MAX_SHARE_BYTES = 200 * 1024
+SMEM_LIMIT = 220 * 1024
+MAX_CLUSTER = 16
+MAX_BLOCKS = 1024
 
 # How far a kernel output may sit from the plain version's. The two differ
 # only in the order of the fp32 sum of squares: norms within 1e-5 of their
@@ -131,6 +148,85 @@ def group_prox_plain(A1, B1, A2, B2, threshold: float) -> Four:
 
 
 # ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class GroupPlan:
+    """How the kernels spread one layer over ``blocks`` blocks. Each span
+    (A1_l, B1_l, A2_l, B2_l) is a scalar head up to its first 16-byte
+    address, a body of 16-byte vectors and a scalar tail; rank k owns body
+    vectors [k·vecs[t], (k+1)·vecs[t]) of span t, rank ``edge_owner`` every
+    head and tail. ``onchip``: the prox and the norms bring the share
+    (``smem_bytes``) into shared memory with one bulk copy, and the prox
+    reads device memory once; else they stream it (the prox twice)."""
+    blocks: int
+    vecs: Tuple[int, int, int, int]
+    edge_owner: int
+    smem_bytes: int
+    onchip: bool
+
+
+@functools.lru_cache(maxsize=256)
+def group_plan(L: int, n1: int, n2: int, n3: int, n4: int,
+               dtype: torch.dtype, cluster: Optional[int] = None,
+               max_share_bytes: Optional[int] = None) -> GroupPlan:
+    """The launch plan for L layers whose spans hold n1..n4 elements of
+    ``dtype``: ``cluster`` blocks per layer (default ``CLUSTER``), each
+    rank's share of a span's body rounded up to whole vectors so that it
+    covers the body at any base alignment, on chip where the share's bytes
+    fit ``max_share_bytes`` (default ``MAX_SHARE_BYTES``)."""
+    esize = _ESIZE[dtype]
+    blocks = CLUSTER if cluster is None else int(cluster)
+    budget = MAX_SHARE_BYTES if max_share_bytes is None \
+        else int(max_share_bytes)
+    if L < 1 or min(n1, n2, n3, n4) < 1:
+        raise ValueError(f"group plan: L {L} and spans {(n1, n2, n3, n4)} "
+                         f"must be at least 1")
+    if not 1 <= blocks <= MAX_BLOCKS:
+        raise ValueError(f"group plan: {blocks} blocks per layer, not in "
+                         f"[1, {MAX_BLOCKS}]")
+    if not 0 <= budget <= SMEM_LIMIT:
+        raise ValueError(f"group plan: max_share_bytes {budget} not in "
+                         f"[0, {SMEM_LIMIT}]")
+    V = 16 // esize
+    vecs = tuple(-(-(n // V) // blocks) for n in (n1, n2, n3, n4))
+    share = 16 * sum(vecs)
+    onchip = share <= budget
+    return GroupPlan(blocks, vecs, blocks - 1, share if onchip else 0, onchip)
+
+
+def share_edges(plan: GroupPlan, t: int, n: int, esize: int, mis: int,
+                rank: int) -> Tuple[int, int, int, int]:
+    """Element edges of span t (n elements, its first at byte offset
+    ``mis`` mod 16) as block ``rank`` sees them: (head, lo, hi, tail0) —
+    the head is [0, head), this rank's body share [lo, hi), the tail
+    [tail0, n). The kernels compute the same (csrc/group_lasso.cu,
+    ``share_of``)."""
+    V = 16 // esize
+    m = mis % 16
+    head = min(0 if m == 0 else (16 - m) // esize, n)
+    nv = (n - head) // V
+    v0 = min(rank * plan.vecs[t], nv)
+    v1 = min(v0 + plan.vecs[t], nv)
+    return head, head + v0 * V, head + v1 * V, head + nv * V
+
+
+class _Plan(ctypes.Structure):
+    """csrc/group_lasso.cu's ``struct Plan``."""
+    _fields_ = [("blocks", ctypes.c_int), ("edge_owner", ctypes.c_int),
+                ("onchip", ctypes.c_int), ("smem_bytes", ctypes.c_int),
+                ("vecs", ctypes.c_longlong * 4)]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_struct(plan: GroupPlan) -> _Plan:
+    return _Plan(plan.blocks, plan.edge_owner, int(plan.onchip),
+                 plan.smem_bytes, (ctypes.c_longlong * 4)(*plan.vecs))
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -143,14 +239,19 @@ def _lib():
         lib = load("group_lasso")
         vp, ci, cll, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
+        pp = ctypes.POINTER(_Plan)
         lib.gslora_group_prox.argtypes = [ci] + [vp] * 8 + [ci] + [cll] * 4 \
-            + [cf, vp]
+            + [cf, pp, vp]
         lib.gslora_group_norms.argtypes = [ci] + [vp] * 5 + [ci] + [cll] * 4 \
-            + [vp]
+            + [pp, vp]
         lib.gslora_group_scale.argtypes = [ci] + [vp] * 9 + [ci] + [cll] * 4 \
-            + [vp]
+            + [pp, vp]
+        lib.gslora_group_cluster_info.argtypes = [ci, ci, pp, ci,
+                                                  ctypes.POINTER(ci)]
+        lib.gslora_group_empty.argtypes = [ci, ci, ci, vp]
         for fn in (lib.gslora_group_prox, lib.gslora_group_norms,
-                   lib.gslora_group_scale):
+                   lib.gslora_group_scale, lib.gslora_group_cluster_info,
+                   lib.gslora_group_empty):
             fn.restype = ci
         _LIB = lib
     return _LIB
@@ -197,37 +298,47 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def group_prox_kernel(A1, B1, A2, B2, threshold: float,
-                      inplace: bool = False) -> Four:
+                      inplace: bool = False,
+                      plan: Optional[GroupPlan] = None) -> Four:
     """Launch K2 on the current stream; ``inplace`` writes the result into
-    the four inputs and returns them."""
+    the four inputs and returns them. ``plan`` defaults to
+    ``group_plan``'s."""
     global PROX_LAUNCHES
     code, L, n = _check_kernel_args(A1, B1, A2, B2)
+    plan = plan or group_plan(L, *n, A1.dtype)
     ins = (A1, B1, A2, B2)
     outs = ins if inplace else tuple(torch.empty_like(t) for t in ins)
     _raise_on(_lib().gslora_group_prox(
         code, *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-        L, *n, float(np.float32(threshold)), _stream(A1)), "prox")
+        L, *n, float(np.float32(threshold)), _plan_struct(plan),
+        _stream(A1)), "prox")
     PROX_LAUNCHES += 1
     return outs
 
 
-def group_norms_kernel(A1, B1, A2, B2) -> torch.Tensor:
+def group_norms_kernel(A1, B1, A2, B2,
+                       plan: Optional[GroupPlan] = None) -> torch.Tensor:
     """Launch K3's norms on the current stream: (L,) fp32."""
     global NORMS_LAUNCHES
     code, L, n = _check_kernel_args(A1, B1, A2, B2)
+    plan = plan or group_plan(L, *n, A1.dtype)
     norms = torch.empty(L, dtype=torch.float32, device=A1.device)
     _raise_on(_lib().gslora_group_norms(
         code, *(t.data_ptr() for t in (A1, B1, A2, B2)), norms.data_ptr(),
-        L, *n, _stream(A1)), "norms")
+        L, *n, _plan_struct(plan), _stream(A1)), "norms")
     NORMS_LAUNCHES += 1
     return norms
 
 
-def group_scale_kernel(A1, B1, A2, B2, scales: torch.Tensor) -> Four:
+def group_scale_kernel(A1, B1, A2, B2, scales: torch.Tensor,
+                       plan: Optional[GroupPlan] = None) -> Four:
     """Launch K3's rescale on the current stream; ``scales`` is (L,) in
-    the parameters' dtype."""
+    the parameters' dtype. The default plan spreads a layer over
+    ``SCALE_BLOCKS`` blocks (no cluster, no shared memory)."""
     global SCALE_LAUNCHES
     code, L, n = _check_kernel_args(A1, B1, A2, B2)
+    plan = plan or group_plan(L, *n, A1.dtype, cluster=SCALE_BLOCKS,
+                              max_share_bytes=0)
     if (not scales.is_cuda or scales.device != A1.device or
             scales.dtype != A1.dtype or scales.shape != (L,) or
             not scales.is_contiguous()):
@@ -239,9 +350,31 @@ def group_scale_kernel(A1, B1, A2, B2, scales: torch.Tensor) -> Four:
     outs = tuple(torch.empty_like(t) for t in ins)
     _raise_on(_lib().gslora_group_scale(
         code, *(t.data_ptr() for t in ins), scales.data_ptr(),
-        *(t.data_ptr() for t in outs), L, *n, _stream(A1)), "scale")
+        *(t.data_ptr() for t in outs), L, *n, _plan_struct(plan),
+        _stream(A1)), "scale")
     SCALE_LAUNCHES += 1
     return outs
+
+
+def cluster_info(plan: GroupPlan, dtype: torch.dtype, L: int,
+                 which: str = "prox") -> int:
+    """Clusters of the prox or norms kernel under ``plan`` that the card
+    can hold at once (``cudaOccupancyMaxActiveClusters``; 0: such a
+    cluster does not fit)."""
+    active = ctypes.c_int(0)
+    _raise_on(_lib().gslora_group_cluster_info(
+        _DTYPES[dtype], ("prox", "norms").index(which), _plan_struct(plan),
+        L, ctypes.byref(active)), "cluster query")
+    return active.value
+
+
+def launch_floor_kernel(blocks: int, layers: int, cluster: int) -> None:
+    """Launch an empty kernel of csrc/group_lasso.cu on grid (blocks,
+    layers), as clusters of ``cluster`` blocks when cluster > 0, through
+    the same ctypes path as the kernels (the launch floor; not counted)."""
+    _raise_on(_lib().gslora_group_empty(
+        blocks, layers, cluster,
+        torch.cuda.current_stream().cuda_stream), "empty")
 
 
 # ---------------------------------------------------------------------------

@@ -11,14 +11,23 @@ of the fp32 sums); bf16 inputs within one bf16 ulp. Also on the CPU: the
 tolerance the kernels are held to (``group_mismatch``) rejects faults
 planted in the plain version at the flagship shape.
 
+The launch plan (``group_plan``, ``share_edges``) is checked on the CPU:
+every element of every span has exactly one owner at any base alignment,
+share edges sit on 16-byte addresses, and the shared memory stays within
+its budget.
+
 Card cases (marker ``cuda``): the CUDA kernels (csrc/group_lasso.cu)
-against the plain versions at the flagship LoRA shapes and at ragged ones,
-fp32 and bf16, with an all-zero layer and a threshold that kills some
-layers and shrinks the others. They skip without a GPU. JAX is imported
+against the plain versions at the flagship LoRA shapes, ViT-B/16's rank-8
+LoRA and ragged ones, fp32 and bf16, with an all-zero layer and a
+threshold that kills some layers and shrinks the others; on the streamed
+path, at cluster sizes 8 and 16, at unaligned bases, in place, and two
+launches bit for bit. They skip without a GPU. JAX is imported
 only inside the CPU cases, so on a machine with a card and without JAX
 they run as
 ``python -m pytest --noconftest -m cuda tests/test_torch_group_lasso.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +47,7 @@ def _one_torch_thread():
 
 
 FLAGSHIP = (6, 8, 512, 2048)  # L, r, d, m of the flagship FFN LoRA
+VIT_B = (12, 8, 768, 3072)  # ViT-B/16's rank-8 FFN LoRA
 RAGGED = [(1, 1, 1, 3), (3, 5, 17, 33)]
 
 
@@ -232,6 +242,97 @@ def test_launch_counts_untouched_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+
+def _spans(shape):
+    L, r, d, m = shape
+    return L, (r * d, m * r, r * m, d * r)
+
+
+def _assert_plan_covers(plan, n, esize, bases, L):
+    """Every element of every span of every layer owned exactly once; body
+    edges on 16-byte addresses; shares within the plan's vectors."""
+    V = 16 // esize
+    for t, nt in enumerate(n):
+        for l in range(L):
+            mis = bases[t] * esize + l * nt * esize
+            owners = np.zeros(nt, np.int64)
+            for rank in range(plan.blocks):
+                head, lo, hi, tail0 = G.share_edges(plan, t, nt, esize, mis,
+                                                    rank)
+                assert 0 <= head < V or head == nt
+                assert head <= lo <= hi <= tail0 <= nt and nt - tail0 < V
+                assert hi - lo <= plan.vecs[t] * V
+                if hi > lo:
+                    assert (mis + lo * esize) % 16 == 0
+                    assert (mis + hi * esize) % 16 == 0
+                owners[lo:hi] += 1
+                if rank == plan.edge_owner:
+                    owners[:head] += 1
+                    owners[tail0:] += 1
+            assert (owners == 1).all(), (t, l, np.flatnonzero(owners != 1))
+
+
+@settings(max_examples=40, deadline=None)
+@given(L=st.integers(1, 4), r=st.integers(1, 16), d=st.integers(1, 800),
+       m=st.integers(1, 3100), bf16=st.booleans(),
+       bases=st.lists(st.integers(0, 7), min_size=4, max_size=4),
+       cluster=st.sampled_from([None, 1, 2, 3, 8, 16, 40]),
+       budget=st.sampled_from([None, 0, 64, 4096, G.SMEM_LIMIT]))
+def test_plan_owns_every_element_once(L, r, d, m, bf16, bases, cluster,
+                                      budget):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    esize = 2 if bf16 else 4
+    _, n = _spans((L, r, d, m))
+    plan = G.group_plan(L, *n, dtype, cluster=cluster,
+                        max_share_bytes=budget)
+    assert plan.blocks == (G.CLUSTER if cluster is None else cluster)
+    assert 0 <= plan.edge_owner < plan.blocks
+    share = 16 * sum(plan.vecs)
+    limit = G.MAX_SHARE_BYTES if budget is None else budget
+    assert plan.onchip == (share <= limit)
+    assert plan.smem_bytes == (share if plan.onchip else 0)
+    assert plan.smem_bytes <= min(limit, G.SMEM_LIMIT)
+    _assert_plan_covers(plan, n, esize, [b % (16 // esize) for b in bases],
+                        L)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [FLAGSHIP, VIT_B])
+def test_plan_defaults_hold_the_share_on_chip(shape, dtype):
+    L, n = _spans(shape)
+    plan = G.group_plan(L, *n, dtype)
+    esize = 4 if dtype == torch.float32 else 2
+    assert plan.blocks == G.CLUSTER == 8 and plan.onchip
+    # the layer's bytes, split evenly over the cluster (30 KB per block at
+    # ViT-B/16 in fp32)
+    assert plan.smem_bytes == sum(n) * esize // 8
+    _assert_plan_covers(plan, n, esize, [0, 1, 2, 3], L)
+    small = G.group_plan(L, *n, dtype, max_share_bytes=1024)
+    assert not small.onchip and small.smem_bytes == 0
+    assert small.vecs == plan.vecs
+    scale = G.group_plan(L, *n, dtype, cluster=G.SCALE_BLOCKS,
+                         max_share_bytes=0)
+    assert scale.blocks == G.SCALE_BLOCKS and not scale.onchip
+
+
+def test_plan_refuses_what_the_kernels_cannot_run():
+    for bad in (dict(L=0), dict(cluster=0), dict(cluster=G.MAX_BLOCKS + 1),
+                dict(max_share_bytes=G.SMEM_LIMIT + 1),
+                dict(max_share_bytes=-1)):
+        args = dict(L=2, cluster=None, max_share_bytes=None)
+        args.update(bad)
+        with pytest.raises(ValueError, match="group plan"):
+            G.group_plan(args["L"], 4, 4, 4, 4, torch.float32,
+                         cluster=args["cluster"],
+                         max_share_bytes=args["max_share_bytes"])
+    with pytest.raises(ValueError, match="group plan"):
+        G.group_plan(2, 4, 0, 4, 4, torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # the tolerance the kernels are held to (G.group_mismatch), at the flagship
 # ---------------------------------------------------------------------------
 
@@ -317,7 +418,7 @@ def _assert_ok(got, want, what, norms=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [FLAGSHIP] + RAGGED)
+@pytest.mark.parametrize("shape", [FLAGSHIP, VIT_B] + RAGGED)
 def test_kernels_match_plain(cuda_device, shape, dtype):
     ts, thr = _card_case(shape, dtype, cuda_device)
     norms = G.group_norms_kernel(*ts)
@@ -336,8 +437,9 @@ def test_kernels_match_plain(cuda_device, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_in_place_prox_equals_out_of_place(cuda_device, dtype):
-    ts, thr = _card_case((3, 5, 17, 33), dtype, cuda_device, seed=1)
+@pytest.mark.parametrize("shape", [(3, 5, 17, 33), FLAGSHIP, VIT_B])
+def test_in_place_prox_equals_out_of_place(cuda_device, dtype, shape):
+    ts, thr = _card_case(shape, dtype, cuda_device, seed=1)
     want = G.group_prox_kernel(*ts, thr)
     tree = {"ffn": dict(zip(("A1", "B1", "A2", "B2"),
                             (t.clone() for t in ts)))}
@@ -347,6 +449,118 @@ def test_in_place_prox_equals_out_of_place(cuda_device, dtype):
     assert G.PROX_LAUNCHES == 1
     for name, w in zip(("A1", "B1", "A2", "B2"), want):
         assert torch.equal(tree["ffn"][name], w), name
+    # the streamed path, in place, gives the same bits as the on-chip one
+    L, n = _spans(shape)
+    streamed = G.group_plan(L, *n, dtype, max_share_bytes=0)
+    copies = [t.clone() for t in ts]
+    G.group_prox_kernel(*copies, thr, inplace=True, plan=streamed)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("A1", "B1", "A2", "B2"), copies, want):
+        assert torch.equal(a, w), f"streamed {name}"
+
+
+def _all_three(ts, thr, prox_plan=None, norms_plan=None, scale_plan=None):
+    norms = G.group_norms_kernel(*ts, plan=norms_plan)
+    prox = G.group_prox_kernel(*ts, thr, plan=prox_plan)
+    inv = (1.0 / torch.clamp_min(G.group_norms_plain(*ts), 1e-12)).to(
+        ts[0].dtype)
+    scaled = G.group_scale_kernel(*ts, inv, plan=scale_plan)
+    torch.cuda.synchronize()
+    return [norms], list(prox), list(scaled), inv
+
+
+def _assert_all_three_ok(got, ts, thr, what):
+    norms, prox, scaled, inv = got
+    _assert_ok(norms[0], G.group_norms_plain(*ts), f"norms {what}",
+               norms=True)
+    for name, a, b in zip(("A1", "B1", "A2", "B2"), prox,
+                          G.group_prox_plain(*ts, thr)):
+        _assert_ok(a, b, f"prox {name} {what}")
+    for name, a, b in zip(("A1", "B1", "A2", "B2"), scaled,
+                          G.group_scale_plain(*ts, inv)):
+        _assert_ok(a, b, f"scale {name} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [FLAGSHIP, VIT_B])
+def test_kernels_repeat_bit_for_bit(cuda_device, shape, dtype):
+    ts, thr = _card_case(shape, dtype, cuda_device, seed=3)
+    first = _all_three(ts, thr)
+    second = _all_three(ts, thr)
+    for a, b in zip(sum(first[:3], []), sum(second[:3], [])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [FLAGSHIP] + RAGGED)
+def test_streamed_path_matches_plain(cuda_device, shape, dtype):
+    """A share budget too small for the share forces the prox to stream
+    it twice; the rescale runs over the same plan."""
+    ts, thr = _card_case(shape, dtype, cuda_device, seed=4)
+    L, n = _spans(shape)
+    plan = G.group_plan(L, *n, dtype, max_share_bytes=0)
+    assert not plan.onchip or sum(plan.vecs) == 0
+    got = _all_three(ts, thr, plan, plan, plan)
+    _assert_all_three_ok(got, ts, thr, f"streamed {shape} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [FLAGSHIP, VIT_B, (3, 5, 17, 33)])
+def test_cluster_of_8_and_of_16_agree(cuda_device, shape, dtype):
+    ts, thr = _card_case(shape, dtype, cuda_device, seed=5)
+    L, n = _spans(shape)
+    p8, p16 = (G.group_plan(L, *n, dtype, cluster=c) for c in (8, 16))
+    assert G.cluster_info(p8, dtype, L) > 0
+    if G.cluster_info(p16, dtype, L) == 0 or \
+            G.cluster_info(p16, dtype, L, "norms") == 0:
+        pytest.skip("this card cannot place a cluster of 16 blocks")
+    got8 = _all_three(ts, thr, p8, p8)
+    got16 = _all_three(ts, thr, p16, p16, p16)
+    _assert_all_three_ok(got16, ts, thr, f"C=16 {shape} {dtype}")
+    _assert_ok(got16[0][0], got8[0][0], "norms C=16 vs C=8", norms=True)
+    for a, b in zip(got16[1], got8[1]):
+        _assert_ok(a, b, "prox C=16 vs C=8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [FLAGSHIP, (3, 5, 17, 33)])
+def test_kernels_at_unaligned_bases(cuda_device, shape, dtype):
+    """Inputs that start off any 16-byte address (views into a larger
+    buffer), out of place into aligned outputs and in place."""
+    ts, thr = _card_case(shape, dtype, cuda_device, seed=6)
+    views = []
+    for i, t in enumerate(ts):
+        buf = torch.zeros(t.numel() + 8, dtype=dtype, device=cuda_device)
+        v = buf[1 + i:1 + i + t.numel()].view(t.shape)
+        v.copy_(t)
+        views.append(v)
+    _assert_all_three_ok(_all_three(views, thr), views, thr,
+                         f"unaligned {shape} {dtype}")
+    want = G.group_prox_plain(*views, thr)
+    G.group_prox_kernel(*views, thr, inplace=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("A1", "B1", "A2", "B2"), views, want):
+        _assert_ok(a, b, f"in-place prox {name} unaligned {shape}")
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_plan_that_does_not_cover(cuda_device):
+    ts, thr = _card_case(FLAGSHIP, torch.float32, cuda_device)
+    L, n = _spans(FLAGSHIP)
+    plan = G.group_plan(L, *n, torch.float32)
+    short = dataclasses.replace(plan, vecs=(1,) + plan.vecs[1:])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        G.group_prox_kernel(*ts, thr, plan=short)
+    tight = dataclasses.replace(plan, smem_bytes=plan.smem_bytes - 16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        G.group_prox_kernel(*ts, thr, plan=tight)
+    wide = G.group_plan(L, *n, torch.float32, cluster=G.MAX_CLUSTER + 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        G.group_norms_kernel(*ts, plan=wide)
 
 
 @pytest.mark.cuda
