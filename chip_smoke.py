@@ -47,7 +47,21 @@ non-zero exit code and without the final result line.
    Checks finite per-task accuracies and losses, the old-class accuracy of
    task 1, both task checkpoints, K2 launched once per training step and
    K1's counts equal to what the path implies.
-6. Prints the kernels line, then the result line.
+6. Pretrain phase: the port's train_pretrain CLI at the same width, every
+   parameter trained (so K1's backward runs in block 0 too), batch 480,
+   4 epochs of 2000 synthetic images (20 steps; the batch-20 eval saves a
+   checkpoint); then a LoRA-only run resumed from that checkpoint with
+   remat (-r, --lora_rank 8, --remat), which must load the base bit for
+   bit, keep it and move the LoRA; export_torch of its result to a
+   reference-named .pth that -r loads back bit for bit; pair verification
+   (perform_val) of its result on the card. K1 counts equal what each run
+   implies (expected_pretrain_launches). Then the pretrain step alone at
+   bs 480, without and with remat: ms/step, images/s, peak memory.
+7. Profiler phase: five bench-recipe steps and two pretrain steps (bs
+   480) under utils/profiling.trace; prints for each the device's busy
+   share over them, its time per step by kernel family, the kernels with
+   the most device time and the longest idle stretches.
+8. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
@@ -61,14 +75,19 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA GPU visible; this check runs only on the "
              "card")
 
-from gslora_tpu_torch.cli import train_forget, train_forget_cl  # noqa: E402
-from gslora_tpu_torch.cli.common import build_datasets  # noqa: E402
+from gslora_tpu_torch.checkpoints.io import (load_params,  # noqa: E402
+                                              save_params)
+from gslora_tpu_torch.cli import (export_torch, train_forget,  # noqa: E402
+                                  train_forget_cl, train_pretrain)
+from gslora_tpu_torch.cli.common import (build_datasets,  # noqa: E402
+                                         build_params)
 from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
                                      OptimConfig, ViTConfig, build_parser,
                                      config_from_args)
@@ -78,15 +97,23 @@ from gslora_tpu_torch.data.splits import (make_order_list,  # noqa: E402
 from gslora_tpu_torch.engine.continual import (PROTO_BATCH,  # noqa: E402
                                                split_task_data)
 from gslora_tpu_torch.engine.forget import make_forget_step  # noqa: E402
+from gslora_tpu_torch.engine.pretrain import (PretrainState,  # noqa: E402
+                                              make_pretrain_step)
 from gslora_tpu_torch.engine.state import (ForgetState,  # noqa: E402
                                            make_optimizer)
+from gslora_tpu_torch.evaluation.verification import (  # noqa: E402
+    perform_val)
+from gslora_tpu_torch.models.convert import flatten_tree  # noqa: E402
 from gslora_tpu_torch.losses.classification import (  # noqa: E402
     cross_entropy)
-from gslora_tpu_torch.models.vit import ViT, init_vit_params  # noqa: E402
+from gslora_tpu_torch.models.vit import (ViT, init_vit_params,  # noqa: E402
+                                         vit_apply)
 from gslora_tpu_torch.ops import attention as A  # noqa: E402
 from gslora_tpu_torch.ops import cuda_build  # noqa: E402
 from gslora_tpu_torch.ops import group_lasso as G  # noqa: E402
 from gslora_tpu_torch.tools import group_bench as GB  # noqa: E402
+from gslora_tpu_torch.utils.profiling import (device_summary,  # noqa: E402
+                                              trace)
 from gslora_tpu_torch.utils.timing import cuda_cold_ms, cuda_ms  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -150,15 +177,17 @@ def max_err(got, want, names, what):
 
 def path_shapes():
     """(batch x heads, tokens) of every attention the driven paths launch,
-    from their configs: the train batch, the eval batch, the bench
-    recipe's fused batch (train + forget) and the continual path's
-    prototype batch."""
+    from their configs: the train batch and the eval batch of each path,
+    the bench recipe's fused batch (train + forget) and the continual
+    path's prototype batch."""
     shapes = set()
-    for argv in (MAIN_ARGV, CL_ARGV):
+    for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV):
         cfg = config_from_args(build_parser().parse_args(argv))
         bs, m = cfg.data.batch_size, cfg.model
-        for b in (bs, bs * cfg.data.test_batch_scale, 2 * bs, PROTO_BATCH):
-            shapes.add((b * m.heads, m.seq_len))
+        batches = [bs, bs * cfg.data.test_batch_scale]
+        if argv is not PRETRAIN_ARGV:
+            batches += [2 * bs, PROTO_BATCH]
+        shapes.update((b * m.heads, m.seq_len) for b in batches)
     return sorted(shapes)
 
 
@@ -532,9 +561,10 @@ def main_path_phase():
     return launches
 
 
-def bench_phase(card):
+def bench_setup():
     """The bench recipe's step (bf16 params, merged LoRA, fused dual
-    batch, prototypes; 24 images per stream), random weights and inputs."""
+    batch, prototypes; 24 images per stream), random weights and inputs;
+    returns run(n) -> the last step's metrics."""
     model = ViTConfig(dropout=0.1, emb_dropout=0.1)
     lora = LoraConfig(rank=8)
     fcfg = ForgetConfig(bnd=110.0, beta=0.15, alpha=0.01, alpha_epoch=0,
@@ -547,7 +577,7 @@ def bench_phase(card):
                             compute_dtype=torch.bfloat16,
                             lora_apply="merged", fused_batch=True)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    b = 24
+    b = BENCH_STREAM
     xf, xr = (torch.randn(b, 3, 112, 112, device=DEV, generator=gen)
               for _ in range(2))
     yf = torch.randint(90, 100, (b,), device=DEV, generator=gen)
@@ -562,6 +592,16 @@ def bench_phase(card):
             _, m = step(state, xf, yf, xr, yr, protos, sc, gen)
         return m
 
+    return run
+
+
+BENCH_STREAM = 24  # images per stream of the bench recipe
+
+
+def bench_phase(card):
+    """Times the bench recipe's step; returns its run(n) and ms/step for
+    the profiler phase."""
+    run = bench_setup()
     run(3)
     torch.cuda.synchronize()
     A.reset_launch_counts()
@@ -578,8 +618,270 @@ def bench_phase(card):
     print("bench " + json.dumps({
         "recipe": "bf16 params, merged LoRA, fused batch, prototypes, "
                   "24 per stream, depth 6",
-        "ms_per_step": dt * 1e3, "images_per_sec": 2 * b / dt,
+        "ms_per_step": dt * 1e3, "images_per_sec": 2 * BENCH_STREAM / dt,
         "loss_total": loss, "card": card}), flush=True)
+    return run, dt * 1e3
+
+
+# kernel families of a device timeline (first match wins)
+FAMILIES = [("K1 attention", r"attn_(fwd|bwd)"),
+            ("K2/K3 group", r"gslora_group"),
+            ("GEMM", r"nvjet|gemm|sm90_xmma|cutlass"),
+            ("copy and cast", r"copy|Memcpy|Memset"),
+            ("reduction", r"reduce|[Ss]oftmax|norm"),
+            ("elementwise", r"elementwise")]
+
+
+def profiler_phase(runs, card):
+    """Each (label, run, steps, untraced ms/step) under
+    utils/profiling.trace: the device's busy share over the traced steps
+    (first enqueue to the device's finish), its time per step by kernel
+    family, the kernels with the most device time and the longest idle
+    stretches. The untraced step time gives the busy share the steps
+    would have without the profiler's own host cost."""
+    for label, run, steps, untraced_ms in runs:
+        run(2)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as out:
+            with trace(out):
+                t0 = time.perf_counter()
+                with torch.profiler.record_function("steps"):
+                    run(steps)
+                    torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3 / steps
+            summary = device_summary(os.path.join(out, "trace.json"),
+                                     window="steps", top=10, gaps=8,
+                                     families=FAMILIES)
+        if not 0.0 < summary["busy_share"] <= 1.0:
+            raise AssertionError(f"profiler: {label}: {summary}")
+        device_ms = summary["busy_share"] * summary["window_ms"] / steps
+        print("profile " + json.dumps({
+            "recipe": label, "steps": steps, "card": card,
+            "ms_per_step_traced": host_ms, "ms_per_step_untraced":
+                untraced_ms, "device_busy_ms_per_step": device_ms,
+            "busy_share_of_untraced_step": device_ms / untraced_ms,
+            **summary}), flush=True)
+
+
+MODEL_FLAGS = ["-n", "VIT", "--vit_depth", "6", "--head", "CosFace"]
+PRETRAIN_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
+                 "-b", "480", "-e", "4", "--lr", "3e-4",
+                 "--compute_dtype", "bfloat16"]
+# the LoRA-only leg resumes the pretrain checkpoint (-r is appended)
+PRETRAIN_LORA_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "8",
+                      "-b", "480", "-e", "1", "--lr", "3e-4", "--remat",
+                      "--compute_dtype", "bfloat16"]
+
+
+def expected_pretrain_launches(argv):
+    """K1 launches the pretrain path implies: 'depth' forward launches per
+    forward, and 'depth' more per training forward under --remat (the
+    backward reruns every block, attention first); 'depth' backward
+    launches per training forward when every parameter trains (block 0's
+    qkv kernel needs its dq), 'depth - 1' when only the FFN LoRA trains
+    (lora_rank > 0 with -r); one eval forward per test batch every
+    VER_FREQ steps and at the end."""
+    cfg = config_from_args(build_parser().parse_args(argv))
+    assert not cfg.lora.rank or cfg.lora.pos == "FFN"
+    train, test = build_datasets(cfg)
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    bs = cfg.data.batch_size
+    steps = cfg.num_epoch * batches(len(train), bs)
+    evals = (steps // train_pretrain.VER_FREQ + 1) * batches(
+        len(test), bs * cfg.data.test_batch_scale)
+    depth = cfg.model.depth
+    lora_only = cfg.lora.rank > 0 and bool(cfg.resume)
+    per_train_fwd = 2 * depth if cfg.model.remat else depth
+    return {"attention_fwd": depth * evals + per_train_fwd * steps,
+            "attention_bwd": (depth - 1 if lora_only else depth) * steps,
+            "group_prox": 0, "group_norms": 0, "group_scale": 0}, steps
+
+
+def run_pretrain_cli(argv, what):
+    """train_pretrain.main on the card with the launch counts read around
+    it; checks finite accuracies and logged losses and the counts the
+    path implies. Returns (report, state, launches, logged)."""
+    want, steps = expected_pretrain_launches(argv)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    report, state = train_pretrain.main(argv, return_state=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    outdir = argv[argv.index("--outdir") + 1]
+    with open(os.path.join(outdir, "metrics.jsonl")) as fh:
+        logged = [json.loads(line) for line in fh]
+    vals = [report["final_test_acc"], report["best_test_acc"]] + [
+        rec[k] for rec in logged for k in ("loss", "acc") if k in rec]
+    if len(vals) < 4 or not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"{what}: non-finite or missing values "
+                             f"{vals[:8]}")
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}; the path "
+                             f"implies {want}")
+    rates = [rec["images_per_sec"] for rec in logged
+             if "images_per_sec" in rec]
+    print(f"{what} " + json.dumps({
+        "wall_s": wall, "steps": steps, "report": report,
+        "epoch_images_per_sec": rates, "launches": launches}), flush=True)
+    return report, state, launches
+
+
+def host_tree(tree):
+    return {k: v.detach().cpu() for k, v in flatten_tree(tree).items()}
+
+
+def assert_same(got, want, what):
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f"{what}: differs at {bad[:5]} / keys "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+
+
+def pretrain_phase():
+    """The pretrain -> LoRA-only resume -> export chain at flagship width:
+    train_pretrain (every parameter, 20 steps at bs 480, the batch-20 eval
+    saves a checkpoint); train_pretrain --lora_rank 8 -r <it> --remat
+    (the base loads bit for bit and stays, the LoRA moves); export_torch of
+    the result to a reference-named .pth, which -r loads back bit for bit;
+    pair verification of the result on the card."""
+    with tempfile.TemporaryDirectory() as out:
+        argv = PRETRAIN_ARGV + ["--outdir", os.path.join(out, "pretrain")]
+        _, _, full = run_pretrain_cli(argv, "pretrain")
+        ckpts = sorted(f for f in os.listdir(os.path.join(out, "pretrain"))
+                       if f.startswith("Backbone_VIT_") and
+                       "_Batch_20_" in f)
+        if len(ckpts) != 1:
+            raise AssertionError(f"pretrain: checkpoints {ckpts}")
+        ckpt = os.path.join(out, "pretrain", ckpts[0])
+        saved = load_params(ckpt)
+
+        argv = PRETRAIN_LORA_ARGV + ["-r", ckpt, "--outdir",
+                                     os.path.join(out, "lora")]
+        cfg = config_from_args(build_parser().parse_args(argv))
+        start = build_params(cfg)
+        assert_same(host_tree(start["base"]), host_tree(saved["base"]),
+                    "pretrain resume: loaded base")
+        _, state, lora = run_pretrain_cli(argv, "pretrain_lora_remat")
+        final = state.params
+        assert_same(host_tree(final["base"]), host_tree(saved["base"]),
+                    "LoRA-only pretrain: base after the steps")
+        before, after = host_tree(start["lora"]), host_tree(final["lora"])
+        still = [k for k in before if torch.equal(before[k], after[k])]
+        if still:
+            raise AssertionError(f"LoRA-only pretrain: LoRA {still} did "
+                                 f"not move")
+
+        own = os.path.join(out, "lora_final.pth")
+        save_params(own, final)
+        pth = os.path.join(out, "exported.pth")
+        export_torch.main(["-r", own, *MODEL_FLAGS, "--lora_rank", "8",
+                           "--export_out", pth])
+        back = build_params(config_from_args(build_parser().parse_args(
+            [*MODEL_FLAGS, "--lora_rank", "8", "-r", pth])))
+        assert_same(host_tree(back), host_tree(load_params(own)),
+                    "export_torch -> -r round trip")
+        print("export: reference-named .pth of the LoRA-only result loads "
+              "back bit for bit", flush=True)
+        verification_check(state, cfg)
+    return full, lora
+
+
+def verification_check(state, cfg, n_pairs=300):
+    """perform_val on the card over in-memory pairs of the synthetic test
+    split (same class for odd pairs, another class for even ones)."""
+    _, test = build_datasets(cfg)
+    targets = np.asarray(test.targets)
+    rng = np.random.RandomState(5)
+    idx, issame = [], []
+    for p in range(n_pairs):
+        a = rng.randint(len(targets))
+        same = bool(p % 2)
+        idx += [a, rng.choice(np.flatnonzero((targets == targets[a]) ==
+                                             same))]
+        issame.append(same)
+    imgs = test.decode_batch(idx)
+    params = state.params
+
+    embs = []
+
+    @torch.no_grad()
+    def embed(x):
+        x = torch.from_numpy(x.copy()).to(DEV)
+        embs.append(vit_apply(params, x, None, cfg.model, cfg.lora,
+                              compute_dtype=torch.bfloat16).cpu().numpy())
+        return embs[-1]
+
+    acc, std, xnorm, thr = perform_val(embed, (imgs, imgs[:, :, :, ::-1]),
+                                       issame, embedding_size=cfg.model.dim)
+    if not all(math.isfinite(v) for v in (acc, std, xnorm, thr)):
+        raise AssertionError(f"verification: {(acc, std, xnorm, thr)}")
+    # the squared distances the threshold search sees (flip-summed,
+    # normalised embeddings), same-class pairs against the others
+    e = np.concatenate(embs).astype(np.float64)
+    e = e[:len(idx)] + e[len(idx):]
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    dist = np.sum((e[0::2] - e[1::2]) ** 2, axis=1)
+    same = np.asarray(issame)
+    print("verification " + json.dumps({
+        "pairs": n_pairs, "accuracy": acc, "std": std, "xnorm": xnorm,
+        "threshold": thr,
+        "median_sq_dist_same": float(np.median(dist[same])),
+        "median_sq_dist_different": float(np.median(dist[~same]))}),
+        flush=True)
+
+
+def pretrain_setup(remat=False, bs=480):
+    """The pretrain step at bs 480 (every parameter, AdamW, fp32 params,
+    bf16 compute, dropout on), random weights and inputs; returns run(n)
+    -> the last step's metrics."""
+    model = ViTConfig(remat=remat)
+    lora = LoraConfig(rank=0)
+    params = init_vit_params(torch.Generator().manual_seed(0), model, lora)
+    opt = make_optimizer(OptimConfig(lr=3e-4))
+    state = PretrainState.create(ViT(params, model, lora).to(DEV), opt)
+    step = make_pretrain_step(model, lora, opt, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    size = model.image_size
+    x = torch.randn(bs, 3, size, size, device=DEV, generator=gen)
+    y = torch.randint(0, model.num_class, (bs,), device=DEV, generator=gen)
+
+    def run(n):
+        for _ in range(n):
+            _, m = step(state, x, y, 3e-4, gen)
+        return m
+
+    return run
+
+
+def pretrain_bench(card, bs=480, steps=10):
+    """The pretrain step alone at bs 480, without and with remat: ms/step,
+    images/s and the peak device memory of the step. Returns run(n) of
+    the one without remat, for the profiler phase."""
+    out, runs = {}, {}
+    for remat in (False, True):
+        run = pretrain_setup(remat, bs)
+        run(3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(run(steps)["loss"])  # syncs
+        dt = (time.perf_counter() - t0) / steps
+        if not math.isfinite(loss):
+            raise AssertionError(f"pretrain step: loss {loss}")
+        out["remat" if remat else "plain"] = {
+            "ms_per_step": dt * 1e3, "images_per_sec": bs / dt,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": loss}
+        runs[remat] = run
+    del runs[True]
+    torch.cuda.empty_cache()
+    print("pretrain_bench " + json.dumps({
+        "recipe": "pretrain step, every parameter, AdamW, fp32 params, "
+                  "bf16 compute, bs 480, depth 6", "card": card, **out}),
+        flush=True)
+    return runs[False], out["plain"]["ms_per_step"]
 
 
 CL_ARGV = ["-d", "synthetic", "-n", "VIT", "--vit_depth", "6",
@@ -696,16 +998,24 @@ def main():
     rows = kernel_phase(bw, peak) + group_phase(bw, fp32_peak)
     model_check()
     main_launches = main_path_phase()
-    bench_phase(card)
+    bench_run, bench_ms = bench_phase(card)
     cl_launches = continual_phase()
+    pre_launches, pre_lora_launches = pretrain_phase()
+    pretrain_run, pretrain_ms = pretrain_bench(card)
+    profiler_phase([("bench recipe step", bench_run, 5, bench_ms),
+                    ("pretrain step bs 480", pretrain_run, 2, pretrain_ms)],
+                   card)
     for row in rows:
         # each kernel's count from the path it serves: K1 the single-step
         # main path, K2 the continual path; K3 is on neither
         name = row["name"]
         own = main_launches if name.startswith("attention") else cl_launches
         row["launches"] = own[name]
-        row["launches_by_path"] = {"train_forget": main_launches[name],
-                                   "train_forget_cl": cl_launches[name]}
+        row["launches_by_path"] = {
+            "train_forget": main_launches[name],
+            "train_forget_cl": cl_launches[name],
+            "train_pretrain": pre_launches[name],
+            "train_pretrain_lora_remat": pre_lora_launches[name]}
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)

@@ -17,7 +17,7 @@ from typing import Any, List
 
 import torch
 
-from gslora_tpu_torch.models.convert import flatten_tree
+from gslora_tpu_torch.models.convert import flatten_tree, unflatten_tree
 
 
 def save_params(path: str, tree: Any) -> None:
@@ -25,6 +25,16 @@ def save_params(path: str, tree: Any) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in flatten_tree(tree).items()},
                path)
+
+
+def load_params(path: str) -> Any:
+    """The parameter tree :func:`save_params` wrote (CPU tensors), the
+    counterpart of the JAX package's ``load_pytree``; ``"lora"`` is present
+    (empty for a rank-0 checkpoint)."""
+    flat = torch.load(path, map_location="cpu", weights_only=True)
+    tree = unflatten_tree(flat)
+    tree.setdefault("lora", {})
+    return tree
 
 
 def get_time() -> str:

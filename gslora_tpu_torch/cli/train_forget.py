@@ -7,9 +7,10 @@ Usage:
       --beta 0.15 --alpha 0.01 --num_of_first_cls 90 --per_forget_cls 10 \
       [--prototype ...] [--device cpu]
 
-Runs on the GPU unless ``--device cpu`` is given. Only the GS-LoRA path is
-ported: the single-step baselines, ``-r`` resume, ``--dp`` and
-``--profile_dir`` raise.
+Runs on the GPU unless ``--device cpu`` is given. ``-r`` resumes from a
+port checkpoint or a reference-named ``.pth`` (cli/common.build_params);
+``--profile_dir`` writes a profiler trace of the run there. Only the
+GS-LoRA path is ported: the single-step baselines and ``--dp`` raise.
 """
 from __future__ import annotations
 
@@ -36,9 +37,6 @@ def main(argv=None):
                                   "ported yet (GS-LoRA only)")
     if args.dp:
         raise NotImplementedError("--dp (data parallel) is not ported yet")
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir (profiler trace) is not "
-                                  "ported yet")
     resolve_device(cfg.device)  # no card when one is asked for: fail first
     params = build_params(cfg)
 
@@ -77,8 +75,15 @@ def main(argv=None):
     logger = MetricLogger(use_wandb=cfg.log_wandb, outdir=cfg.outdir,
                           config=json.loads(cfg.to_json()))
     print("params:", json.dumps(param_summary(params)))
-    res = run_forget_training(cfg, params, data, logger=logger,
-                              workdir=cfg.outdir)
+    if args.profile_dir:
+        # a torch.profiler trace around the whole run (every step and eval)
+        from gslora_tpu_torch.utils.profiling import trace
+        with trace(args.profile_dir):
+            res = run_forget_training(cfg, params, data, logger=logger,
+                                      workdir=cfg.outdir)
+    else:
+        res = run_forget_training(cfg, params, data, logger=logger,
+                                  workdir=cfg.outdir)
     # run name assembled from hyperparameters at exit
     # (train_own_forget.py:844-877)
     logger.set_run_name(make_run_name(cfg))

@@ -9,9 +9,10 @@ Usage (GS-LoRA++ main-table recipe):
       --prototype --BND_pro 50 --cl_prof_list 0.015 0.06 0.025 0.012 \
       --average_weight --ema_epoch 30 [--structure_mode prox] [--device cpu]
 
-Runs on the GPU unless ``--device cpu`` is given. Only the GS-LoRA(++)
-method is ported (``--one_stage``, or no baseline flag): the baseline zoo,
-``imagenet100``, ``--dp``, ``--profile_dir`` and ``-r`` raise.
+Runs on the GPU unless ``--device cpu`` is given; ``-r`` resumes as in
+cli/common.build_params. Only the GS-LoRA(++) method is ported
+(``--one_stage``, or no baseline flag): the baseline zoo, ``imagenet100``,
+``--dp`` and ``--profile_dir`` raise.
 """
 from __future__ import annotations
 

@@ -1,0 +1,161 @@
+"""Supervised pretraining entry point (port of gslora_tpu/cli/train_pretrain.py;
+reference train/train_own.py; recipe scripts/run_pretrain.sh: ViT-P8S8,
+CASIA-100, CosFace, bs 480, lr 3e-4).
+
+Usage:
+  python -m gslora_tpu_torch.cli.train_pretrain --net VIT --vit_depth 6 \
+      --head CosFace -b 480 --lr 3e-4 -e 1200 -d casia100 [--device cpu]
+
+Runs on the GPU unless ``--device cpu`` is given. Trains every parameter;
+with ``--lora_rank > 0`` and ``-r`` (a base checkpoint) only the LoRA
+trains (train_own.py:385-386). Every 20 batches it evaluates the test
+split, saves the best-accuracy checkpoint under ``--outdir`` and runs the
+``--ver_targets`` pair verification; then a final eval and
+``report.json``. ``--dp`` raises (not ported yet).
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from gslora_tpu_torch.checkpoints.io import BestHCheckpointer
+from gslora_tpu_torch.cli.common import build_datasets, build_params, \
+    param_summary
+from gslora_tpu_torch.config import build_parser, config_from_args
+from gslora_tpu_torch.data.pipeline import BatchLoader, DevicePrefetcher
+from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
+from gslora_tpu_torch.engine.loop import _dtype, resolve_device
+from gslora_tpu_torch.engine.pretrain import PretrainState, \
+    make_pretrain_step
+from gslora_tpu_torch.engine.schedule import timm_cosine_lr
+from gslora_tpu_torch.engine.state import make_optimizer
+from gslora_tpu_torch.metrics.logging import MetricLogger, buffer_val, \
+    gen_roc_plot
+from gslora_tpu_torch.models.vit import ViT, vit_apply
+
+VER_FREQ = 20  # train_own.py:483-544: eval + checkpoint every 20 batches
+
+
+def main(argv=None, return_state: bool = False):
+    """Run the pretraining; returns the report (and the final
+    ``PretrainState`` with ``return_state``)."""
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    if args.dp:
+        raise NotImplementedError("--dp (data parallel) is not ported yet")
+    device = resolve_device(cfg.device)
+    cdt = _dtype(cfg)
+
+    train_ds, test_ds = build_datasets(cfg)
+    params = build_params(cfg)
+    print("params:", json.dumps(param_summary(params)))
+    logger = MetricLogger(use_wandb=cfg.log_wandb, outdir=cfg.outdir,
+                          config=json.loads(cfg.to_json()))
+
+    opt = make_optimizer(cfg.optim)
+    # LoRA-only pretraining when a rank is set AND a base checkpoint resumed
+    lora_only = cfg.lora.rank > 0 and bool(cfg.resume)
+    state = PretrainState.create(ViT(params, cfg.model, cfg.lora).to(device),
+                                 opt, lora_only=lora_only)
+    step = make_pretrain_step(cfg.model, cfg.lora, opt, compute_dtype=cdt,
+                              lora_only=lora_only,
+                              grad_accum=cfg.optim.grad_accum)
+    eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
+
+    # static batch shapes on the card (label -1 sentinels), as the JAX CLI
+    # pads off the CPU
+    pad = device.type != "cpu"
+    u8 = cfg.data.uint8_transfer
+    loader = BatchLoader(train_ds, cfg.data.batch_size, seed=cfg.data.seed,
+                         mask_padding=pad, uint8_transfer=u8)
+
+    def test_batches():
+        return BatchLoader(test_ds,
+                           cfg.data.batch_size * cfg.data.test_batch_scale,
+                           shuffle=False, prefetch=0, mask_padding=pad,
+                           uint8_transfer=u8)
+
+    ckpt = BestHCheckpointer(cfg.outdir, name=cfg.net, async_save=pad) \
+        if cfg.outdir else None
+    if ckpt:
+        ckpt.save_config(cfg.to_json())
+
+    # in-training LFW-style pair verification (train_own.py evaluates
+    # perform_val + buffer_val per VER_FREQ window, util/utils.py:167-232)
+    ver_sets = []
+    targets = [t for t in args.ver_targets.split(",") if t]
+    if targets:
+        from gslora_tpu_torch.data.recordio import get_val_data
+        ver_sets = get_val_data(cfg.data.data_root, targets,
+                                cfg.model.image_size)
+        missing = sorted(set(targets) - {name for name, *_ in ver_sets})
+        if missing:
+            warnings.warn(f"verification targets without a .bin under "
+                          f"{cfg.data.data_root}: {missing}")
+
+    def run_verification(batch):
+        if not ver_sets:
+            return
+        from gslora_tpu_torch.evaluation.verification import perform_val
+
+        params_now = state.params
+
+        @torch.no_grad()
+        def embed(b):
+            x = torch.from_numpy(np.ascontiguousarray(b)).to(device)
+            return vit_apply(params_now, x, None, cfg.model, cfg.lora,
+                             train=False, compute_dtype=cdt).cpu().numpy()
+
+        for name, data_set, issame in ver_sets:
+            vacc, vstd, xnorm, thr, (fpr, tpr) = perform_val(
+                embed, data_set, issame, embedding_size=cfg.model.dim,
+                return_roc=True)
+            buffer_val(logger, name, vacc, vstd, xnorm, thr,
+                       gen_roc_plot(fpr, tpr), batch=batch)
+
+    generator = torch.Generator(device=device).manual_seed(cfg.data.seed)
+    best_acc = float("-inf")
+    batch = 0
+    for epoch in range(cfg.num_epoch):
+        lr = timm_cosine_lr(cfg.optim, epoch)
+        ep_t0, ep_images = time.perf_counter(), 0
+        for x, y in DevicePrefetcher(iter(loader), device, depth=2):
+            state, metrics = step(state, x, y, lr, generator)
+            if (batch + 1) % cfg.disp_freq == 0:
+                logger.log({k: float(v) for k, v in metrics.items()},
+                           step=batch)
+            if (batch + 1) % VER_FREQ == 0:
+                acc = eval_accuracy(eval_step, state.params, test_batches())
+                logger.log({"Test Accuracy": acc}, step=batch)
+                run_verification(batch)
+                if acc > best_acc and ckpt:
+                    best_acc = acc
+                    ckpt.maybe_save(acc, state.params, epoch, batch)
+            batch += 1
+            ep_images += int(x.shape[0])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - ep_t0
+        if dt > 0 and ep_images:
+            logger.log({"images_per_sec": ep_images / dt, "epoch": epoch,
+                        "lr": lr}, step=batch)
+
+    acc = eval_accuracy(eval_step, state.params, test_batches())
+    if ckpt:
+        ckpt.wait()  # drain an in-flight async save
+    report = {"final_test_acc": acc, "best_test_acc": max(best_acc, acc)}
+    print(json.dumps(report, indent=2))
+    if cfg.outdir:
+        with open(os.path.join(cfg.outdir, "report.json"), "w") as fh:
+            json.dump(report, fh, indent=2)
+    logger.finish()
+    return (report, state) if return_state else report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,167 @@
+"""Supervised pretraining step (port of gslora_tpu/engine/pretrain.py;
+reference train/train_own.py).
+
+One call: forward + CE (or SFace's own loss) + gradient + optimizer update
+over ALL parameters, or over the LoRA subtree only (``lora_only``, the
+reference's mark_only_lora_as_trainable when a rank is set and a base
+checkpoint is resumed, train_own.py:385-386). Parameters update in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from gslora_tpu_torch.config import LoraConfig, ViTConfig
+from gslora_tpu_torch.losses.classification import cross_entropy, \
+    top1_accuracy
+from gslora_tpu_torch.models.heads import sface_head
+from gslora_tpu_torch.models.vit import ViT, vit_apply, vit_embed
+
+
+@dataclass
+class PretrainState:
+    """The model, whether only its LoRA trains, the optimizer's state for
+    the trainable parameters and the step count."""
+
+    model: ViT
+    lora_only: bool
+    opt_state: Dict
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: ViT, optimizer,
+               lora_only: bool = False) -> "PretrainState":
+        """``lora_only``: only the ``lora`` subtree requires grad and has
+        optimizer state (torch optimizers skip parameters whose grad stays
+        None, so the reference holds no base moments and applies no base
+        weight decay, train_own.py:386)."""
+        for name, p in model.named_parameters():
+            p.requires_grad_(not lora_only or name.startswith("lora."))
+        state = cls(model=model, lora_only=lora_only, opt_state={})
+        state.opt_state = optimizer.init(state.trainable_params())
+        return state
+
+    def trainable_params(self) -> List[torch.nn.Parameter]:
+        sub = self.model.lora if self.lora_only else self.model
+        return list(sub.parameters())
+
+    @property
+    def params(self) -> Dict:
+        return self.model.tree()
+
+
+def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32):
+    """Wrap ``grad_fn(x, y) -> (grads, metrics)`` to run over ``n`` equal
+    micro-batches, weighted to the exact full-batch masked mean (JAX
+    ``_accumulated``, pretrain.py:41-108).
+
+    Each micro-batch's grads and metrics are masked means over its valid
+    samples (label >= 0); scaled by that count they are masked sums, and
+    their sum over the micro-batches divided by the global valid count is
+    the full-batch mean, padded tails included (an all-padding micro-batch
+    adds zero). The sums are kept in ``accum_dtype`` (fp32 by default, also
+    for bf16 parameters: autograd's own ``.grad`` accumulation would sum in
+    the parameter's dtype) and cast back to each leaf's dtype at the end.
+    A batch that ``n`` does not divide runs as one full-batch call."""
+    def accum(x, y):
+        b = x.shape[0]
+        if b % n:
+            return grad_fn(x, y)
+        total, count = None, 0.0
+        for xm, ym in zip(x.split(b // n), y.split(b // n)):
+            valid = torch.sum((ym >= 0).float())
+            grads, metrics = grad_fn(xm, ym)
+            leaves = list(grads) + list(metrics.values())
+            if total is None:
+                dtypes = [t.dtype for t in leaves]
+                total = [torch.zeros_like(t, dtype=accum_dtype)
+                         for t in leaves]
+            for acc, t in zip(total, leaves):
+                acc.add_(t.to(accum_dtype) * valid.to(accum_dtype))
+            count = count + valid
+        denom = torch.clamp(count, min=1.0)
+        out = [(t / denom.to(accum_dtype)).to(dt)
+               for t, dt in zip(total, dtypes)]
+        return out[:len(grads)], dict(zip(metrics, out[len(grads):]))
+
+    return accum
+
+
+def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
+                       compute_dtype=torch.bfloat16, lora_only: bool = False,
+                       grad_accum: int = 1, accum_dtype=torch.float32):
+    """step(state, x, y, lr, generator=None) -> (state, metrics).
+
+    The loss is CE over the margin head's logits (CosFace, ArcFace,
+    Softmax) or SFace's own loss on the embedding; metrics ``loss`` and
+    ``acc``; labels -1 (padding) are masked. ``grad_accum > 1`` splits each
+    batch into that many micro-batches with one optimizer update
+    (``_accumulated``); ``state`` is updated in place and returned."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def loss_fn(params, x, y, generator):
+        kw = dict(train=True, generator=generator,
+                  compute_dtype=compute_dtype)
+        if model.head_type == "SFace":
+            emb = vit_embed(params, x, model, lora, **kw)
+            logits, loss, *_ = sface_head(params["base"]["head"], emb, y)
+        else:
+            logits, _ = vit_apply(params, x, y, model, lora, **kw)
+            loss = cross_entropy(logits, y)
+        return loss, {"loss": loss, "acc": top1_accuracy(logits, y)}
+
+    def step(state: PretrainState, x, y, lr: float,
+             generator: Optional[torch.Generator] = None):
+        if state.lora_only != lora_only:
+            raise ValueError(f"state has lora_only={state.lora_only}, the "
+                             f"step {lora_only}")
+        leaves = state.trainable_params()
+        params = state.params
+
+        def grad_fn(xm, ym):
+            loss, metrics = loss_fn(params, xm, ym, generator)
+            return torch.autograd.grad(loss, leaves), metrics
+
+        if grad_accum > 1:
+            grads, metrics = _accumulated(grad_fn, grad_accum,
+                                          accum_dtype)(x, y)
+        else:
+            grads, metrics = grad_fn(x, y)
+        optimizer.update(leaves, grads, state.opt_state, lr)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def pretrain(cfg, params, train_batches_fn, epochs: int,
+             compute_dtype=torch.bfloat16, lr: Optional[float] = None,
+             seed: int = 0, lora_only: bool = False):
+    """Minimal pretraining loop over a callable returning an epoch iterator
+    of (x, y) batches (numpy or tensors), on ``cfg.device``; the per-epoch
+    lr is ``timm_cosine_lr`` unless ``lr`` is given."""
+    from gslora_tpu_torch.engine.loop import resolve_device
+    from gslora_tpu_torch.engine.schedule import timm_cosine_lr
+    from gslora_tpu_torch.engine.state import make_optimizer
+
+    device = resolve_device(cfg.device)
+    opt = make_optimizer(cfg.optim)
+    state = PretrainState.create(
+        ViT(params, cfg.model, cfg.lora).to(device), opt,
+        lora_only=lora_only)
+    step = make_pretrain_step(cfg.model, cfg.lora, opt,
+                              compute_dtype=compute_dtype,
+                              lora_only=lora_only,
+                              grad_accum=cfg.optim.grad_accum)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    metrics = {}
+    for epoch in range(epochs):
+        ep_lr = lr if lr is not None else timm_cosine_lr(cfg.optim, epoch)
+        for x, y in train_batches_fn():
+            state, metrics = step(state, torch.as_tensor(x).to(device),
+                                  torch.as_tensor(y).to(device), ep_lr,
+                                  generator)
+    return state, metrics

@@ -30,6 +30,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gslora_tpu_torch.config import (IMAGENET_MEAN, IMAGENET_STD, LoraConfig,
                                      ViTConfig)
@@ -267,18 +268,52 @@ def _layer(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _rematerialized(fn, x, generator):
+    """``fn(x)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward. The checkpoint stashes only the global RNGs, so the explicit
+    dropout generator is handled here: the recompute starts from the
+    generator state the forward started from, and the generator is put
+    back where it was afterwards, so the recompute draws the forward's
+    masks and later draws are untouched."""
+    if generator is None:
+        return checkpoint(fn, x, use_reentrant=False,
+                          preserve_rng_state=False)
+    start = generator.get_state()
+    calls = []
+
+    def run(x):
+        if not calls:  # the forward itself
+            calls.append(1)
+            return fn(x)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(x)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def transformer_stack(x, blocks: Params, lora_tree: Params, model: ViTConfig,
                       scaling: float, generator, deterministic: bool):
-    """Apply the stacked transformer blocks, one layer after another."""
-    if model.remat:
-        raise NotImplementedError("remat is not ported yet")
+    """Apply the stacked transformer blocks, one layer after another.
+    ``model.remat`` checkpoints each layer while autograd records (the JAX
+    package's ``jax.checkpoint`` on the scan body, vit.py:424): the
+    backward reruns each layer's forward, attention included."""
+    remat = model.remat and torch.is_grad_enabled()
     for i in range(model.depth):
         blk = _layer(blocks, i)
         lora_blk = _layer(lora_tree, i) if lora_tree else None
-        x = _attention_block(x, blk, lora_blk, model, scaling, generator,
-                             deterministic)
-        x = _ffn_block(x, blk, lora_blk, model, scaling, generator,
-                       deterministic)
+
+        def layer(x, blk=blk, lora_blk=lora_blk):
+            x = _attention_block(x, blk, lora_blk, model, scaling,
+                                 generator, deterministic)
+            return _ffn_block(x, blk, lora_blk, model, scaling, generator,
+                              deterministic)
+
+        x = _rematerialized(layer, x, generator) if remat else layer(x)
     return x
 
 

@@ -1,0 +1,118 @@
+"""Profiler trace of a run (port of gslora_tpu/utils/profiling.py ``trace``)
+and a summary of the device timeline it records.
+
+``trace`` wraps ``torch.profiler`` (CPU activity, plus CUDA when a card is
+visible) and writes a Chrome trace, ``trace.json``, into its directory
+(chrome://tracing or Perfetto open it; the JAX package's trace is a
+TensorBoard one). ``device_summary`` reads such a file: the device's busy
+share over a window, the kernels that took the most device time and the
+longest stretches in which the device ran nothing.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import re
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+TRACE_FILE = "trace.json"
+# Kineto's categories of work that occupies the device
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block; on exit write ``<logdir>/trace.json``. Yields the
+    ``torch.profiler.profile`` object. Wrap the steps of interest in
+    ``torch.profiler.record_function(name)`` to give ``device_summary``
+    its window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+
+
+def _merged(intervals: List[Tuple[float, float, str]]):
+    """Sorted intervals merged where they overlap: [(start, end, first
+    name, last name)]."""
+    out: List[list] = []
+    for s, e, name in sorted(intervals):
+        if out and s <= out[-1][1]:
+            if e > out[-1][1]:
+                out[-1][1], out[-1][3] = e, name
+        else:
+            out.append([s, e, name, name])
+    return out
+
+
+def device_summary(trace_path: str, window: Optional[str] = None,
+                   top: int = 8, gaps: int = 5,
+                   families: Sequence[Tuple[str, str]] = ()) -> Dict:
+    """Device timeline of a Chrome trace written by :func:`trace`.
+
+    ``window``: the name of a ``record_function`` span on the host; the
+    summary covers its start to its end (default: first to last device
+    event). Returns the window's length, the busy share (the union of
+    kernel, copy and memset intervals over the window), the ``top``
+    kernels by summed device time, the ``gaps`` longest idle stretches
+    with the names of the device work on either side and, for
+    ``families`` ((label, regex) pairs, the first match of a name wins,
+    the rest is "other"), the device time of each family. Times in ms."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    dev = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+            e.get("name", "?")) for e in events
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    if not dev:
+        raise ValueError(f"{trace_path}: the trace holds no device events")
+    lo, hi = min(s for s, _, _ in dev), max(e for _, e, _ in dev)
+    if window is not None:
+        spans = [e for e in events if e.get("ph") == "X" and
+                 e.get("name") == window and e.get("cat") == "user_annotation"]
+        if not spans:
+            raise ValueError(f"{trace_path}: no host span named {window!r}")
+        lo = float(spans[0]["ts"])
+        hi = lo + float(spans[0]["dur"])
+    clipped = [(max(s, lo), min(e, hi), n) for s, e, n in dev
+               if e > lo and s < hi]
+    merged = _merged(clipped)
+    busy = sum(e - s for s, e, _, _ in merged)
+    by_name: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    for s, e, n in clipped:
+        by_name[n][0] += e - s
+        by_name[n][1] += 1
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    holes = [(lo, merged[0][0], "(window start)", merged[0][2])] if merged \
+        else []
+    holes += [(a[1], b[0], a[3], b[2]) for a, b in zip(merged, merged[1:])]
+    if merged:
+        holes.append((merged[-1][1], hi, merged[-1][3], "(window end)"))
+    holes = sorted(holes, key=lambda h: h[0] - h[1])[:gaps]
+    fam: Dict[str, float] = defaultdict(float)
+    for n, (t, _) in by_name.items():
+        label = next((lab for lab, rx in families if re.search(rx, n)),
+                     "other")
+        fam[label] += t / 1e3
+    span = hi - lo
+    return {
+        "window_ms": span / 1e3,
+        "busy_share": busy / span if span > 0 else 0.0,
+        "device_events": len(clipped),
+        "top_kernels": [{"name": n[:80], "ms": t / 1e3, "count": c,
+                         "share": t / span if span > 0 else 0.0}
+                        for n, (t, c) in kernels],
+        "idle_gaps": [{"ms": (b - a) / 1e3, "after": x[:60],
+                       "before": y[:60]} for a, b, x, y in holes],
+        "families_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
+    }

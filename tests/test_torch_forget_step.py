@@ -2,6 +2,8 @@
 and state.py) against the JAX package's ``make_forget_step`` on the same
 converted weights and batches (fp32, dropout 0), as
 tests/test_training_parity.py holds the JAX step against torch."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,8 @@ from gslora_tpu_torch.lora.core import lora_group_norms
 from gslora_tpu_torch.losses.classification import cross_entropy
 from gslora_tpu_torch.losses.prototype import prototype_loss
 from gslora_tpu_torch.models.convert import flatten_tree, params_from_jax
-from gslora_tpu_torch.models.vit import ViT, init_vit_params
+from gslora_tpu_torch.cli.common import build_params
+from gslora_tpu_torch.models.vit import ViT, init_vit_params, vit_apply
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -202,9 +205,16 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="soft split"):
         init_vit_params(torch.Generator().manual_seed(0),
                         tc.ViTConfig(**MODEL, soft_split=True), tl)
-    for name in ("adam", "sgd", "rmsprop"):
-        with pytest.raises(NotImplementedError, match=name):
-            make_optimizer(tc.OptimConfig(opt=name))
+    int8 = dataclasses.replace(tm, gemm_impl="int8")
+    for call, match in (
+            (lambda: vit_apply(params, torch.from_numpy(x), None, int8, tl,
+                               compute_dtype=torch.float32), "int8"),
+            (lambda: build_params(tc.RunConfig(resume="x.msgpack")),
+             "msgpack"),
+            (lambda: build_params(tc.RunConfig(net="VIT_B16",
+                                               resume="x.pth")), "VIT_B16")):
+        with pytest.raises(NotImplementedError, match=match):
+            call()
 
 
 def test_forget_step_rejects_bad_options():
