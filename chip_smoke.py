@@ -12,7 +12,9 @@ non-zero exit code and without the final result line.
    times.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card, at every shape the driven paths give it (K1: train, eval, fused
-   and prototype batches, derived from the paths' configs), at ragged
+   and prototype batches, derived from the paths' configs, each at its
+   path's attention scale: ViT-B/16's 0.125 with q and k offset per
+   channel as its qkv bias does), at ragged
    ones and at the edges of K1's 64-row tiles and 16-key blocks, each
    output held to a
    tolerance scaled to its own size (ops/attention.plain_mismatch,
@@ -20,8 +22,9 @@ non-zero exit code and without the final result line.
    and the nearest single PyTorch call (library yardstick, never used by
    the port) with CUDA events, and each kernel's bound from its bytes and
    operations at this card's published rates. K1 is also timed at each
-   path shape, L2-warm and L2-cold, with its backward's two launches
-   apart, and its blocks per SM, registers and spills are printed. The
+   path shape, L2-warm and L2-cold, beside SDPA at the same shape, with
+   its backward's two launches apart, and its blocks per SM, registers
+   and spills are printed. The
    group kernels (K2 prox,
    K3 norms and rescale, and the fused group-Lasso through autograd) run
    at the flagship LoRA shapes, ViT-B/16's rank-8 LoRA and two ragged
@@ -30,9 +33,9 @@ non-zero exit code and without the final result line.
    streamed path; then their cluster size, the clusters the card holds
    at once, the launch floor (an empty kernel of group_lasso.cu through
    the same ctypes path) and their times at both LoRA shapes.
-3. Model check: the flagship model's embeddings, logits and LoRA
-   gradients (bf16, dropout off, 4 images) with attention through the
-   kernels against the same with the kernels' plain version
+3. Model check: the flagship model's and ViT-B/16's embeddings, logits
+   and LoRA gradients (bf16, dropout off, 4 images) with attention
+   through the kernels against the same with the kernels' plain version
    (attn_impl="dpa"), within MODEL_TOL.
 4. Main path phase: the port's train_forget CLI on the card at the
    flagship width (ViT-P8S8, 112x112, dim 512, 8 heads x 64, CosFace,
@@ -47,7 +50,19 @@ non-zero exit code and without the final result line.
    Checks finite per-task accuracies and losses, the old-class accuracy of
    task 1, both task checkpoints, K2 launched once per training step and
    K1's counts equal to what the path implies.
-6. Pretrain phase: the port's train_pretrain CLI at the same width, every
+6. ImageNet phase: the port's train_forget_cl CLI with the ImageNet-100
+   recipe (scripts/run_cl_forget_image.sh: -d imagenet100 -n VIT_B16,
+   bs 48, rank-8 FFN LoRA, BND 10, alpha 1e-4) at ViT-B/16's full width
+   and depth (224x224, 197 tokens, dim 768, depth 12, 12 heads x 64),
+   cut to 2 tasks x 1 epoch, over a seeded JPEG folder (100 classes at
+   scattered indices of a 1000-wnid list, and 3 held-out classes),
+   resumed (-r) from a seeded torchvision-named checkpoint with a
+   1000-row head and no LoRA. Checks the head cut to the classes' rows,
+   finite accuracies, the missing-class accuracy logged before and
+   after, and K1's counts against those derived from the flags
+   (expected_cl_launches). Then the recipe's forget step alone:
+   ms/step and images/s from CUDA events, peak memory.
+7. Pretrain phase: the port's train_pretrain CLI at the same width, every
    parameter trained (so K1's backward runs in block 0 too), batch 480,
    4 epochs of 2000 synthetic images (20 steps; the batch-20 eval saves a
    checkpoint); then a LoRA-only run resumed from that checkpoint with
@@ -57,11 +72,12 @@ non-zero exit code and without the final result line.
    (perform_val) of its result on the card. K1 counts equal what each run
    implies (expected_pretrain_launches). Then the pretrain step alone at
    bs 480, without and with remat: ms/step, images/s, peak memory.
-7. Profiler phase: five bench-recipe steps and two pretrain steps (bs
-   480) under utils/profiling.trace; prints for each the device's busy
-   share over them, its time per step by kernel family, the kernels with
-   the most device time and the longest idle stretches.
-8. Prints the kernels line, then the result line.
+8. Profiler phase, right after each step's timing: five bench-recipe
+   steps, two ViT-B/16 forget steps and two pretrain steps (bs 480)
+   under utils/profiling.trace; prints for each the device's busy share
+   over them, its time per step by kernel family, the kernels with the
+   most device time and the longest idle stretches.
+9. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
@@ -87,6 +103,7 @@ from gslora_tpu_torch.checkpoints.io import (load_params,  # noqa: E402
 from gslora_tpu_torch.cli import (export_torch, train_forget,  # noqa: E402
                                   train_forget_cl, train_pretrain)
 from gslora_tpu_torch.cli.common import (build_datasets,  # noqa: E402
+                                         build_missing_dataset,
                                          build_params)
 from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
                                      OptimConfig, ViTConfig, build_parser,
@@ -96,7 +113,8 @@ from gslora_tpu_torch.data.splits import (make_order_list,  # noqa: E402
                                           split_by_class_window)
 from gslora_tpu_torch.engine.continual import (PROTO_BATCH,  # noqa: E402
                                                split_task_data)
-from gslora_tpu_torch.engine.forget import make_forget_step  # noqa: E402
+from gslora_tpu_torch.engine.forget import (make_forget_step,  # noqa: E402
+                                            scalars_for_epoch)
 from gslora_tpu_torch.engine.pretrain import (PretrainState,  # noqa: E402
                                               make_pretrain_step)
 from gslora_tpu_torch.engine.state import (ForgetState,  # noqa: E402
@@ -108,6 +126,8 @@ from gslora_tpu_torch.losses.classification import (  # noqa: E402
     cross_entropy)
 from gslora_tpu_torch.models.vit import (ViT, init_vit_params,  # noqa: E402
                                          vit_apply)
+from gslora_tpu_torch.models.vit_imagenet import (  # noqa: E402
+    to_torchvision_state_dict)
 from gslora_tpu_torch.ops import attention as A  # noqa: E402
 from gslora_tpu_torch.ops import cuda_build  # noqa: E402
 from gslora_tpu_torch.ops import group_lasso as G  # noqa: E402
@@ -156,10 +176,15 @@ def build_all():
         return dict(zip(SOURCES, pool.map(timed, SOURCES)))
 
 
-def inputs(bh, n, d, seed):
+def inputs(bh, n, d, seed, bias=False):
+    """q, k, v, g of N(0, 1); ``bias``: q and k also carry one offset per
+    channel of N(0, 1), as ViT-B/16's qkv bias puts in front of K1."""
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(bh, n, d, generator=g).to(DEV, torch.bfloat16)
-            for _ in range(4)]
+    ts = [torch.randn(bh, n, d, generator=g) for _ in range(4)]
+    if bias:
+        for t in ts[:2]:
+            t += torch.randn(d, generator=g)
+    return [t.to(DEV, torch.bfloat16) for t in ts]
 
 
 def max_err(got, want, names, what):
@@ -175,19 +200,30 @@ def max_err(got, want, names, what):
     return max(m["max_abs"] for m in stats.values())
 
 
+def attention_scale(model) -> float:
+    """The model's attention scale: dim**-0.5 for the face ViT's quirk,
+    dim_head**-0.5 for ViT-B/16 (models/vit.py)."""
+    return (model.dim if model.attn_scale == "dim" else model.dim_head) \
+        ** -0.5
+
+
 def path_shapes():
-    """(batch x heads, tokens) of every attention the driven paths launch,
-    from their configs: the train batch and the eval batch of each path,
-    the bench recipe's fused batch (train + forget) and the continual
-    path's prototype batch."""
+    """(batch x heads, tokens, scale) of every attention the driven paths
+    launch, from their configs: the train batch and the eval batch of each
+    path, the bench recipe's fused batch (train + forget) and the
+    continual path's prototype batch; the ImageNet path's train and
+    missing-class batch (one size) and its eval batch, at its own scale."""
     shapes = set()
-    for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV):
+    for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV, IMAGENET_ARGV):
         cfg = config_from_args(build_parser().parse_args(argv))
         bs, m = cfg.data.batch_size, cfg.model
         batches = [bs, bs * cfg.data.test_batch_scale]
-        if argv is not PRETRAIN_ARGV:
+        if argv in (MAIN_ARGV, CL_ARGV):
             batches += [2 * bs, PROTO_BATCH]
-        shapes.update((b * m.heads, m.seq_len) for b in batches)
+        elif cfg.forget.prototype:
+            batches.append(PROTO_BATCH)
+        shapes.update((b * m.heads, m.seq_len, attention_scale(m))
+                      for b in batches)
     return sorted(shapes)
 
 
@@ -219,48 +255,60 @@ def kernel_phase(bw, peak):
     at each path shape; plain, library and the backward's two launches at
     the flagship shape; occupancy of the three kernels."""
     errs = {"fwd": 0.0, "bwd": 0.0}
-    shapes = [(bh, n, HEAD_DIM, seed)
-              for seed, (bh, n) in enumerate(path_shapes(), 3)]
-    shapes += [(bh, n, d, seed) for seed, (bh, n, d) in
+    shapes = [(bh, n, HEAD_DIM, scale, seed)
+              for seed, (bh, n, scale) in enumerate(path_shapes(), 3)]
+    shapes += [(bh, n, d, SCALE, seed) for seed, (bh, n, d) in
                enumerate(EDGE_SHAPES, 20)]
-    for bh, n, d, seed in shapes:
-        q, k, v, g = inputs(bh, n, d, seed)
-        o = A.attention_fwd_kernel(q, k, v, SCALE)
+    for bh, n, d, scale, seed in shapes:
+        q, k, v, g = inputs(bh, n, d, seed, bias=scale != SCALE)
+        where = f"{(bh, n, d)} scale {scale:.4f}"
+        o = A.attention_fwd_kernel(q, k, v, scale)
         torch.cuda.synchronize()
         errs["fwd"] = max(errs["fwd"], max_err(
-            [o], [A.attention_fwd_plain(q, k, v, SCALE)], ["o"],
-            f"attention forward at {(bh, n, d)}"))
-        grads = A.attention_bwd_kernel(q, k, v, g, SCALE)
+            [o], [A.attention_fwd_plain(q, k, v, scale)], ["o"],
+            f"attention forward at {where}"))
+        grads = A.attention_bwd_kernel(q, k, v, g, scale)
         torch.cuda.synchronize()
         errs["bwd"] = max(errs["bwd"], max_err(
-            grads, A.attention_bwd_plain(q, k, v, g, SCALE),
-            ["dq", "dk", "dv"], f"attention backward at {(bh, n, d)}"))
+            grads, A.attention_bwd_plain(q, k, v, g, scale),
+            ["dq", "dk", "dv"], f"attention backward at {where}"))
 
     occupancy = A.kernel_info(N_TOKENS, HEAD_DIM)
     print(f"attention kernels at n={N_TOKENS}, d={HEAD_DIM}: " +
           json.dumps(occupancy), flush=True)
 
     by_shape = {"fwd": {}, "bwd": {}}
-    with torch.no_grad():
-        for bh, n in path_shapes():
-            q, k, v, g = inputs(bh, n, HEAD_DIM, 7)
-            bounds = k1_bounds(bh, n, HEAD_DIM, bw, peak)
-            for key, fn in (
-                    ("fwd", lambda: A.attention_fwd_kernel(q, k, v, SCALE)),
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for bh, n, scale in path_shapes():
+        q, k, v, g = inputs(bh, n, HEAD_DIM, 7, bias=scale != SCALE)
+        bounds = k1_bounds(bh, n, HEAD_DIM, bw, peak)
+        # library yardsticks at the same shape: SDPA forward, and its
+        # backward alone over one recorded forward
+        ql, kl, vl = (t[None].clone().requires_grad_(True)
+                      for t in (q, k, v))
+        out_l = sdpa(ql, kl, vl, scale=scale)
+        with torch.no_grad():
+            for key, fn, lib in (
+                    ("fwd", lambda: A.attention_fwd_kernel(q, k, v, scale),
+                     lambda: sdpa(q[None], k[None], v[None], scale=scale)),
                     ("bwd", lambda: A.attention_bwd_kernel(q, k, v, g,
-                                                           SCALE))):
+                                                           scale), None)):
                 by_shape[key][f"{bh}x{n}x{HEAD_DIM}"] = {
-                    "ms": cuda_ms(fn), "cold_ms": cuda_cold_ms(fn),
-                    "bound_ms": bounds[key][0]}
-    print("attention kernel times by path shape (warm, L2-cold, bound): " +
-          json.dumps(by_shape), flush=True)
+                    "scale": scale, "ms": cuda_ms(fn),
+                    "cold_ms": cuda_cold_ms(fn), "bound_ms": bounds[key][0],
+                    "library_ms": cuda_ms(lib) if lib else None}
+        by_shape["bwd"][f"{bh}x{n}x{HEAD_DIM}"]["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(out_l, (ql, kl, vl), g[None],
+                                        retain_graph=True))
+        del out_l, ql, kl, vl
+    print("attention kernel times by path shape (warm, L2-cold, bound, "
+          "SDPA): " + json.dumps(by_shape), flush=True)
 
     bh, n, d = FLAGSHIP_BH, N_TOKENS, HEAD_DIM
     q, k, v, g = inputs(bh, n, d, 3)
     # library yardsticks: SDPA forward; its backward alone (autograd.grad
     # over one recorded forward, which saved its row statistics)
     q4, k4, v4, g4 = (t.reshape(bh // 8, 8, n, d) for t in (q, k, v, g))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
     out_l = sdpa(ql, kl, vl, scale=SCALE)
     with torch.no_grad():
@@ -448,10 +496,10 @@ def rel_err(got, want) -> float:
                  torch.linalg.vector_norm(want).clamp_min(1e-30))
 
 
-def model_check():
-    """Flagship forward and LoRA gradients, attention through the kernels
-    against the plain attention, same weights and inputs on the card."""
-    model = ViTConfig(dropout=0.0, emb_dropout=0.0)
+def model_check(model):
+    """A model's forward and LoRA gradients (the flagship's, ViT-B/16's),
+    attention through the kernels against the plain attention, same
+    weights and inputs on the card."""
     lora = LoraConfig(rank=8)
     gen = torch.Generator().manual_seed(1)
     params = init_vit_params(gen, model, lora)
@@ -459,7 +507,8 @@ def model_check():
         b = params["lora"]["ffn"][name]
         params["lora"]["ffn"][name] = 0.02 * torch.randn(b.shape,
                                                           generator=gen)
-    x = torch.randn(4, 3, 112, 112, generator=gen).to(DEV)
+    size = model.image_size
+    x = torch.randn(4, 3, size, size, generator=gen).to(DEV)
     y = torch.randint(0, model.num_class, (4,), generator=gen).to(DEV)
     out = {}
     for impl in ("auto", "dpa"):
@@ -473,7 +522,8 @@ def model_check():
     names = ["emb", "logits"] + [n for n, _ in vit.lora.named_parameters()]
     errs = {n: rel_err(a, b) for n, a, b in zip(names, out["auto"],
                                                 out["dpa"])}
-    print("model check (kernels vs their plain version, relative L2): " +
+    print(f"model check, dim {model.dim} depth {model.depth} "
+          f"{size}x{size} (kernels vs their plain version, relative L2): " +
           json.dumps(errs), flush=True)
     bad = {n: e for n, e in errs.items() if not e <= MODEL_TOL}
     if bad:
@@ -633,13 +683,13 @@ FAMILIES = [("K1 attention", r"attn_(fwd|bwd)"),
 
 
 def profiler_phase(runs, card):
-    """Each (label, run, steps, untraced ms/step) under
+    """Each (label, run, untraced ms/step, steps) under
     utils/profiling.trace: the device's busy share over the traced steps
     (first enqueue to the device's finish), its time per step by kernel
     family, the kernels with the most device time and the longest idle
     stretches. The untraced step time gives the busy share the steps
     would have without the profiler's own host cost."""
-    for label, run, steps, untraced_ms in runs:
+    for label, run, untraced_ms, steps in runs:
         run(2)
         torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as out:
@@ -896,37 +946,50 @@ CL_ARGV = ["-d", "synthetic", "-n", "VIT", "--vit_depth", "6",
 
 
 def expected_cl_launches(argv):
-    """K1 and K2 launches the continual path implies, per task: the
-    old-class evals before and after training (task > 0), the prototypes
-    (batches of 500), the before / EMA / final evals of test forget and
-    remain, and two training forwards per step ('depth' forward launches
-    per forward, 'depth - 1' backward per training forward); K2 once per
-    training step."""
-    cfg = config_from_args(build_parser().parse_args(argv))
+    """K1 and K2 launches the continual path implies, from its flags. Per
+    task: the old-class evals before and after training (task > 0); the
+    prototypes (batches of PROTO_BATCH, with --prototype); the test forget
+    and remain evals before training, every ver_freq steps, after each
+    epoch from ema_epoch on (--average_weight) and at the end; two training
+    forwards per step. With --imagenet_miss_root, the missing-class evals
+    before and after the run (batches of -b). 'depth' forward launches per
+    forward, 'depth - 1' backward per training forward (FFN LoRA); K2 once
+    per training step under --structure_mode prox."""
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
     f, bs = cfg.forget, cfg.data.batch_size
-    assert cfg.num_epoch == 1 and f.ema_epoch == 0 and f.average_weight
+    assert f.open_cls_num == 0 and cfg.lora.pos == "FFN" and \
+        cfg.optim.grad_accum == 1 and not cfg.fused_batch
     train, test = build_datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
     batches = lambda n, b: -(-n // b)  # noqa: E731
     test_bs = bs * cfg.data.test_batch_scale
+    ema_rounds = max(0, cfg.num_epoch - f.ema_epoch) \
+        if f.average_weight else 0
     fwd = steps = 0
     for task in range(f.num_tasks):
         data, old = split_task_data(cfg, train, test, order, task,
                                     cfg.data.seed + task)
-        n = batches(len(data.train_remain), bs)  # remain drives the epoch
-        assert n < cfg.ver_freq
+        # the remain stream drives each epoch
+        n = cfg.num_epoch * batches(len(data.train_remain), bs)
         evals = batches(len(data.test_forget), test_bs) + \
             batches(len(data.test_remain), test_bs)
+        rounds = 2 + n // cfg.ver_freq + ema_rounds
         old_evals = 2 * batches(len(old), test_bs) \
             if old is not None and len(old) else 0
-        protos = batches(len(data.train_forget), 500) + \
-            batches(len(data.train_remain), 500)
-        fwd += 3 * evals + old_evals + protos + 2 * n
+        protos = batches(len(data.train_forget), PROTO_BATCH) + \
+            batches(len(data.train_remain), PROTO_BATCH) \
+            if f.prototype else 0
+        fwd += rounds * evals + old_evals + protos + 2 * n
         steps += n
+    if cfg.data.data_mode == "imagenet100" and args.imagenet_miss_root:
+        miss = build_missing_dataset(cfg, args.imagenet_miss_root)
+        fwd += 2 * batches(len(miss), bs)
     depth = cfg.model.depth
+    prox = steps if cfg.structure_mode == "prox" else 0
     return {"attention_fwd": depth * fwd,
             "attention_bwd": (depth - 1) * 2 * steps,
-            "group_prox": steps, "group_norms": 0, "group_scale": 0}
+            "group_prox": prox, "group_norms": 0, "group_scale": 0}
 
 
 def continual_phase():
@@ -979,6 +1042,189 @@ def continual_phase():
     return launches
 
 
+IMAGENET_ARGV = ["--one_stage", "-b", "48", "-d", "imagenet100",
+                 "-n", "VIT_B16", "--head", "Softmax", "--lora_rank", "8",
+                 "--lr", "1e-2", "--warmup-epochs", "0", "--BND", "10",
+                 "--alpha", "1e-4", "--alpha_epoch", "0", "--min-lr", "1e-5",
+                 "--num_tasks", "2", "--num_of_first_cls", "80",
+                 "--per_forget_cls", "20", "--cl_beta_list", "0.15", "0.15",
+                 "-e", "1", "--compute_dtype", "bfloat16"]
+# the seeded stand-in for ImageNet-100: images per class in train/ and
+# test/, and the held-out classes with their images
+IMAGENET_FOLDER = {"train": 20, "test": 4, "miss_classes": 3,
+                   "miss_images": 16}
+
+
+def imagenet_folder(root, seed=0):
+    """A seeded ImageNet-100 folder under root: data/train and data/test
+    with 100 class folders named by fake wnids (64x80 JPEGs, a colour per
+    class plus noise), data/imagenet_folder_names.txt of 1000 sorted wnids
+    in which the 100 sit at scattered indices, and miss/ with 3 other
+    wnids' images. Returns (data root, missing-class root, the global
+    index of each class in folder order)."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    wnids = [f"n{i:08d}" for i in
+             sorted(rng.choice(10 ** 8, 1000, replace=False))]
+    picked = rng.choice(1000, 100 + IMAGENET_FOLDER["miss_classes"],
+                        replace=False)
+    run_idx, miss_idx = sorted(picked[:100]), sorted(picked[100:])
+    data, miss = os.path.join(root, "data"), os.path.join(root, "miss")
+
+    def write(folder, idx, n):
+        colour = rng.randint(0, 256, (1, 1, 3))
+        os.makedirs(os.path.join(folder, wnids[idx]))
+        for i in range(n):
+            img = np.clip(colour + rng.randint(-48, 48, (64, 80, 3)), 0, 255)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(folder, wnids[idx], f"{i}.JPEG"))
+
+    for idx in run_idx:
+        for split in ("train", "test"):
+            write(os.path.join(data, split), idx, IMAGENET_FOLDER[split])
+    for idx in miss_idx:
+        write(miss, idx, IMAGENET_FOLDER["miss_images"])
+    with open(os.path.join(data, "imagenet_folder_names.txt"), "w") as fh:
+        fh.write("\n".join(wnids) + "\n")
+    return data, miss, run_idx
+
+
+def vit_b16_checkpoint(path, model):
+    """A seeded ``model`` (ViT-B/16) with a 1000-row Softmax head and no
+    LoRA, written in torchvision naming by the port's own exporter;
+    returns its head."""
+    model = dataclasses.replace(model, num_class=1000)
+    params = init_vit_params(torch.Generator().manual_seed(0), model,
+                             LoraConfig(rank=0))
+    sd = to_torchvision_state_dict(params, model)
+    torch.save(sd, path)
+    return sd["heads.head.weight"], sd["heads.head.bias"]
+
+
+def imagenet_phase():
+    """The ImageNet-100 continual path on the card at ViT-B/16's full width
+    and depth: train_forget_cl -d imagenet100 -n VIT_B16 -r <torchvision
+    .pth> with the recipe's flags, cut to 2 tasks of 1 epoch, over a
+    seeded JPEG folder with a missing-class root. Checks the head cut to
+    the 100 classes' rows, finite accuracies, the missing-class accuracy
+    before and after, and K1's counts against the flags."""
+    import PIL
+    with tempfile.TemporaryDirectory() as root:
+        data, miss, run_idx = imagenet_folder(root)
+        ckpt = os.path.join(root, "vit_b16.pth")
+        out = os.path.join(root, "out")
+        argv = IMAGENET_ARGV + ["--data_root", data, "--imagenet_miss_root",
+                                miss, "-r", ckpt, "--outdir", out]
+        model = config_from_args(build_parser().parse_args(argv)).model
+        head_w, head_b = vit_b16_checkpoint(ckpt, model)
+        want = expected_cl_launches(argv)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        report = train_forget_cl.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(out, "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        snap = load_params(os.path.join(out, "task-level",
+                                        "Backbone_task_0.pth"))
+    head = snap["base"]["head"]
+    rows = torch.tensor(run_idx)
+    if head["weight"].shape != (model.num_class, model.dim) or not (
+            torch.equal(head["weight"], head_w[rows]) and
+            torch.equal(head["bias"], head_b[rows])):
+        raise AssertionError(f"imagenet: head {tuple(head['weight'].shape)}"
+                             f" is not the checkpoint's rows of the "
+                             f"{model.num_class} classes")
+    for r in report:
+        vals = [r[k] for k in ("forget_acc_before", "forget_acc",
+                               "remain_acc", "best_H_mean")] + r["norm_list"]
+        if r["task"] == 1:
+            vals.append(r["old_acc"])
+        if not all(v is not None and math.isfinite(v) for v in vals):
+            raise AssertionError(f"imagenet: task {r['task']}: {r}")
+    missing = {k: v for rec in logged for k, v in rec.items()
+               if k.startswith("imagenet-val-miss_")}
+    if sorted(missing) != ["imagenet-val-miss_after",
+                           "imagenet-val-miss_before"] or not all(
+            math.isfinite(v) for v in missing.values()):
+        raise AssertionError(f"imagenet: missing-class evals {missing}")
+    if launches != want:
+        raise AssertionError(f"imagenet path launched {launches}; the "
+                             f"path implies {want}")
+    print("imagenet " + json.dumps({
+        "recipe": "train_forget_cl -d imagenet100 -n VIT_B16 -r <seeded "
+                  "torchvision .pth>, GS-LoRA, depth 12 dim 768 bs 48, "
+                  "2 tasks x 1 epoch, bf16 compute",
+        "data": f"seeded JPEG folder (PIL {PIL.__version__}): "
+                f"{IMAGENET_FOLDER}",
+        "wall_s": wall, "time_to_forget_s": [r["time_to_forget_s"]
+                                             for r in report],
+        "accuracies": [{k: r[k] for k in ("task", "forget_acc_before",
+                                          "forget_acc", "remain_acc",
+                                          "old_acc")} for r in report],
+        **missing, "launches": launches}), flush=True)
+    return launches
+
+
+def imagenet_bench(card, steps=10):
+    """The ImageNet recipe's forget step alone at ViT-B/16 (fp32 params,
+    bf16 compute, rank-8 FFN LoRA, forget and remain batches of 48, random
+    weights and images): ms/step and images/s from CUDA events around
+    the steps, and the peak device memory. Returns its run(n) and ms/step
+    for the profiler phase."""
+    cfg = config_from_args(build_parser().parse_args(IMAGENET_ARGV))
+    model, lora, b = cfg.model, cfg.lora, cfg.data.batch_size
+    params = init_vit_params(torch.Generator().manual_seed(0), model, lora)
+    opt = make_optimizer(cfg.optim)
+    state = ForgetState.create(ViT(params, model, lora).to(DEV), opt)
+    step = make_forget_step(model, lora, cfg.forget, opt,
+                            compute_dtype=torch.bfloat16,
+                            lora_apply=cfg.lora_apply,
+                            structure_mode=cfg.structure_mode,
+                            fused_batch=cfg.fused_batch)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    size = model.image_size
+    xf, xr = (torch.randn(b, 3, size, size, device=DEV, generator=gen)
+              for _ in range(2))
+    first = cfg.forget.num_of_first_cls
+    yf = torch.randint(first, model.num_class, (b,), device=DEV,
+                       generator=gen)
+    yr = torch.randint(0, first, (b,), device=DEV, generator=gen)
+    protos = torch.zeros(model.num_class, model.dim, device=DEV)
+    sc = scalars_for_epoch(cfg, 0, lr=1e-2, beta=0.15, continual=True)
+
+    def run(n):
+        for _ in range(n):
+            _, m = step(state, xf, yf, xr, yr, protos, sc, gen)
+        return m
+
+    run(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    m = run(steps)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    loss = float(m["loss_total"])
+    depth = model.depth
+    if not math.isfinite(loss) or (A.FWD_LAUNCHES, A.BWD_LAUNCHES) != (
+            2 * depth * steps, 2 * (depth - 1) * steps):
+        raise AssertionError(f"ViT-B/16 forget step: loss {loss}, "
+                             f"launches {(A.FWD_LAUNCHES, A.BWD_LAUNCHES)}")
+    print("imagenet_bench " + json.dumps({
+        "recipe": "ViT-B/16 forget step, fp32 params, bf16 compute, rank-8 "
+                  "FFN LoRA, forget + remain batches of 48, depth 12",
+        "card": card, "ms_per_step": ms, "images_per_sec": 2 * b / ms * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_total": loss}), flush=True)
+    return run, ms
+
+
 def main():
     t_script = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -996,14 +1242,18 @@ def main():
           ", ".join(f"{k} {v:.1f} s" for k, v in builds.items()), flush=True)
 
     rows = kernel_phase(bw, peak) + group_phase(bw, fp32_peak)
-    model_check()
+    model_check(ViTConfig(dropout=0.0, emb_dropout=0.0))
+    model_check(ViTConfig.vit_b16())
     main_launches = main_path_phase()
-    bench_run, bench_ms = bench_phase(card)
+    # each step is traced right after it is timed, then dropped, so no
+    # step's tensors count in a later one's peak memory
+    profiler_phase([("bench recipe step", *bench_phase(card), 5)], card)
     cl_launches = continual_phase()
+    imagenet_launches = imagenet_phase()
+    profiler_phase([("ViT-B/16 forget step", *imagenet_bench(card), 2)],
+                   card)
     pre_launches, pre_lora_launches = pretrain_phase()
-    pretrain_run, pretrain_ms = pretrain_bench(card)
-    profiler_phase([("bench recipe step", bench_run, 5, bench_ms),
-                    ("pretrain step bs 480", pretrain_run, 2, pretrain_ms)],
+    profiler_phase([("pretrain step bs 480", *pretrain_bench(card), 2)],
                    card)
     for row in rows:
         # each kernel's count from the path it serves: K1 the single-step
@@ -1014,6 +1264,7 @@ def main():
         row["launches_by_path"] = {
             "train_forget": main_launches[name],
             "train_forget_cl": cl_launches[name],
+            "train_forget_cl_imagenet": imagenet_launches[name],
             "train_pretrain": pre_launches[name],
             "train_pretrain_lora_remat": pre_lora_launches[name]}
 

@@ -1,11 +1,14 @@
 """Export a checkpoint to the reference's ``.pth`` format (port of
-gslora_tpu/cli/export_torch.py, face-ViT naming).
+gslora_tpu/cli/export_torch.py).
 
-Writes a torch state dict under the reference ViT_face names
+Writes a torch state dict in fp32 under the reference ViT_face names
 (``transformer.layers.{i}.1.fn.fn.net.{0,3}.lora_{A,B}``, vit_face.py:
-449-548) in fp32, loadable by the reference's resume
-(train_own_forget.py:624-648), by the JAX package's ``-r`` and by the
-port's own. Two forms, as loralib's train/eval modes:
+449-548) or, for ``-n VIT_B16``, under torchvision's vit_b_16 names with
+the loralib FFN keys (``encoder.layers.encoder_layer_{i}.mlp.{0,3}.
+lora_{A,B}``, the surgered model of train_own_forget_cl.py:206-243);
+loadable by the reference's resume (train_own_forget.py:624-648), by the
+JAX package's ``-r`` and by the port's own. Two forms, as loralib's
+train/eval modes:
 
 * ``unmerged``: base weights untouched plus the current lora_A/lora_B
   (``torch.save(model.state_dict())`` in train mode);
@@ -28,11 +31,15 @@ from gslora_tpu_torch.cli.common import build_params
 from gslora_tpu_torch.config import build_parser, config_from_args
 from gslora_tpu_torch.lora.core import merge_lora
 from gslora_tpu_torch.models.import_torch import to_state_dict
+from gslora_tpu_torch.models.vit_imagenet import to_torchvision_state_dict
 
 
 def export_state_dict(params: dict, model_cfg, lora_cfg,
-                      form: str = "unmerged") -> dict:
-    """The port's tree -> reference-named state dict, merged or unmerged."""
+                      form: str = "unmerged", naming: str = "vit_face"
+                      ) -> dict:
+    """The port's tree -> reference-named state dict, merged or unmerged;
+    ``naming`` "vit_face" (ViT_face / ViTs_face) or "torchvision"
+    (the ViT-B/16 of the ImageNet-100 path)."""
     if form not in ("merged", "unmerged"):
         raise ValueError(f"export form must be merged|unmerged, got {form!r}")
     if form == "merged" and params.get("lora"):
@@ -40,6 +47,8 @@ def export_state_dict(params: dict, model_cfg, lora_cfg,
         base["blocks"] = merge_lora(base["blocks"], params["lora"],
                                     lora_cfg.scaling)
         params = {"base": base, "lora": params["lora"]}
+    if naming == "torchvision":
+        return to_torchvision_state_dict(params, model_cfg)
     return to_state_dict(params, model_cfg)
 
 
@@ -64,9 +73,7 @@ def main(argv=None):
     cfg = config_from_args(args)
     if not cfg.resume:
         parser.error("export requires a checkpoint: pass -r/--resume")
-    if cfg.net == "VIT_B16":
-        raise NotImplementedError("export with the torchvision naming "
-                                  "(VIT_B16) is not ported yet")
+    naming = "torchvision" if cfg.net == "VIT_B16" else "vit_face"
     params = build_params(cfg)
 
     forms = (["unmerged", "merged"] if args.export_form == "both"
@@ -77,8 +84,9 @@ def main(argv=None):
         if args.export_form == "both" and form == "merged":
             stem, ext = os.path.splitext(path)
             path = f"{stem}_merged{ext or '.pth'}"
-        save_pth(export_state_dict(params, cfg.model, cfg.lora, form), path)
-        written.append({"path": path, "form": form, "naming": "vit_face"})
+        save_pth(export_state_dict(params, cfg.model, cfg.lora, form,
+                                   naming=naming), path)
+        written.append({"path": path, "form": form, "naming": naming})
     print(json.dumps({"exported": written}))
     return written
 

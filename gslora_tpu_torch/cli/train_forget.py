@@ -10,7 +10,8 @@ Usage:
 Runs on the GPU unless ``--device cpu`` is given. ``-r`` resumes from a
 port checkpoint or a reference-named ``.pth`` (cli/common.build_params);
 ``--profile_dir`` writes a profiler trace of the run there. Only the
-GS-LoRA path is ported: the single-step baselines and ``--dp`` raise.
+GS-LoRA path is ported: the single-step baselines, ``--dp`` and
+``--gemm_impl int8`` raise.
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ def main(argv=None):
                                   "ported yet (GS-LoRA only)")
     if args.dp:
         raise NotImplementedError("--dp (data parallel) is not ported yet")
+    if args.gemm_impl == "int8":
+        raise NotImplementedError("gemm_impl='int8' (an eval and serving "
+                                  "path) is not ported yet")
     resolve_device(cfg.device)  # no card when one is asked for: fail first
     params = build_params(cfg)
 

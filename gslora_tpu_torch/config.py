@@ -66,8 +66,9 @@ class ViTConfig:
     # (CUDA kernel on the card, its plain version on the CPU) | dpa: that
     # plain version on any device | xla | bnhd: eager einsums with bf16
     # scores, as the JAX model's einsum path
-    # rematerialize block activations in backward (activation checkpoints
-    # per block); not ported yet: the port raises on it
+    # rematerialize block activations in backward: each block's forward
+    # runs again in the backward (torch.utils.checkpoint per block,
+    # models/vit.transformer_stack)
     remat: bool = False
     # block-scan unroll factor of the JAX package; the port runs its
     # blocks as a Python loop and ignores it (kept so recipes carry over)

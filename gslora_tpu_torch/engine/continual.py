@@ -92,9 +92,9 @@ def split_task_data(cfg: RunConfig, train_ds: Dataset, test_ds: Dataset,
     return data, test_old
 
 
-def _detached(tree, device=None):
+def detached(tree, device=None):
     """A tree of plain tensors (parameters detached), moved to device."""
-    return {k: _detached(v, device) if isinstance(v, dict)
+    return {k: detached(v, device) if isinstance(v, dict)
             else v.detach().to(device if device is not None else v.device)
             for k, v in tree.items()}
 
@@ -119,7 +119,7 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
     u8 = cfg.data.uint8_transfer
     out = ContinualResult()
     generator = torch.Generator().manual_seed(cfg.data.seed)
-    params = _detached(params, device)
+    params = detached(params, device)
 
     def loader(ds, bs):
         return BatchLoader(ds, bs, shuffle=False, prefetch=0,
@@ -168,7 +168,7 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
             seed_offset=task * 1000,
             h_eps=1e-8,  # CL H-mean guard (engine_cl.py:279)
             continual=True)  # engine_cl: remain drives, no alpha gate
-        params = _detached(res.state.params)
+        params = detached(res.state.params)
 
         old_acc = None
         if test_old is not None and len(test_old) > 0:

@@ -128,7 +128,8 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
                                  uint8_transfer=u8)]
         protos = calculate_prototypes(
             state.params, proto_batches, model, lora, model.num_class,
-            compute_dtype=cdt, aug_repeat=20 if fcfg.aug_num > 0 else 0)
+            compute_dtype=cdt, aug_repeat=20 if fcfg.aug_num > 0 else 0,
+            seed=seed, aug_magnitude=fcfg.aug_num)  # utils.py:511
     if protos is None:
         protos = torch.zeros((model.num_class, model.dim), device=device)
 

@@ -6,7 +6,7 @@ The reference ships ViT_face state dicts with names like
 module maps that naming onto the stacked tree of models/vit.py: kernels
 transposed to (fan_in, fan_out), per-layer tensors stacked on the leading
 layer axis, the MergedLinear qkv LoRA reshaped to (3, r, ...). The
-torchvision naming of the ViT-B/16 path is not ported yet.
+torchvision naming of the ViT-B/16 path is models/vit_imagenet.py's.
 """
 from __future__ import annotations
 

@@ -70,8 +70,6 @@ def init_vit_params(generator: torch.Generator, model: ViTConfig,
                     param_dtype=torch.float32) -> Params:
     """Build the {"base": ..., "lora": ...} tree on the CPU from a CPU
     generator (LoRA always fp32, as in the JAX package)."""
-    if model.soft_split:
-        raise NotImplementedError("the soft split (VITs) is not ported yet")
     d, L, m, inner = model.dim, model.depth, model.mlp_dim, model.inner_dim
     dt = param_dtype
 
@@ -183,10 +181,17 @@ def _dropout(x, rate: float, generator, deterministic: bool):
 
 
 def patchify(images, model: ViTConfig):
-    """(B, C, H, W) -> (B, N, patch_dim) tokens in the hard split's
-    (p1 p2 c) layout (vit_face.py:530)."""
+    """(B, C, H, W) -> (B, N, patch_dim) tokens.
+
+    Hard split (ViT_face, vit_face.py:530): token layout (p1 p2 c).
+    Soft split (ViTs_face, vits_face.py:446-450, and ViT-B/16's conv
+    patch-embed with kernel = stride = 16, pad 0): overlapping unfold with
+    channel-major (c kh kw) features, the order ``F.unfold`` gives."""
     if model.soft_split:
-        raise NotImplementedError("the soft split (VITs) is not ported yet")
+        patches = torch.nn.functional.unfold(
+            images, kernel_size=model.ac_patch_size,
+            stride=model.patch_size, padding=model.pad)  # (B, C*k*k, N)
+        return patches.transpose(1, 2)
     p = model.patch_size
     b, c, hh, ww = images.shape
     x = images.reshape(b, c, hh // p, p, ww // p, p)

@@ -254,13 +254,23 @@ def test_cl_cli_runs_end_to_end_on_cpu(tiny_cl_cli, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--SCRUB"], "baseline zoo"), (["-d", "imagenet100"], "imagenet100"),
+    (["--SCRUB"], "baseline zoo"), (["--gemm_impl", "int8"], "int8"),
     (["--dp", "--one_stage"], "--dp"),
 ])
 def test_cl_cli_unported_paths_raise(tiny_cl_cli, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         tiny_cl_cli.main(CLI_ARGS + ["--device", "cpu", "--outdir",
                                      str(tmp_path)] + flags)
+
+
+def test_cl_cli_accepts_and_ignores_profile_dir(tiny_cl_cli, tmp_path):
+    """As the JAX CL CLI, which parses --profile_dir and never reads it."""
+    report = tiny_cl_cli.main(CLI_ARGS + [
+        "--one_stage", "--device", "cpu", "--profile_dir",
+        str(tmp_path / "prof"), "--outdir", str(tmp_path / "out")])
+    assert [r["task"] for r in report] == [0, 1]
+    assert (tmp_path / "out" / "report.json").exists()
+    assert not (tmp_path / "prof").exists()
 
 
 def test_cl_cli_defaults_to_the_card(monkeypatch, tiny_cl_cli, tmp_path):

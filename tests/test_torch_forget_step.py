@@ -22,12 +22,10 @@ import gslora_tpu_torch.config as tc
 from gslora_tpu_torch.engine.forget import make_forget_step, \
     scalars_for_epoch
 from gslora_tpu_torch.engine.state import AdamW, ForgetState, make_optimizer
-from gslora_tpu_torch.engine.prototypes import calculate_prototypes
 from gslora_tpu_torch.lora.core import lora_group_norms
 from gslora_tpu_torch.losses.classification import cross_entropy
 from gslora_tpu_torch.losses.prototype import prototype_loss
 from gslora_tpu_torch.models.convert import flatten_tree, params_from_jax
-from gslora_tpu_torch.cli.common import build_params
 from gslora_tpu_torch.models.vit import ViT, init_vit_params, vit_apply
 
 
@@ -199,22 +197,10 @@ def test_unported_options_raise():
     tm, tl = tc.ViTConfig(**MODEL), tc.LoraConfig(rank=4)
     params = init_vit_params(torch.Generator().manual_seed(0), tm, tl)
     x = np.zeros((2, 3, 16, 16), np.float32)
-    with pytest.raises(NotImplementedError, match="RandAugment"):
-        calculate_prototypes(params, [(x, np.zeros(2, np.int32))], tm, tl,
-                             6, compute_dtype=torch.float32, aug_repeat=20)
-    with pytest.raises(NotImplementedError, match="soft split"):
-        init_vit_params(torch.Generator().manual_seed(0),
-                        tc.ViTConfig(**MODEL, soft_split=True), tl)
     int8 = dataclasses.replace(tm, gemm_impl="int8")
-    for call, match in (
-            (lambda: vit_apply(params, torch.from_numpy(x), None, int8, tl,
-                               compute_dtype=torch.float32), "int8"),
-            (lambda: build_params(tc.RunConfig(resume="x.msgpack")),
-             "msgpack"),
-            (lambda: build_params(tc.RunConfig(net="VIT_B16",
-                                               resume="x.pth")), "VIT_B16")):
-        with pytest.raises(NotImplementedError, match=match):
-            call()
+    with pytest.raises(NotImplementedError, match="int8"):
+        vit_apply(params, torch.from_numpy(x), None, int8, tl,
+                  compute_dtype=torch.float32)
 
 
 def test_forget_step_rejects_bad_options():

@@ -191,9 +191,8 @@ def test_cli_runs_end_to_end_on_cpu(tiny_cli, tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--SCRUB"], "scrub"), (["--dp"], "--dp"),
-    (["-r", "x.msgpack"], "msgpack"),
-    (["-n", "VIT_B16", "-r", "x.pth"], "VIT_B16"),
-    (["--aug_num", "3", "--prototype"], "RandAugment"),
+    (["--gemm_impl", "int8"], "int8"), (["--Lwf"], "lwf"),
+    (["--LIRF"], "lirf"),
 ])
 def test_cli_unported_paths_raise(tiny_cli, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
