@@ -36,7 +36,9 @@ non-zero exit code and without the final result line.
 3. Model check: the flagship model's and ViT-B/16's embeddings, logits
    and LoRA gradients (bf16, dropout off, 4 images) with attention
    through the kernels against the same with the kernels' plain version
-   (attn_impl="dpa"), within MODEL_TOL.
+   (attn_impl="dpa"), within MODEL_TOL; and one LIRF step at flagship
+   width, whose student gradients run back through the frozen teacher's
+   upper blocks, the same way.
 4. Main path phase: the port's train_forget CLI on the card at the
    flagship width (ViT-P8S8, 112x112, dim 512, 8 heads x 64, CosFace,
    rank-8 FFN LoRA; depth 6), batch 24, one epoch, prototypes on. Checks
@@ -72,12 +74,24 @@ non-zero exit code and without the final result line.
    (perform_val) of its result on the card. K1 counts equal what each run
    implies (expected_pretrain_launches). Then the pretrain step alone at
    bs 480, without and with remat: ms/step, images/s, peak memory.
-8. Profiler phase, right after each step's timing: five bench-recipe
-   steps, two ViT-B/16 forget steps and two pretrain steps (bs 480)
-   under utils/profiling.trace; prints for each the device's busy share
-   over them, its time per step by kernel family, the kernels with the
-   most device time and the longest idle stretches.
-9. Prints the kernels line, then the result line.
+8. Baseline phase: every baseline of the zoo (Retrain, Replay, L2, EWC,
+   MAS, LwF, DER, DER++, FDR, SCRUB, LIRF) through train_forget_cl, 2
+   tasks, and train_forget --ewc and --retrain, at the flagship width and
+   depth with scripts/run_cl_forget_open.sh's windows (bs 48, 80 + 20
+   classes, 10 open) and rank 0, cut to 1 epoch, 4 images per class and
+   1 SCRUB superepoch. Checks finite accuracies of every task, the task
+   snapshots, and K1's counts per run against those its flags and data
+   imply (expected_baseline_launches, expected_single_step_launches).
+   Then one step of each baseline family alone (reg with two anchor
+   terms, DER++, SCRUB min, LIRF; 48 images per stream): ms/step from
+   CUDA events and peak memory.
+9. Profiler phase, right after each step's timing: five bench-recipe
+   steps, two ViT-B/16 forget steps, two pretrain steps (bs 480) and
+   three of each baseline step under utils/profiling.trace; prints for
+   each the device's busy share over them, its time per step by kernel
+   family, the kernels with the most device time and the longest idle
+   stretches.
+10. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
@@ -98,6 +112,14 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA GPU visible; this check runs only on the "
              "card")
 
+from gslora_tpu_torch.baselines.distill import (  # noqa: E402
+    make_distill_step)
+from gslora_tpu_torch.baselines.freeze import trains  # noqa: E402
+from gslora_tpu_torch.baselines.lirf import (LIRFState,  # noqa: E402
+                                             low_slice, make_lirf_step)
+from gslora_tpu_torch.baselines.regularization import (  # noqa: E402
+    make_reg_step)
+from gslora_tpu_torch.baselines.scrub import make_scrub_steps  # noqa: E402
 from gslora_tpu_torch.checkpoints.io import (load_params,  # noqa: E402
                                               save_params)
 from gslora_tpu_torch.cli import (export_torch, train_forget,  # noqa: E402
@@ -108,11 +130,9 @@ from gslora_tpu_torch.cli.common import (build_datasets,  # noqa: E402
 from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
                                      OptimConfig, ViTConfig, build_parser,
                                      config_from_args)
-from gslora_tpu_torch.data.splits import (make_order_list,  # noqa: E402
-                                          ratio_subset,
-                                          split_by_class_window)
+from gslora_tpu_torch.data.splits import make_order_list  # noqa: E402
 from gslora_tpu_torch.engine.continual import (PROTO_BATCH,  # noqa: E402
-                                               split_task_data)
+                                               detached, split_task_data)
 from gslora_tpu_torch.engine.forget import (make_forget_step,  # noqa: E402
                                             scalars_for_epoch)
 from gslora_tpu_torch.engine.pretrain import (PretrainState,  # noqa: E402
@@ -124,8 +144,8 @@ from gslora_tpu_torch.evaluation.verification import (  # noqa: E402
 from gslora_tpu_torch.models.convert import flatten_tree  # noqa: E402
 from gslora_tpu_torch.losses.classification import (  # noqa: E402
     cross_entropy)
-from gslora_tpu_torch.models.vit import (ViT, init_vit_params,  # noqa: E402
-                                         vit_apply)
+from gslora_tpu_torch.models.vit import (ViT, _Node,  # noqa: E402
+                                         init_vit_params, vit_apply)
 from gslora_tpu_torch.models.vit_imagenet import (  # noqa: E402
     to_torchvision_state_dict)
 from gslora_tpu_torch.ops import attention as A  # noqa: E402
@@ -135,6 +155,7 @@ from gslora_tpu_torch.tools import group_bench as GB  # noqa: E402
 from gslora_tpu_torch.utils.profiling import (device_summary,  # noqa: E402
                                               trace)
 from gslora_tpu_torch.utils.timing import cuda_cold_ms, cuda_ms  # noqa: E402
+from gslora_tpu_torch.utils.trees import tree_map  # noqa: E402
 
 DEV = torch.device("cuda")
 SCALE = 512 ** -0.5  # the flagship's attention scale, dim**-0.5
@@ -212,9 +233,11 @@ def path_shapes():
     launch, from their configs: the train batch and the eval batch of each
     path, the bench recipe's fused batch (train + forget) and the
     continual path's prototype batch; the ImageNet path's train and
-    missing-class batch (one size) and its eval batch, at its own scale."""
+    missing-class batch (one size) and its eval batch, at its own scale;
+    the baselines' train and eval batches."""
     shapes = set()
-    for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV, IMAGENET_ARGV):
+    for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV, IMAGENET_ARGV,
+                 BASELINE_ARGV):
         cfg = config_from_args(build_parser().parse_args(argv))
         bs, m = cfg.data.batch_size, cfg.model
         batches = [bs, bs * cfg.data.test_batch_scale]
@@ -545,18 +568,15 @@ def expected_launches(argv):
     FFN LoRA's gradient never needs block 0's attention inputs, so autograd
     skips that backward)."""
     cfg = config_from_args(build_parser().parse_args(argv))
-    f, bs = cfg.forget, cfg.data.batch_size
+    bs = cfg.data.batch_size
     train, test = build_datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
-    rs, re = 0, f.num_of_first_cls
-    fs, fe = re, re + f.per_forget_cls
-    remain_tr, forget_tr = split_by_class_window(train, order, rs, re, fs, fe)
-    remain_te, forget_te = split_by_class_window(test, order, rs, re, fs, fe)
-    n_tf = len(ratio_subset(forget_tr, f.data_ratio, cfg.data.seed))
-    n_tr = len(ratio_subset(remain_tr, f.data_ratio, cfg.data.seed))
+    data = train_forget.single_step_data(cfg, train, test, order)
+    n_tf, n_tr = len(data.train_forget), len(data.train_remain)
     batches = lambda n, b: -(-n // b)  # noqa: E731
     test_bs = bs * cfg.data.test_batch_scale
-    evals = batches(len(forget_te), test_bs) + batches(len(remain_te), test_bs)
+    evals = batches(len(data.test_forget), test_bs) + \
+        batches(len(data.test_remain), test_bs)
     protos = batches(n_tf, bs) + batches(n_tr, bs)
     steps = batches(n_tr, bs)  # the remain stream drives the epoch
     assert steps < cfg.ver_freq and cfg.num_epoch == 1
@@ -1225,6 +1245,372 @@ def imagenet_bench(card, steps=10):
     return run, ms
 
 
+# The baseline zoo at the face flagship's width (ViT-P8S8, depth 6 uncut),
+# with the flags of scripts/run_cl_forget_open.sh (bs 48, 80 first classes,
+# 20 forgotten per task, 10 open classes, lr 1e-2, min lr 1e-5) and rank
+# 0 as the reference's baselines run (scripts/run_cl_forget.sh), cut to 2
+# tasks x 1 epoch, 4 images per class, 1 SCRUB superepoch
+BASELINE_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
+                 "-b", "48", "-e", "1", "--lr", "1e-2", "--warmup-epochs",
+                 "0", "--min-lr", "1e-5", "--num_tasks", "2",
+                 "--num_of_first_cls", "80", "--per_forget_cls", "20",
+                 "--open_cls_num", "10", "--few_shot", "--few_shot_num", "4",
+                 "--SCRUB_superepoch", "1", "--compute_dtype", "bfloat16"]
+BASELINE_FLAGS = ["--retrain", "--replay", "--l2", "--ewc", "--MAS", "--Lwf",
+                  "--Der", "--DER_plus", "--FDR", "--SCRUB", "--LIRF"]
+SINGLE_STEP_FLAGS = ["--ewc", "--retrain"]
+# K1 forward and backward launches per training step, in units of depth:
+# each student forward with its backward (the patch embedding trains, so
+# block 0's attention backward runs too), each teacher or deposit forward
+# without one
+BASELINE_STEP = {"reg": (1, 1), "lwf": (3, 2), "der": (3, 2), "fdr": (3, 2),
+                 "der_plus": (4, 3), "scrub": (2, 1), "lirf": (4, 2)}
+REG_FAMILY = ("retrain", "replay", "l2", "ewc", "mas")
+
+
+def expected_baseline_launches(argv, datasets=None):
+    """K1 launches train_forget_cl implies for a baseline, from its flags
+    and the data (cli/train_forget_cl.run_baseline_continual). Per task:
+    the forget test eval before training; the training steps
+    (BASELINE_STEP each); for EWC and MAS the importance batches (task
+    0's remain subset and, before the next task, its full remain split),
+    a forward and a backward each; the evals every ver_freq steps, after
+    each SCRUB superepoch and each LIRF epoch, and at the end (forget,
+    remain and open for all but LIRF, which scores forget and remain
+    after each epoch and open at the end); the old-class eval (task > 0).
+    'depth' launches per forward, per backward of a student forward, and
+    per importance batch; K2 and K3: 0. ``datasets``: the run's (train,
+    test), when already built."""
+    cfg = config_from_args(build_parser().parse_args(argv))
+    f, b, bs = cfg.forget, cfg.baseline, cfg.data.batch_size
+    assert cfg.optim.grad_accum == 1 and not cfg.model.remat and \
+        cfg.lora.rank == 0 and f.few_shot and f.open_cls_num > 0
+    method = b.method
+    train, test = datasets or build_datasets(cfg)
+    order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
+    batches = lambda n, bb: -(-n // bb)  # noqa: E731
+    test_bs = bs * cfg.data.test_batch_scale
+    depth = cfg.model.depth
+    fwd = bwd = 0
+    for task in range(f.num_tasks):
+        data, old_te = split_task_data(cfg, train, test, order, task,
+                                       cfg.data.seed + task)
+        n_f, n_r = len(data.train_forget), len(data.train_remain)
+        ev_f, ev_r, ev_o = (batches(len(d), test_bs) for d in (
+            data.test_forget, data.test_remain, data.test_open))
+        if method == "scrub":
+            steps = b.scrub_superepoch * (5 * batches(n_f, bs) +
+                                          10 * batches(n_r, bs))
+            evals = ev_f + b.scrub_superepoch * (ev_f + ev_r) + \
+                ev_f + ev_r + ev_o
+        elif method == "lirf":
+            steps = cfg.num_epoch * batches(n_f, bs)
+            evals = ev_f + cfg.num_epoch * (ev_f + ev_r) + ev_o
+        else:
+            n = {"retrain": n_r, "replay": n_f + n_r}.get(method, n_f)
+            steps = cfg.num_epoch * batches(n, bs)
+            evals = ev_f + (steps // cfg.ver_freq) * (ev_f + ev_r) + \
+                ev_f + ev_r + ev_o
+        if old_te is not None:
+            evals += batches(len(old_te), test_bs)
+        imp = 0
+        if method in ("ewc", "mas"):
+            imp = batches(n_r, bs) if task == 0 else 0
+            if task < f.num_tasks - 1:
+                imp += batches(len(train_forget_cl.next_remain(
+                    cfg, train, order, task + 1)), bs)
+        per_fwd, per_bwd = BASELINE_STEP[
+            "reg" if method in REG_FAMILY else method]
+        fwd += evals + per_fwd * steps + imp
+        bwd += per_bwd * steps + imp
+    return {"attention_fwd": depth * fwd, "attention_bwd": depth * bwd,
+            "group_prox": 0, "group_norms": 0, "group_scale": 0}
+
+
+def expected_single_step_launches(argv, datasets=None):
+    """K1 launches train_forget implies for --retrain, --l2, --ewc or
+    --MAS (cli/train_forget.run_single_step_baseline): the forget test
+    eval before; one forward and backward per step over the remain subset
+    (Retrain) or relabeled forget + remain; for EWC and MAS the importance
+    batches over the full first window's remain split; the forget, remain
+    and open evals at the end. 'depth' launches each; ``datasets`` as
+    for :func:`expected_baseline_launches`."""
+    cfg = config_from_args(build_parser().parse_args(argv))
+    f, b, bs = cfg.forget, cfg.baseline, cfg.data.batch_size
+    assert cfg.optim.grad_accum == 1 and not cfg.model.remat and \
+        f.few_shot and f.open_cls_num > 0
+    train, test = datasets or build_datasets(cfg)
+    order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
+    batches = lambda n, bb: -(-n // bb)  # noqa: E731
+    test_bs = bs * cfg.data.test_batch_scale
+    data = train_forget.single_step_data(cfg, train, test, order)
+    n_f, n_r = len(data.train_forget), len(data.train_remain)
+    ev_f, ev_r, ev_o = (batches(len(d), test_bs) for d in (
+        data.test_forget, data.test_remain, data.test_open))
+    steps = cfg.num_epoch * batches(
+        n_r if b.method == "retrain" else n_f + n_r, bs)
+    imp = 0
+    if b.method in ("ewc", "mas"):
+        imp = batches(len(train_forget.importance_split(cfg, train, order)),
+                      bs)
+    evals = ev_f + (steps // cfg.ver_freq) * (ev_f + ev_r) + \
+        ev_f + ev_r + ev_o
+    depth = cfg.model.depth
+    return {"attention_fwd": depth * (evals + steps + imp),
+            "attention_bwd": depth * (steps + imp),
+            "group_prox": 0, "group_norms": 0, "group_scale": 0}
+
+
+def baseline_phase():
+    """Every baseline through train_forget_cl (2 tasks) and --ewc and
+    --retrain through train_forget, at the flagship's width on the card;
+    each run's K1 counts against those its flags and data imply, finite
+    accuracies of every task (open and old-class ones included), both task
+    snapshots and, for LIRF, a deployable model with no LoRA. Returns the
+    launch counts summed over the runs."""
+    total = {k: 0 for k in read_counts()}
+    per_run = {}
+    runs = [("train_forget_cl", flag) for flag in BASELINE_FLAGS] + \
+        [("train_forget", flag) for flag in SINGLE_STEP_FLAGS]
+    t_phase = time.perf_counter()
+    # every run's data: the same flags but the method
+    datasets = build_datasets(config_from_args(build_parser().parse_args(
+        BASELINE_ARGV)))
+    for cli, flag in runs:
+        with tempfile.TemporaryDirectory() as out:
+            argv = BASELINE_ARGV + [flag, "--outdir", out]
+            single = cli == "train_forget"
+            want = (expected_single_step_launches if single else
+                    expected_baseline_launches)(argv, datasets)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            report = (train_forget if single else train_forget_cl).main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            snaps = [] if single else [
+                load_params(os.path.join(out, "task-level",
+                                         f"Backbone_task_{t}.pth"))
+                for t in range(2)]
+        what = f"{cli} {flag}"
+        tasks = [report] if single else report
+        if not single and [r["task"] for r in tasks] != [0, 1]:
+            raise AssertionError(f"{what}: report of tasks {tasks}")
+        for r in tasks:
+            keys = ["forget_acc_before", "forget_acc", "remain_acc",
+                    "open_acc"] + (["old_acc"] if r.get("task") == 1 else [])
+            vals = [r[k] for k in keys] + [r.get("best_h",
+                                                 r.get("best_H_mean"))]
+            if not all(v is not None and math.isfinite(v) for v in vals):
+                raise AssertionError(f"{what}: {r}")
+        if flag == "--LIRF" and snaps[1]["lora"]:
+            raise AssertionError("LIRF: the deployable model carries a LoRA")
+        for snap in snaps:
+            bad = [k for k, v in flatten_tree(snap).items()
+                   if not torch.isfinite(v).all()]
+            if bad:
+                raise AssertionError(f"{what}: non-finite snapshot {bad}")
+        if launches != want:
+            raise AssertionError(f"{what} launched {launches}; its flags "
+                                 f"and data imply {want}")
+        per_run[what] = {"wall_s": wall, "launches": launches,
+                         "accuracies": [{k: r.get(k) for k in (
+                             "task", "forget_acc_before", "forget_acc",
+                             "remain_acc", "open_acc", "old_acc")}
+                             for r in tasks]}
+        for k in total:
+            total[k] += launches[k]
+    print("baselines " + json.dumps({
+        "recipe": "train_forget_cl x 11 methods (2 tasks x 1 epoch) and "
+                  "train_forget --ewc / --retrain, depth 6 dim 512 bs 48, "
+                  "80 + 20 classes, 10 open, 4 images per class, rank 0, "
+                  "bf16 compute", "wall_s": time.perf_counter() - t_phase,
+        "runs": per_run, "launches": total}), flush=True)
+    return total
+
+
+def lirf_check():
+    """One LIRF step at flagship width (bf16, dropout off, forget and
+    remain batches of 8 with pad rows): the gradient of the student's low
+    half, whose path runs back through the frozen teacher's upper blocks,
+    with attention through the kernels against the plain attention,
+    within MODEL_TOL."""
+    model = ViTConfig(dropout=0.0, emb_dropout=0.0)
+    lora = LoraConfig(rank=0)
+    params = init_vit_params(torch.Generator().manual_seed(2), model, lora)
+    teacher = detached(params["base"], DEV)
+    gen = torch.Generator().manual_seed(3)
+    streams = []
+    for valid in (6, 8):
+        x = torch.randn(8, 3, 112, 112, generator=gen)
+        y = torch.randint(0, model.num_class, (8,), generator=gen)
+        y[valid:] = -1
+        streams += [x.to(DEV), y.to(DEV)]
+
+    class Capture:
+        """An optimizer that keeps the gradients and updates nothing."""
+
+        def __init__(self):
+            self.grads = []
+
+        def update(self, leaves, grads, state, lr):
+            self.grads = list(grads)
+
+    half = model.depth // 2
+    out, counts = {}, {}
+    for impl in ("auto", "dpa"):
+        m = dataclasses.replace(model, attn_impl=impl)
+        student = _Node(low_slice(teacher, half)).to(DEV)
+        state = LIRFState(student=student,
+                          deposit_low=low_slice(teacher, half), opt_state={})
+        opt = Capture()
+        step = make_lirf_step(m, lora, opt, split=20, T=10.0, alpha=0.1,
+                              compute_dtype=torch.bfloat16)
+        A.reset_launch_counts()
+        _, metrics = step(state, teacher, *streams, 0.0)
+        torch.cuda.synchronize()
+        counts[impl] = (A.FWD_LAUNCHES, A.BWD_LAUNCHES)
+        names = [n for n, _ in student.named_parameters()]
+        out[impl] = dict(zip(names, opt.grads))
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"LIRF step ({impl}): {metrics}")
+    errs = {n: rel_err(out["auto"][n], out["dpa"][n]) for n in out["dpa"]}
+    print("LIRF check, flagship width (student_low gradients through the "
+          "teacher's upper half, kernels vs their plain version, relative "
+          "L2): " + json.dumps(errs), flush=True)
+    depth = model.depth
+    if counts != {"auto": (4 * depth, 2 * depth), "dpa": (0, 0)}:
+        raise AssertionError(f"LIRF step launched {counts}")
+    bad = {n: e for n, e in errs.items() if not e <= MODEL_TOL}
+    if bad:
+        raise AssertionError(f"LIRF gradients through the kernels disagree "
+                             f"with the plain attention: {bad}")
+
+
+def baseline_bench(card, bs=48, steps=10):
+    """One step of each baseline family at bs 48 (fp32 params, bf16
+    compute, rank 0, dropout on, random weights and images): a reg step
+    with two anchor terms, a DER++ step, a SCRUB min step and a LIRF
+    step; ms/step from CUDA events around the steps, and each step's peak
+    device memory."""
+    cfg = config_from_args(build_parser().parse_args(BASELINE_ARGV))
+    model, lora = cfg.model, cfg.lora
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    size = model.image_size
+
+    def batch(lo, hi):
+        return (torch.randn(bs, 3, size, size, device=DEV, generator=gen),
+                torch.randint(lo, hi, (bs,), device=DEV, generator=gen))
+
+    def fresh(seed):
+        return init_vit_params(torch.Generator().manual_seed(seed), model,
+                               lora)
+
+    def state_of(params, opt):
+        return PretrainState.create(ViT(params, model, lora).to(DEV), opt,
+                                    trains=trains)
+
+    xf, yf = batch(80, 100)
+    xr, yr = batch(10, 80)
+    xr2, yr2 = batch(10, 80)
+    b = cfg.baseline
+    out = {}
+
+    def reg():
+        opt = make_optimizer(cfg.optim)
+        state = state_of(fresh(0), opt)
+        anchors = [detached(fresh(s), DEV) for s in (1, 2)]
+        imps = [tree_map(torch.rand_like, a) for a in anchors]
+        step = make_reg_step(model, lora, opt, compute_dtype=torch.bfloat16)
+        return lambda: step(state, xf, yf, anchors, imps, 0.1, 1e-2, gen)
+
+    def der_plus():
+        opt = make_optimizer(cfg.optim)
+        state = state_of(fresh(0), opt)
+        teacher = detached(fresh(1), DEV)
+        hp = {"lambda_der": b.der_lambda, "lambda_der_plus":
+              b.der_plus_lambda}
+        step = make_distill_step("der_plus", model, lora, opt, hp,
+                                 compute_dtype=torch.bfloat16)
+        return lambda: step(state, teacher, xf, yf, xr, yr, xr2, yr2, 1e-2,
+                            gen)
+
+    def scrub_min():
+        opt = make_optimizer(OptimConfig(opt=b.sgda_optim,
+                                         lr=b.sgda_learning_rate,
+                                         momentum=b.sgda_momentum,
+                                         weight_decay=b.sgda_weight_decay))
+        state = state_of(fresh(0), opt)
+        teacher, swa = (detached(fresh(s), DEV) for s in (1, 2))
+        _, step = make_scrub_steps(model, lora, opt, b.kd_T,
+                                   b.sgda_smoothing, b.sgda_gamma,
+                                   b.sgda_alpha,
+                                   compute_dtype=torch.bfloat16)
+        return lambda: step(state, teacher, swa, xr, yr,
+                            b.sgda_learning_rate, gen)
+
+    def lirf():
+        opt = make_optimizer(cfg.optim)
+        teacher = detached(fresh(0), DEV)["base"]
+        half = model.depth // 2
+        student = _Node(low_slice(teacher, half)).to(DEV)
+        state = LIRFState(student=student,
+                          deposit_low=low_slice(teacher, half),
+                          opt_state=opt.init(list(student.parameters())))
+        step = make_lirf_step(model, lora, opt,
+                              split=cfg.forget.per_forget_cls, T=b.lirf_T,
+                              alpha=b.lirf_alpha,
+                              compute_dtype=torch.bfloat16)
+        return lambda: step(state, teacher, xf, yf, xr, yr, 1e-2, gen)
+
+    depth = model.depth
+    for name, setup, (per_fwd, per_bwd) in (
+            ("reg_two_anchors", reg, BASELINE_STEP["reg"]),
+            ("der_plus", der_plus, BASELINE_STEP["der_plus"]),
+            ("scrub_min", scrub_min, BASELINE_STEP["scrub"]),
+            ("lirf", lirf, BASELINE_STEP["lirf"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        one = setup()
+
+        def run(n, one=one):
+            for _ in range(n):
+                _, m = one()
+            return m
+
+        run(3)
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = run(steps)
+        end.record()
+        torch.cuda.synchronize()
+        loss = float(m["loss_total"] if "loss_total" in m else
+                     m["loss_total_remain"])
+        launches = (A.FWD_LAUNCHES, A.BWD_LAUNCHES)
+        if not math.isfinite(loss) or launches != (
+                per_fwd * depth * steps, per_bwd * depth * steps):
+            raise AssertionError(f"{name} step: loss {loss}, launches "
+                                 f"{launches}")
+        out[name] = {"ms_per_step": start.elapsed_time(end) / steps,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "loss": loss, "k1_launches_per_step": [
+                         per_fwd * depth, per_bwd * depth]}
+        print(f"baseline_bench {name}: " + json.dumps(out[name]),
+              flush=True)
+        # traced right after its timing, then dropped
+        profiler_phase([(f"baseline {name} step", run,
+                         out[name]["ms_per_step"], 3)], card)
+        del one, run
+    torch.cuda.empty_cache()
+    print("baseline_bench " + json.dumps({
+        "recipe": "one step per family, fp32 params, bf16 compute, rank 0, "
+                  "dropout 0.1, batches of 48 per stream, depth 6 dim 512",
+        "card": card, **out}), flush=True)
+
+
 def main():
     t_script = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1244,6 +1630,7 @@ def main():
     rows = kernel_phase(bw, peak) + group_phase(bw, fp32_peak)
     model_check(ViTConfig(dropout=0.0, emb_dropout=0.0))
     model_check(ViTConfig.vit_b16())
+    lirf_check()
     main_launches = main_path_phase()
     # each step is traced right after it is timed, then dropped, so no
     # step's tensors count in a later one's peak memory
@@ -1255,6 +1642,8 @@ def main():
     pre_launches, pre_lora_launches = pretrain_phase()
     profiler_phase([("pretrain step bs 480", *pretrain_bench(card), 2)],
                    card)
+    baseline_launches = baseline_phase()
+    baseline_bench(card)
     for row in rows:
         # each kernel's count from the path it serves: K1 the single-step
         # main path, K2 the continual path; K3 is on neither
@@ -1266,7 +1655,8 @@ def main():
             "train_forget_cl": cl_launches[name],
             "train_forget_cl_imagenet": imagenet_launches[name],
             "train_pretrain": pre_launches[name],
-            "train_pretrain_lora_remat": pre_lora_launches[name]}
+            "train_pretrain_lora_remat": pre_lora_launches[name],
+            "baselines": baseline_launches[name]}
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)

@@ -1,0 +1,189 @@
+"""SCRUB: teacher-student max/min distillation with SWA smoothing (port of
+gslora_tpu/baselines/scrub.py; reference baselines/SCRUBtrain.py:11-291,
+setup train_own_forget_cl.py:440-451, optimizer swap :860-879).
+
+A superepoch is 10 inner epochs: the first 5 run a MAX pass over the
+forget loader (loss = -KD(s, t) + smoothing * sum_p ||theta_p -
+theta_swa_p||_F) followed by a MIN pass over remain (gamma * CE + alpha *
+KD + the same distance); the last 5 run the MIN pass only. After each
+superepoch the SWA model takes in the student: swa <- 0.9 swa + 0.1
+student (the first update copies, torch AveragedModel). The sgda
+optimizer (SGD by default) runs a step-decay LR (util/sgda_utils.py:7-19).
+Teacher and SWA live across tasks (created once before the reference's
+CL task loop): see run_scrub_task.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from gslora_tpu_torch.baselines.common import final_accuracies, to_device
+from gslora_tpu_torch.baselines.freeze import freeze_flags, trains
+from gslora_tpu_torch.config import LoraConfig, OptimConfig, RunConfig, \
+    ViTConfig
+from gslora_tpu_torch.engine.continual import detached
+from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
+    make_eval_step
+from gslora_tpu_torch.engine.loop import _dtype, resolve_device
+from gslora_tpu_torch.engine.pretrain import PretrainState, _accumulated
+from gslora_tpu_torch.engine.schedule import step_decay_lr
+from gslora_tpu_torch.engine.state import make_optimizer
+from gslora_tpu_torch.losses.classification import cross_entropy
+from gslora_tpu_torch.losses.distillation import kd_kl_loss
+from gslora_tpu_torch.metrics.logging import MetricLogger
+from gslora_tpu_torch.models.convert import flatten_tree
+from gslora_tpu_torch.models.vit import ViT, vit_apply
+from gslora_tpu_torch.utils.trees import tree_map
+
+
+def param_dist(params, swa_params, p: float) -> torch.Tensor:
+    """p * the sum over tensors of the Frobenius norm of (theta -
+    theta_swa) (util/sgda_utils.py:36-41). The sqrt is clamped: params ==
+    swa at the start of a superepoch, where the plain norm's gradient is
+    NaN (0/0); the clamp gives the zero subgradient."""
+    a, b = flatten_tree(params), flatten_tree(swa_params)
+    if p == 0.0:
+        return next(iter(a.values())).new_zeros((), dtype=torch.float32)
+    norms = [torch.sqrt(torch.clamp(torch.sum(
+        (a[k].float() - b[k].float()) ** 2), min=1e-24)) for k in a]
+    return p * torch.stack(norms).sum()
+
+
+@torch.no_grad()
+def swa_update(swa_params, student_params, n_averaged: int,
+               beta: float = 0.1):
+    """torch AveragedModel with avg_fn = (1 - beta) * avg + beta * new; the
+    first update copies (train_own_forget_cl.py:446-450). Returns a new
+    tree of detached tensors."""
+    if n_averaged == 0:
+        return tree_map(lambda s: s.detach().clone(), student_params)
+    return tree_map(lambda a, s: ((1 - beta) * a.float() +
+                                  beta * s.detach().float()).to(a.dtype),
+                    swa_params, student_params)
+
+
+def make_scrub_steps(model: ViTConfig, lora: LoraConfig, optimizer,
+                     kd_T: float, smoothing: float, gamma: float,
+                     alpha: float, compute_dtype=torch.bfloat16,
+                     grad_accum: int = 1):
+    """(max_step, min_step), each step(state, teacher, swa, x, y, lr,
+    generator=None) -> (state, metrics).
+
+    ``grad_accum > 1`` splits both passes through engine/pretrain's
+    ``_accumulated``, which is exact here: KD and CE are masked row means,
+    and the SWA distance does not depend on the data."""
+    cdt = compute_dtype
+
+    def forwards(params, teacher, x, y, generator):
+        logits, _ = vit_apply(params, x, y, model, lora, train=True,
+                              generator=generator, compute_dtype=cdt)
+        with torch.no_grad():
+            t_logits, _ = vit_apply(teacher, x, y, model, lora, train=False,
+                                    compute_dtype=cdt)
+        return logits, kd_kl_loss(logits, t_logits, kd_T, labels=y)
+
+    def max_loss(params, teacher, swa, x, y, generator):
+        _, kd = forwards(params, teacher, x, y, generator)
+        total = -kd + param_dist(params, swa, smoothing)
+        return total, {"loss_kd_forget": kd, "loss_total_forget": total}
+
+    def min_loss(params, teacher, swa, x, y, generator):
+        logits, kd = forwards(params, teacher, x, y, generator)
+        ce = cross_entropy(logits, y)
+        total = gamma * ce + alpha * kd + param_dist(params, swa, smoothing)
+        return total, {"loss_kd_remain": kd, "loss_CE": ce,
+                       "loss_total_remain": total}
+
+    def make(loss_fn):
+        def step(state: PretrainState, teacher, swa, x, y, lr: float,
+                 generator: Optional[torch.Generator] = None):
+            leaves = state.trainable_params()
+            params = state.params
+
+            def grad_fn(xm, ym):
+                loss, metrics = loss_fn(params, teacher, swa, xm, ym,
+                                        generator)
+                return torch.autograd.grad(loss, leaves), metrics
+
+            if grad_accum > 1:
+                grads, metrics = _accumulated(grad_fn, grad_accum)(x, y)
+            else:
+                grads, metrics = grad_fn(x, y)
+            optimizer.update(leaves, grads, state.opt_state, lr)
+            state.step += 1
+            return state, {k: v.detach() for k, v in metrics.items()}
+        return step
+
+    return make(max_loss), make(min_loss)
+
+
+def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
+                   remain_loader_factory: Callable,
+                   test_batches_f: Callable, test_batches_r: Callable,
+                   logger=None, test_batches_open: Optional[Callable] = None,
+                   teacher=None, swa=None, n_averaged: int = 0
+                   ) -> Dict[str, Any]:
+    """A SCRUB task of cfg.baseline.scrub_superepoch superepochs on
+    ``cfg.device``.
+
+    ``teacher`` / ``swa`` / ``n_averaged``: state across tasks. The
+    reference creates the teacher and the SWA AveragedModel once before
+    the CL task loop (train_own_forget_cl.py:441-451, loop at :515), so a
+    multi-task caller threads the returned ``teacher`` / ``swa`` /
+    ``n_averaged`` into the next task (cli/train_forget_cl does). The defaults
+    give the single-task set-up: teacher = the entry params, the first
+    SWA update copies."""
+    b = cfg.baseline
+    device = resolve_device(cfg.device)
+    cdt = _dtype(cfg)
+    logger = logger or MetricLogger()
+    # the sgda optimizer takes the main one's place (cl.py:860-879); its
+    # state starts anew each task, as the reference re-creates it (:811)
+    opt = make_optimizer(OptimConfig(opt=b.sgda_optim,
+                                     lr=b.sgda_learning_rate,
+                                     momentum=b.sgda_momentum,
+                                     weight_decay=b.sgda_weight_decay))
+    max_step, min_step = make_scrub_steps(
+        cfg.model, cfg.lora, opt, b.kd_T, b.sgda_smoothing, b.sgda_gamma,
+        b.sgda_alpha, compute_dtype=cdt, grad_accum=cfg.optim.grad_accum)
+    state = PretrainState.create(
+        ViT(params, cfg.model, cfg.lora).to(device), opt,
+        trains=partial(trains, **freeze_flags(cfg)))
+    teacher = detached(teacher if teacher is not None else params, device)
+    swa = detached(swa if swa is not None else params, device)
+    eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
+
+    facc_before = eval_accuracy(eval_step, state.params, test_batches_f())
+    best_h = float("-inf")
+    generator = torch.Generator(device=device).manual_seed(cfg.data.seed)
+    decay_epochs = [b.scrub_decay_epoch]
+    for superepoch in range(b.scrub_superepoch):
+        for i in range(10):
+            epoch = superepoch * 15 + i  # the reference's numbering
+            lr = step_decay_lr(b.sgda_learning_rate, epoch, decay_epochs)
+            if i < 5:  # max pass over forget
+                for x, y in forget_loader_factory():
+                    x, y = to_device(device, x, y)
+                    state, _ = max_step(state, teacher, swa, x, y, lr,
+                                        generator)
+            for x, y in remain_loader_factory():  # min pass, always
+                x, y = to_device(device, x, y)
+                state, _ = min_step(state, teacher, swa, x, y, lr,
+                                    generator)
+        swa = swa_update(swa, state.params, n_averaged)
+        n_averaged += 1
+        facc = eval_accuracy(eval_step, state.params, test_batches_f())
+        racc = eval_accuracy(eval_step, state.params, test_batches_r())
+        best_h = max(best_h, h_mean(facc_before, facc, racc, eps=1e-8))
+        logger.log({"Test forget Accuracy": facc,
+                    "Test remain Accuracy": racc}, step=superepoch)
+
+    facc, racc, oacc = final_accuracies(eval_step, state.params,
+                                        test_batches_f, test_batches_r,
+                                        test_batches_open)
+    return {"params": detached(state.params), "swa": swa,
+            "teacher": teacher, "n_averaged": n_averaged,
+            "forget_acc_before": facc_before, "forget_acc": facc,
+            "remain_acc": racc, "open_acc": oacc, "best_h": best_h}

@@ -7,46 +7,53 @@ Usage:
       --beta 0.15 --alpha 0.01 --num_of_first_cls 90 --per_forget_cls 10 \
       [--prototype ...] [--device cpu]
 
+Without ``--one_stage``, ``--retrain``, ``--l2``, ``--ewc`` and ``--MAS``
+run the baselines of the reference's single-step script
+(:func:`run_single_step_baseline`); every other baseline raises
+ValueError, as it has no single-step path in the reference either.
+
 Runs on the GPU unless ``--device cpu`` is given. ``-r`` resumes from a
 port checkpoint or a reference-named ``.pth`` (cli/common.build_params);
-``--profile_dir`` writes a profiler trace of the run there. Only the
-GS-LoRA path is ported: the single-step baselines, ``--dp`` and
+``--profile_dir`` writes a profiler trace of the run there. ``--dp`` and
 ``--gemm_impl int8`` raise.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+from functools import partial
 
+from gslora_tpu_torch.baselines.regularization import (
+    estimate_importance, run_regularization_task)
 from gslora_tpu_torch.cli.common import build_datasets, build_params, \
     param_summary
 from gslora_tpu_torch.config import build_parser, config_from_args
+from gslora_tpu_torch.data import pipeline
+from gslora_tpu_torch.data.folders import ConcatDataset
 from gslora_tpu_torch.data.splits import (few_shot_subset, make_order_list,
-                                          open_single_windows, ratio_subset,
-                                          split_by_class_window)
-from gslora_tpu_torch.engine.loop import ForgetData, resolve_device, \
-    run_forget_training
+                                          open_single_windows,
+                                          random_relabel, ratio_subset,
+                                          split_by_class_window,
+                                          unique_classes)
+from gslora_tpu_torch.engine.continual import detached
+from gslora_tpu_torch.engine.loop import ForgetData, _dtype, \
+    resolve_device, run_forget_training
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
 
+# The methods the reference's single-step open script runs besides
+# --one_stage (train_own_forget_open.py:837-1063); every other one has no
+# single-step path there either and raises, never silently running
+# GS-LoRA.
+SINGLE_STEP_METHODS = ("retrain", "l2", "ewc", "mas")
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    cfg = config_from_args(args)
+
+def single_step_data(cfg, train_ds, test_ds, order) -> ForgetData:
+    """The single-step split: remain ``[0, first)`` and forget ``[first,
+    first + per)`` of the order list, or the open windows under
+    ``--open_cls_num``; the forget and remain training subsets are
+    few-shot or ratio draws (train_own_forget_open.py:413-504)."""
     f = cfg.forget
-    if cfg.baseline.method != "gs_lora" and not args.one_stage:
-        raise NotImplementedError(f"method {cfg.baseline.method!r} is not "
-                                  "ported yet (GS-LoRA only)")
-    if args.dp:
-        raise NotImplementedError("--dp (data parallel) is not ported yet")
-    if args.gemm_impl == "int8":
-        raise NotImplementedError("gemm_impl='int8' (an eval and serving "
-                                  "path) is not ported yet")
-    resolve_device(cfg.device)  # no card when one is asked for: fail first
-    params = build_params(cfg)
-
-    train_ds, test_ds = build_datasets(cfg)
-    order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
-
     if f.open_cls_num > 0:
         (rs, re), (fs, fe), (os_, oe) = open_single_windows(
             f.num_of_first_cls, f.per_forget_cls, f.open_cls_num)
@@ -54,7 +61,6 @@ def main(argv=None):
         rs, re = 0, f.num_of_first_cls
         fs, fe = f.num_of_first_cls, f.num_of_first_cls + f.per_forget_cls
         os_ = oe = None
-
     remain_tr, forget_tr = split_by_class_window(train_ds, order, rs, re,
                                                  fs, fe)
     remain_te, forget_te = split_by_class_window(test_ds, order, rs, re,
@@ -62,7 +68,6 @@ def main(argv=None):
     test_open = None
     if os_ is not None:
         _, test_open = split_by_class_window(test_ds, order, 0, 0, os_, oe)
-
     if f.few_shot:
         forget_sub = few_shot_subset(forget_tr, f.few_shot_num,
                                      cfg.data.seed)
@@ -71,33 +76,141 @@ def main(argv=None):
     else:
         forget_sub = ratio_subset(forget_tr, f.data_ratio, cfg.data.seed)
         remain_sub = ratio_subset(remain_tr, f.data_ratio, cfg.data.seed)
-
-    data = ForgetData(train_forget=forget_sub, train_remain=remain_sub,
+    return ForgetData(train_forget=forget_sub, train_remain=remain_sub,
                       test_forget=forget_te, test_remain=remain_te,
                       test_open=test_open)
 
+
+def importance_split(cfg, train_ds, order):
+    """The single-step importance set: the FULL ``[0, first - per)``
+    window split, the CL first-task window even under --open_cls_num
+    (train_own_forget_open.py:687-698; quirk kept)."""
+    f = cfg.forget
+    en1 = f.num_of_first_cls - f.per_forget_cls
+    imp_ds, _ = split_by_class_window(train_ds, order, 0, en1, en1,
+                                      f.num_of_first_cls)
+    return imp_ds
+
+
+def run_single_step_baseline(cfg, train_ds, data: ForgetData, order,
+                             logger=None):
+    """The reg-family dispatch of the reference's single-step script
+    (train_own_forget_open.py:837-1063; JAX cli/train_forget.py:27-125):
+
+    * ``retrain``: the checkpoint resume is skipped (":642 `if
+      BACKBONE_RESUME_ROOT and not args.retrain`"), so a fresh model
+      trains on the remain subset with lambda 0 (:837-870);
+    * ``l2`` / ``ewc`` / ``mas``: anchored at the resumed params, the
+      importance taken over the FULL ``[0, first - per)`` window split
+      (:687-698, the CL first-task window even under --open_cls_num; quirk
+      kept), trained on concat(relabeled forget subset, remain subset)
+      (:498-504, :564-573, :1039) under the quadratic penalty."""
+    b = cfg.baseline
+    method = b.method
+    if method not in SINGLE_STEP_METHODS:
+        raise ValueError(
+            f"method {method!r} has no single-step dispatch (the reference "
+            "single-step scripts dispatch only one_stage/retrain/l2/ewc/MAS"
+            " — train_own_forget_open.py:785,837,1028); run it through "
+            "train_forget_cl --num_tasks 1 instead")
+    device = resolve_device(cfg.device)
+    pad = device.type != "cpu"  # static batch shapes on the card
+    bs = cfg.data.batch_size
+    test_bs = bs * cfg.data.test_batch_scale
+    BatchLoader = partial(pipeline.BatchLoader,
+                          uint8_transfer=cfg.data.uint8_transfer)
+
+    def test_loader(ds):
+        return lambda: BatchLoader(ds, test_bs, shuffle=False, prefetch=0,
+                                   mask_padding=pad)
+
+    tbo = test_loader(data.test_open) \
+        if data.test_open is not None and len(data.test_open) else None
+    common = dict(logger=logger, test_batches_open=tbo)
+    if method == "retrain":
+        params = build_params(dataclasses.replace(cfg, resume=""))
+        rl = BatchLoader(data.train_remain, bs, seed=cfg.data.seed,
+                         mask_padding=pad)
+        out = run_regularization_task(
+            cfg, params, lambda: iter(rl), test_loader(data.test_forget),
+            test_loader(data.test_remain), lam=0.0, anchors=[],
+            importances=[], **common)
+    else:
+        params = build_params(cfg)
+        # importance over the full first-task window split, not the ratio
+        # subset
+        imp_ds = importance_split(cfg, train_ds, order)
+        names, n_cls = unique_classes(imp_ds)
+        print("importance class", names, n_cls)  # :698 print parity
+        importance = estimate_importance(
+            method, detached(params, device),
+            BatchLoader(imp_ds, bs, shuffle=False, prefetch=0,
+                        mask_padding=pad),
+            cfg.model, cfg.lora, _dtype(cfg))
+        lam = {"l2": b.l2_lambda, "ewc": b.ewc_lambda,
+               "mas": b.mas_lambda}[method]
+        relabeled = random_relabel(data.train_forget, cfg.model.num_class,
+                                   seed=cfg.data.seed)
+        tl = BatchLoader(ConcatDataset(relabeled, data.train_remain), bs,
+                         seed=cfg.data.seed, mask_padding=pad)
+        out = run_regularization_task(
+            cfg, params, lambda: iter(tl), test_loader(data.test_forget),
+            test_loader(data.test_remain), lam=lam, anchors=[params],
+            importances=[importance], **common)
+    return {
+        "forget_acc_before": out["forget_acc_before"],
+        "forget_acc": out["forget_acc"], "remain_acc": out["remain_acc"],
+        "open_acc": out["open_acc"], "best_H_mean": out["best_h"],
+        "norm_list": None,  # get_norm_of_lora is one_stage-only (:1068)
+    }
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    baseline = cfg.baseline.method != "gs_lora" and not args.one_stage
+    if args.dp:
+        raise NotImplementedError("--dp (data parallel) is not ported yet")
+    if args.gemm_impl == "int8":
+        raise NotImplementedError("gemm_impl='int8' (an eval and serving "
+                                  "path) is not ported yet")
+    resolve_device(cfg.device)  # no card when one is asked for: fail first
+    # a baseline builds its own model (Retrain skips the -r resume)
+    params = None if baseline else build_params(cfg)
+
+    train_ds, test_ds = build_datasets(cfg)
+    order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
+
+    data = single_step_data(cfg, train_ds, test_ds, order)
+
     logger = MetricLogger(use_wandb=cfg.log_wandb, outdir=cfg.outdir,
                           config=json.loads(cfg.to_json()))
-    print("params:", json.dumps(param_summary(params)))
-    if args.profile_dir:
-        # a torch.profiler trace around the whole run (every step and eval)
-        from gslora_tpu_torch.utils.profiling import trace
-        with trace(args.profile_dir):
+    # method dispatch as in the reference script: one_stage first
+    # (train_own_forget_open.py:785), then the reg family
+    if baseline:
+        report = run_single_step_baseline(cfg, train_ds, data, order,
+                                          logger=logger)
+    else:
+        print("params:", json.dumps(param_summary(params)))
+        if args.profile_dir:
+            # a torch.profiler trace around the whole run (every step and
+            # eval)
+            from gslora_tpu_torch.utils.profiling import trace
+            with trace(args.profile_dir):
+                res = run_forget_training(cfg, params, data, logger=logger,
+                                          workdir=cfg.outdir)
+        else:
             res = run_forget_training(cfg, params, data, logger=logger,
                                       workdir=cfg.outdir)
-    else:
-        res = run_forget_training(cfg, params, data, logger=logger,
-                                  workdir=cfg.outdir)
+        report = {
+            "forget_acc_before": res.forget_acc_before,
+            "forget_acc": res.forget_acc, "remain_acc": res.remain_acc,
+            "open_acc": res.open_acc, "best_H_mean": res.best_h,
+            "norm_list": res.norm_list,
+        }
     # run name assembled from hyperparameters at exit
     # (train_own_forget.py:844-877)
     logger.set_run_name(make_run_name(cfg))
-
-    report = {
-        "forget_acc_before": res.forget_acc_before,
-        "forget_acc": res.forget_acc, "remain_acc": res.remain_acc,
-        "open_acc": res.open_acc, "best_H_mean": res.best_h,
-        "norm_list": res.norm_list,
-    }
     print(json.dumps(report, indent=2))
     if cfg.outdir:
         with open(os.path.join(cfg.outdir, "report.json"), "w") as fh:

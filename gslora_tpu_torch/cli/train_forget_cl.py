@@ -20,37 +20,216 @@ ImageNet-100 with ViT-B/16 (recipe scripts/run_cl_forget_image.sh):
   held-out classes are scored with the 1000-way head put back, before and
   after (logged as imagenet-val-miss_{before,after}).
 
+Baselines (the same per-task class windows, per-task checkpoints and
+old-class eval): ``--retrain``, ``--replay``, ``--l2``, ``--ewc``,
+``--MAS``, ``--Lwf``, ``--Der``, ``--DER_plus``, ``--FDR``, ``--SCRUB``,
+``--LIRF`` instead of ``--one_stage``, e.g.
+  python -m gslora_tpu_torch.cli.train_forget_cl --ewc -b 48 -e 100 \
+      --num_tasks 4 --num_of_first_cls 80 --per_forget_cls 20 \
+      --open_cls_num 10 --lora_rank 0 -r <pretrained.pth> [--device cpu]
+
 Runs on the GPU unless ``--device cpu`` is given; ``-r`` resumes as in
-cli/common.build_params. Only the GS-LoRA(++) method is ported
-(``--one_stage``, or no baseline flag): the baseline zoo and ``--dp``
-raise. ``--profile_dir`` is accepted and ignored, as by the JAX CLI.
+cli/common.build_params. ``--dp`` and ``--gemm_impl int8`` raise.
+``--profile_dir`` is accepted and ignored, as by the JAX CLI.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+from functools import partial
 
+import torch
+
+from gslora_tpu_torch.baselines.distill import run_distill_task
+from gslora_tpu_torch.baselines.lirf import run_lirf_task
+from gslora_tpu_torch.baselines.regularization import (
+    estimate_importance, run_regularization_task)
+from gslora_tpu_torch.baselines.scrub import run_scrub_task
+from gslora_tpu_torch.checkpoints.io import save_task_checkpoint
 from gslora_tpu_torch.cli.common import (build_datasets,
                                          build_missing_dataset, build_params,
                                          param_summary, prepare_imagenet_head)
-from gslora_tpu_torch.config import build_parser, config_from_args
-from gslora_tpu_torch.data.pipeline import BatchLoader
-from gslora_tpu_torch.data.splits import make_order_list
+from gslora_tpu_torch.config import RunConfig, build_parser, \
+    config_from_args
+from gslora_tpu_torch.data import pipeline
+from gslora_tpu_torch.data.folders import ConcatDataset
+from gslora_tpu_torch.data.pipeline import CyclingLoader
+from gslora_tpu_torch.data.splits import (make_order_list, random_relabel,
+                                          split_by_class_window,
+                                          task_windows, unique_classes)
 from gslora_tpu_torch.engine.continual import (detached,
-                                               run_continual_forgetting)
+                                               run_continual_forgetting,
+                                               split_task_data)
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
 from gslora_tpu_torch.models.vit_imagenet import resume_head
 
 
+def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
+                           order, logger, workdir):
+    """The task loop of every method but GS-LoRA, on ``cfg.device``
+    (JAX ``run_baseline_continual``, cli/train_forget_cl.py:42-234).
+    Returns (per-task results, final parameter tree)."""
+    f, b = cfg.forget, cfg.baseline
+    method = b.method
+    device = resolve_device(cfg.device)
+    eval_step = make_eval_step(cfg.model, cfg.lora,
+                               compute_dtype=_dtype(cfg))
+    bs = cfg.data.batch_size
+    test_bs = bs * cfg.data.test_batch_scale
+    pad = device.type != "cpu"  # static batch shapes on the card
+    BatchLoader = partial(pipeline.BatchLoader,
+                          uint8_transfer=cfg.data.uint8_transfer)
+
+    def test_loader(ds):
+        return lambda: BatchLoader(ds, test_bs, shuffle=False, prefetch=0,
+                                   mask_padding=pad)
+
+    results = []
+    anchors, importances = [], []
+    lam = {"l2": b.l2_lambda, "ewc": b.ewc_lambda,
+           "mas": b.mas_lambda}.get(method, 0.0)
+    # state across tasks: the reference creates the distill / SCRUB
+    # teacher, the SWA model and the four LIRF models once before the task
+    # loop (train_own_forget_cl.py:330-476, loop at :515); every task
+    # anchors to the ORIGINAL pretrained model
+    pretrained = params
+    scrub_swa, scrub_teacher, scrub_n_avg = None, None, 0
+    lirf_carry = None
+
+    for task in range(f.num_tasks):
+        # the per-task split of GS-LoRA: the paper's tables compare the
+        # methods on the same windows and subsets
+        data, old_te = split_task_data(cfg, train_ds, test_ds, order, task,
+                                       cfg.data.seed + task)
+        forget_sub, remain_sub = data.train_forget, data.train_remain
+        tbf, tbr = test_loader(data.test_forget), test_loader(data.test_remain)
+        tbo = test_loader(data.test_open) if data.test_open is not None \
+            and len(data.test_open) else None
+        relabeled = random_relabel(forget_sub, cfg.model.num_class,
+                                   seed=cfg.data.seed + task)
+        fl = BatchLoader(relabeled, bs, seed=cfg.data.seed + task,
+                         mask_padding=pad)
+        rl = BatchLoader(remain_sub, bs, seed=cfg.data.seed + task + 1,
+                         mask_padding=pad)
+        common = dict(logger=logger, test_batches_open=tbo)
+
+        if method in ("l2", "ewc", "mas"):
+            if task == 0:
+                anchors.append(params)
+                names, n_cls = unique_classes(remain_sub)
+                print("importance class", names, n_cls)  # cl_open.py:707
+                importances.append(estimate_importance(
+                    method, detached(params, device),
+                    BatchLoader(remain_sub, bs, shuffle=False, prefetch=0,
+                                mask_padding=pad),
+                    cfg.model, cfg.lora, _dtype(cfg)))
+            out = run_regularization_task(
+                cfg, params, lambda: iter(fl), tbf, tbr, lam=lam,
+                anchors=anchors, importances=importances, **common)
+            params = out["params"]
+            if task < f.num_tasks - 1:
+                # the next task's importance over its FULL remain split
+                # (cl.py:1637-1692)
+                anchors.append(params)
+                importances.append(estimate_importance(
+                    method, params,
+                    BatchLoader(next_remain(cfg, train_ds, order, task + 1),
+                                bs, shuffle=False, prefetch=0,
+                                mask_padding=pad),
+                    cfg.model, cfg.lora, _dtype(cfg)))
+        elif method == "retrain":
+            fresh = build_params(dataclasses.replace(cfg, resume=""),
+                                 seed=cfg.data.seed + 7 + task)
+            out = run_regularization_task(
+                cfg, fresh, lambda: iter(rl), tbf, tbr, lam=0.0,
+                anchors=[], importances=[], **common)
+            params = out["params"]
+        elif method == "replay":
+            tl = BatchLoader(ConcatDataset(relabeled, remain_sub), bs,
+                             seed=cfg.data.seed + task, mask_padding=pad)
+            out = run_regularization_task(
+                cfg, params, lambda: iter(tl), tbf, tbr, lam=0.0,
+                anchors=[], importances=[], **common)
+            params = out["params"]
+        elif method in ("lwf", "der", "der_plus", "fdr"):
+            # teacher = the pretrained model, every task (cl.py:453-476)
+            out = run_distill_task(cfg, params, pretrained, lambda: iter(fl),
+                                   CyclingLoader(rl), tbf, tbr, **common)
+            params = out["params"]
+        elif method == "scrub":
+            # SCRUB takes the TRUE labels of the forget set
+            fl_true = BatchLoader(forget_sub, bs, seed=cfg.data.seed + task,
+                                  mask_padding=pad)
+            out = run_scrub_task(
+                cfg, params, lambda: iter(fl_true), lambda: iter(rl), tbf,
+                tbr, teacher=(scrub_teacher if scrub_teacher is not None
+                              else pretrained),
+                swa=scrub_swa, n_averaged=scrub_n_avg, **common)
+            params = out["params"]
+            # SWA and teacher persist across tasks (cl.py:441-451)
+            scrub_teacher, scrub_swa = out["teacher"], out["swa"]
+            scrub_n_avg = out["n_averaged"]
+        elif method == "lirf":
+            out = run_lirf_task(cfg, params, lambda: iter(fl),
+                                CyclingLoader(rl), tbf, tbr, carry=lirf_carry,
+                                **common)
+            lirf_carry = {k: out[k] for k in ("teacher", "student_low",
+                                               "deposit_low")}
+            params = {"base": lirf_model(out["teacher"], out["student_low"],
+                                         cfg.model.depth // 2),
+                      # any LoRA was folded into the teacher at the first
+                      # task: carrying it on would apply it twice
+                      "lora": {}}
+        else:
+            raise ValueError(f"unknown method {method}")
+
+        old_acc = None
+        if old_te is not None and len(old_te):
+            old_acc = eval_accuracy(eval_step, detached(params, device),
+                                    test_loader(old_te)())
+        out["old_acc"] = old_acc
+        for key in ("params", "swa", "student_low", "deposit_low",
+                    "teacher"):
+            out.pop(key, None)
+        results.append({"task": task, **out})
+        if workdir:
+            save_task_checkpoint(workdir, task, params, extra=results[-1])
+    return results, params
+
+
+def next_remain(cfg: RunConfig, train_ds, order, task: int):
+    """The FULL remain split of ``task``'s window, over which the reg
+    family takes that task's importance (cl.py:1637-1692; the closed-set
+    window even under --open_cls_num, as in the reference)."""
+    f = cfg.forget
+    s1, e1, _, _ = task_windows(f.num_of_first_cls, f.per_forget_cls, task)
+    remain, _ = split_by_class_window(train_ds, order, s1, e1, 0, 0)
+    return remain
+
+
+def lirf_model(teacher, student_low, half: int):
+    """LIRF's deployable model, teacher_up(student_low): the teacher with
+    the student's patch, CLS, pos-embed and low blocks put in."""
+    base = dict(teacher)
+    base["blocks"] = _put_low(teacher["blocks"], student_low["blocks"],
+                              half)
+    for k in ("patch", "cls_token", "pos_embed"):
+        base[k] = student_low[k]
+    return base
+
+
+def _put_low(blocks, low, half):
+    return {k: _put_low(v, low[k], half) if isinstance(v, dict)
+            else torch.cat([low[k].detach(), v[half:]]) for k, v in
+            blocks.items()}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if cfg.baseline.method != "gs_lora" and not args.one_stage:
-        raise NotImplementedError(
-            f"method {cfg.baseline.method!r}: the continual baseline zoo "
-            "(ROADMAP Slice 5) is not ported yet (GS-LoRA only)")
     if args.dp:
         raise NotImplementedError("--dp (data parallel, ROADMAP Slice 7) is "
                                   "not ported yet")
@@ -84,25 +263,31 @@ def main(argv=None):
             return None
         acc = eval_accuracy(
             miss_ev, detached(resume_head(p, original_head), device),
-            BatchLoader(miss_ds, cfg.data.batch_size, shuffle=False,
-                        prefetch=0, mask_padding=device.type != "cpu"))
+            pipeline.BatchLoader(miss_ds, cfg.data.batch_size,
+                                 shuffle=False, prefetch=0,
+                                 mask_padding=device.type != "cpu"))
         print(f"missing-class acc {tag}: {acc:.2f}%")
         logger.log({f"imagenet-val-miss_{tag}": acc})
         return acc
 
     missing_acc("before", params)
-    out = run_continual_forgetting(cfg, params, train_ds, test_ds, order,
-                                   logger=logger, workdir=cfg.outdir)
-    missing_acc("after", out.final_params)
-    report = [{
-        "task": t.task, "forget_acc_before": t.result.forget_acc_before,
-        "forget_acc": t.result.forget_acc,
-        "remain_acc": t.result.remain_acc, "old_acc": t.old_acc,
-        "old_acc_before": t.old_acc_before,
-        "open_acc": t.result.open_acc,
-        "best_H_mean": t.result.best_h, "norm_list": t.result.norm_list,
-        "time_to_forget_s": round(t.result.wallclock_s, 2),
-    } for t in out.tasks]
+    if cfg.baseline.method == "gs_lora" or args.one_stage:
+        out = run_continual_forgetting(cfg, params, train_ds, test_ds, order,
+                                       logger=logger, workdir=cfg.outdir)
+        final_params = out.final_params
+        report = [{
+            "task": t.task, "forget_acc_before": t.result.forget_acc_before,
+            "forget_acc": t.result.forget_acc,
+            "remain_acc": t.result.remain_acc, "old_acc": t.old_acc,
+            "old_acc_before": t.old_acc_before,
+            "open_acc": t.result.open_acc,
+            "best_H_mean": t.result.best_h, "norm_list": t.result.norm_list,
+            "time_to_forget_s": round(t.result.wallclock_s, 2),
+        } for t in out.tasks]
+    else:
+        report, final_params = run_baseline_continual(
+            cfg, params, train_ds, test_ds, order, logger, cfg.outdir)
+    missing_acc("after", final_params)
 
     print(json.dumps(report, indent=2))
     if cfg.outdir:

@@ -30,7 +30,7 @@ from gslora_tpu_torch.config import build_parser, config_from_args
 from gslora_tpu_torch.data.pipeline import BatchLoader, DevicePrefetcher
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
-from gslora_tpu_torch.engine.pretrain import PretrainState, \
+from gslora_tpu_torch.engine.pretrain import PretrainState, is_lora, \
     make_pretrain_step
 from gslora_tpu_torch.engine.schedule import timm_cosine_lr
 from gslora_tpu_torch.engine.state import make_optimizer
@@ -61,9 +61,8 @@ def main(argv=None, return_state: bool = False):
     # LoRA-only pretraining when a rank is set AND a base checkpoint resumed
     lora_only = cfg.lora.rank > 0 and bool(cfg.resume)
     state = PretrainState.create(ViT(params, cfg.model, cfg.lora).to(device),
-                                 opt, lora_only=lora_only)
+                                 opt, trains=is_lora if lora_only else None)
     step = make_pretrain_step(cfg.model, cfg.lora, opt, compute_dtype=cdt,
-                              lora_only=lora_only,
                               grad_accum=cfg.optim.grad_accum)
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 

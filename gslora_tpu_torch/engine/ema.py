@@ -15,6 +15,7 @@ from typing import Dict
 import torch
 
 from gslora_tpu_torch.lora.core import merge_lora
+from gslora_tpu_torch.utils.trees import tree_map
 
 
 def merged_params(base: Dict, lora_tree: Dict, scaling: float) -> Dict:
@@ -26,20 +27,13 @@ def merged_params(base: Dict, lora_tree: Dict, scaling: float) -> Dict:
     return merged
 
 
-def _map(fn, *trees):
-    """fn over the leaves of trees of one structure."""
-    first = trees[0]
-    return {k: _map(fn, *(t[k] for t in trees)) if isinstance(v, dict)
-            else fn(*(t[k] for t in trees)) for k, v in first.items()}
-
-
 @torch.no_grad()
 def ema_init(base: Dict, lora_tree: Dict, scaling: float) -> Dict:
     """EMA accumulator in fp32 whatever the parameter dtype: with bf16
     params the (1-decay)*delta contribution is usually below the
     accumulator's ulp and a bf16 EMA would freeze at its init value.
     vit_apply casts to the compute dtype at use."""
-    return _map(lambda a: a.detach().to(torch.float32, copy=True),
+    return tree_map(lambda a: a.detach().to(torch.float32, copy=True),
                 merged_params(base, lora_tree, scaling))
 
 
@@ -51,6 +45,6 @@ def ema_update(ema: Dict, base: Dict, lora_tree: Dict, scaling: float,
     decay)."""
     d = torch.tensor(decay, dtype=torch.float32)
     one_minus = 1.0 - d
-    return _map(lambda e, t: e * d.to(e.device) +
+    return tree_map(lambda e, t: e * d.to(e.device) +
                 t.detach().float() * one_minus.to(e.device),
                 ema, merged_params(base, lora_tree, scaling))

@@ -2,9 +2,11 @@
 reference train/train_own.py).
 
 One call: forward + CE (or SFace's own loss) + gradient + optimizer update
-over ALL parameters, or over the LoRA subtree only (``lora_only``, the
-reference's mark_only_lora_as_trainable when a rank is set and a base
-checkpoint is resumed, train_own.py:385-386). Parameters update in place.
+over the parameters that ``PretrainState.create`` scoped to train: ALL of
+them, the LoRA subtree only (``is_lora``, the reference's
+mark_only_lora_as_trainable when a rank is set and a base checkpoint is
+resumed, train_own.py:385-386), or the baselines' scope
+(baselines/freeze.trains). Parameters update in place.
 """
 from __future__ import annotations
 
@@ -22,34 +24,40 @@ from gslora_tpu_torch.models.vit import ViT, vit_apply, vit_embed
 
 @dataclass
 class PretrainState:
-    """The model, whether only its LoRA trains, the optimizer's state for
-    the trainable parameters and the step count."""
+    """The model, the optimizer's state for the trainable parameters and
+    the step count."""
 
     model: ViT
-    lora_only: bool
     opt_state: Dict
     step: int = 0
 
     @classmethod
     def create(cls, model: ViT, optimizer,
-               lora_only: bool = False) -> "PretrainState":
-        """``lora_only``: only the ``lora`` subtree requires grad and has
-        optimizer state (torch optimizers skip parameters whose grad stays
-        None, so the reference holds no base moments and applies no base
-        weight decay, train_own.py:386)."""
+               trains: Optional[Callable[[str], bool]] = None
+               ) -> "PretrainState":
+        """``trains``: the parameters that train, by name (all when None).
+        Only they require grad and have optimizer state: torch optimizers
+        skip parameters whose grad stays None, so a LoRA-only run
+        (``is_lora``) holds no base moments and applies no base weight
+        decay (train_own.py:386), and a frozen baseline head none either
+        (baselines/freeze.trains)."""
         for name, p in model.named_parameters():
-            p.requires_grad_(not lora_only or name.startswith("lora."))
-        state = cls(model=model, lora_only=lora_only, opt_state={})
+            p.requires_grad_(trains is None or trains(name))
+        state = cls(model=model, opt_state={})
         state.opt_state = optimizer.init(state.trainable_params())
         return state
 
     def trainable_params(self) -> List[torch.nn.Parameter]:
-        sub = self.model.lora if self.lora_only else self.model
-        return list(sub.parameters())
+        return [p for p in self.model.parameters() if p.requires_grad]
 
     @property
     def params(self) -> Dict:
         return self.model.tree()
+
+
+def is_lora(name: str) -> bool:
+    """The ``trains`` scope of LoRA-only pretraining."""
+    return name.startswith("lora.")
 
 
 def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32):
@@ -90,8 +98,7 @@ def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32):
 
 
 def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
-                       compute_dtype=torch.bfloat16, lora_only: bool = False,
-                       grad_accum: int = 1, accum_dtype=torch.float32):
+                       compute_dtype=torch.bfloat16, grad_accum: int = 1, accum_dtype=torch.float32):
     """step(state, x, y, lr, generator=None) -> (state, metrics).
 
     The loss is CE over the margin head's logits (CosFace, ArcFace,
@@ -115,9 +122,6 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
 
     def step(state: PretrainState, x, y, lr: float,
              generator: Optional[torch.Generator] = None):
-        if state.lora_only != lora_only:
-            raise ValueError(f"state has lora_only={state.lora_only}, the "
-                             f"step {lora_only}")
         leaves = state.trainable_params()
         params = state.params
 
@@ -151,10 +155,9 @@ def pretrain(cfg, params, train_batches_fn, epochs: int,
     opt = make_optimizer(cfg.optim)
     state = PretrainState.create(
         ViT(params, cfg.model, cfg.lora).to(device), opt,
-        lora_only=lora_only)
+        trains=is_lora if lora_only else None)
     step = make_pretrain_step(cfg.model, cfg.lora, opt,
                               compute_dtype=compute_dtype,
-                              lora_only=lora_only,
                               grad_accum=cfg.optim.grad_accum)
     generator = torch.Generator(device=device).manual_seed(seed)
     metrics = {}

@@ -23,3 +23,13 @@ def timm_cosine_lr(cfg: OptimConfig, epoch: int) -> float:
     t = min(epoch, cfg.epochs)
     cos = 0.5 * (1.0 + math.cos(math.pi * t / max(cfg.epochs, 1)))
     return cfg.min_lr + (cfg.lr - cfg.min_lr) * cos
+
+
+def step_decay_lr(base_lr: float, epoch: int, decay_epochs: list[int],
+                  decay_rate: float = 0.1) -> float:
+    """SCRUB's sgda step decay (util/sgda_utils.py:7-19): multiply by
+    decay_rate after each listed epoch, strictly after: the reference
+    counts ``np.sum(epoch > decay_epochs)`` (sgda_utils.py:13), so the
+    decay epoch itself still runs at the undecayed rate."""
+    steps = sum(1 for e in decay_epochs if epoch > e)
+    return base_lr * (decay_rate ** steps)

@@ -41,7 +41,10 @@ def unflatten_tree(flat: Dict) -> Dict:
 def params_from_jax(tree_of_numpy: Dict, device="cpu", dtype=None) -> Dict:
     """JAX parameter tree (numpy leaves) -> the port's parameter tree of
     tensors (``ViT(tree, ...)`` holds it; ``flatten_tree`` gives its state
-    dict). ``dtype`` casts every tensor (default: keep each leaf's)."""
+    dict). ``dtype`` casts every tensor (default: keep each leaf's). A
+    subtree without ``base`` (LIRF's half-depth ``student_low`` and
+    ``deposit_low``, an importance or anchor of the base alone) converts
+    as it is; a full tree gets an empty ``lora`` when it has none."""
     def conv(leaf):
         a = np.array(leaf, copy=True)
         if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: numpy has none
@@ -52,7 +55,8 @@ def params_from_jax(tree_of_numpy: Dict, device="cpu", dtype=None) -> Dict:
 
     flat = {k: conv(v) for k, v in flatten_tree(tree_of_numpy).items()}
     tree = unflatten_tree(flat)
-    tree.setdefault("lora", {})
+    if "base" in tree:
+        tree.setdefault("lora", {})
     return tree
 
 
@@ -68,5 +72,6 @@ def params_to_jax(params) -> Dict:
 
     tree = unflatten_tree({k: conv(v)
                            for k, v in flatten_tree(params).items()})
-    tree.setdefault("lora", {})
+    if "base" in tree:
+        tree.setdefault("lora", {})
     return tree

@@ -26,7 +26,7 @@ compute dtype before the fp32 softmax. Dropout draws from an explicit
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -302,13 +302,19 @@ def _rematerialized(fn, x, generator):
 
 
 def transformer_stack(x, blocks: Params, lora_tree: Params, model: ViTConfig,
-                      scaling: float, generator, deterministic: bool):
+                      scaling: float, generator, deterministic: bool,
+                      layer_range: Optional[Tuple[int, int]] = None):
     """Apply the stacked transformer blocks, one layer after another.
-    ``model.remat`` checkpoints each layer while autograd records (the JAX
-    package's ``jax.checkpoint`` on the scan body, vit.py:424): the
-    backward reruns each layer's forward, attention included."""
+    ``layer_range=(lo, hi)`` runs only layers [lo, hi) of the stack (the
+    LIRF low/up split, vit_face.py:382-446, as a slice of the stacked
+    parameters; a half-depth stack takes (0, depth // 2)); the default is
+    the model's whole depth. ``model.remat`` checkpoints each layer while
+    autograd records (the JAX package's ``jax.checkpoint`` on the scan
+    body, vit.py:424): the backward reruns each layer's forward, attention
+    included."""
+    lo, hi = layer_range if layer_range is not None else (0, model.depth)
     remat = model.remat and torch.is_grad_enabled()
-    for i in range(model.depth):
+    for i in range(lo, hi):
         blk = _layer(blocks, i)
         lora_blk = _layer(lora_tree, i) if lora_tree else None
 
@@ -325,8 +331,17 @@ def transformer_stack(x, blocks: Params, lora_tree: Params, model: ViTConfig,
 def vit_embed(params: Params, images, model: ViTConfig, lora: LoraConfig, *,
               train: bool = False, generator=None,
               compute_dtype=torch.bfloat16,
+              layer_range: Optional[Tuple[int, int]] = None,
+              tokens_in: Optional[torch.Tensor] = None,
+              return_tokens: bool = False,
               lora_apply: str = "factored"):
     """Backbone forward -> post-LN CLS embedding (B, dim) in fp32.
+
+    ``tokens_in`` / ``return_tokens`` expose the token sequence between
+    layers, and ``layer_range`` picks the layers that run (the LIRF low/up
+    split, vit_face.py:638-665, 755-781): the low half embeds the images
+    and returns the tokens after layer depth // 2; the up half takes them
+    in and runs the rest.
 
     ``lora_apply``: "factored" runs the low-rank path as two skinny matmuls
     per adapted linear; "merged" folds B@A into the kernels once per call
@@ -344,26 +359,31 @@ def vit_embed(params: Params, images, model: ViTConfig, lora: LoraConfig, *,
     cdt = compute_dtype
     deterministic = not train
 
-    if images.dtype == torch.uint8:
-        # uint8-transfer path: k/255 in fp32 is the exact host ToTensor
-        # value, then the same cast to the compute dtype (vit.py:475-489)
-        images = images.float() / 255.0
-        if model.input_norm == "imagenet":
-            mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                                device=images.device).reshape(1, 3, 1, 1)
-            std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                               device=images.device).reshape(1, 3, 1, 1)
-            images = (images - mean) / std
-    x = patchify(images.to(cdt), model)
-    x = _proj(x, base["patch"]["kernel"], model)
-    x = x + base["patch"]["bias"].to(cdt)
-    cls = base["cls_token"].to(cdt).expand(x.shape[0], 1, model.dim)
-    x = torch.cat([cls, x], dim=1)
-    x = x + base["pos_embed"].to(cdt)[None, : x.shape[1]]
-    x = _dropout(x, model.emb_dropout, generator, deterministic)
+    if tokens_in is not None:
+        x = tokens_in.to(cdt)
+    else:
+        if images.dtype == torch.uint8:
+            # uint8-transfer path: k/255 in fp32 is the exact host ToTensor
+            # value, then the same cast to the compute dtype (vit.py:475-489)
+            images = images.float() / 255.0
+            if model.input_norm == "imagenet":
+                mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                                    device=images.device).reshape(1, 3, 1, 1)
+                std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                                   device=images.device).reshape(1, 3, 1, 1)
+                images = (images - mean) / std
+        x = patchify(images.to(cdt), model)
+        x = _proj(x, base["patch"]["kernel"], model)
+        x = x + base["patch"]["bias"].to(cdt)
+        cls = base["cls_token"].to(cdt).expand(x.shape[0], 1, model.dim)
+        x = torch.cat([cls, x], dim=1)
+        x = x + base["pos_embed"].to(cdt)[None, : x.shape[1]]
+        x = _dropout(x, model.emb_dropout, generator, deterministic)
 
     x = transformer_stack(x, base["blocks"], lora_tree, model, lora.scaling,
-                          generator, deterministic)
+                          generator, deterministic, layer_range)
+    if return_tokens:
+        return x
     pooled = x.mean(dim=1) if model.pool == "mean" else x[:, 0]
     return _layer_norm(pooled, base["head_ln"]["scale"],
                        base["head_ln"]["bias"])  # fp32

@@ -254,7 +254,7 @@ def test_cl_cli_runs_end_to_end_on_cpu(tiny_cl_cli, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--SCRUB"], "baseline zoo"), (["--gemm_impl", "int8"], "int8"),
+    (["--dp", "--SCRUB"], "--dp"), (["--gemm_impl", "int8"], "int8"),
     (["--dp", "--one_stage"], "--dp"),
 ])
 def test_cl_cli_unported_paths_raise(tiny_cl_cli, tmp_path, flags, match):

@@ -190,9 +190,7 @@ def test_cli_runs_end_to_end_on_cpu(tiny_cli, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--SCRUB"], "scrub"), (["--dp"], "--dp"),
-    (["--gemm_impl", "int8"], "int8"), (["--Lwf"], "lwf"),
-    (["--LIRF"], "lirf"),
+    (["--dp"], "--dp"), (["--gemm_impl", "int8"], "int8"),
 ])
 def test_cli_unported_paths_raise(tiny_cli, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -200,6 +198,20 @@ def test_cli_unported_paths_raise(tiny_cli, tmp_path, flags, match):
                        "-e", "1", "--device", "cpu", "--num_of_first_cls",
                        "6", "--per_forget_cls", "2", "--outdir",
                        str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flag,method", [
+    ("--SCRUB", "scrub"), ("--Lwf", "lwf"), ("--LIRF", "lirf"),
+])
+def test_cli_single_step_rejects_cl_only_methods(tiny_cli, tmp_path, flag,
+                                                 method):
+    """As the JAX single-step CLI: only retrain, l2, ewc and MAS have a
+    single-step path in the reference; the others raise ValueError."""
+    with pytest.raises(ValueError, match=f"{method}.*no single-step"):
+        tiny_cli.main(["-d", "synthetic", "--vit_depth", "1", "-b", "8",
+                       "-e", "1", "--device", "cpu", "--num_of_first_cls",
+                       "6", "--per_forget_cls", "2", "--outdir",
+                       str(tmp_path), flag])
 
 
 def test_cli_defaults_to_the_card(monkeypatch, tiny_cli, tmp_path):

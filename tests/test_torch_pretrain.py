@@ -21,7 +21,7 @@ from gslora_tpu.models.vit import init_vit_params as jax_init
 
 import gslora_tpu_torch.config as tc
 from gslora_tpu_torch.checkpoints.io import load_params
-from gslora_tpu_torch.engine.pretrain import PretrainState, \
+from gslora_tpu_torch.engine.pretrain import PretrainState, is_lora, \
     make_pretrain_step
 from gslora_tpu_torch.engine.state import make_optimizer
 from gslora_tpu_torch.losses.classification import cross_entropy
@@ -94,9 +94,9 @@ def test_pretrain_steps_match_jax(case):
                    lora_only=lora_only, grad_accum=accum)
     topt = make_optimizer(tc.OptimConfig(**OPTIM))
     tstate = PretrainState.create(V.ViT(params_from_jax(p), tm, tl), topt,
-                                  lora_only=lora_only)
+                                  trains=is_lora if lora_only else None)
     tfn = make_pretrain_step(tm, tl, topt, compute_dtype=torch.float32,
-                             lora_only=lora_only, grad_accum=accum)
+                             grad_accum=accum)
     for s, (x, y) in enumerate(batches):
         jstate, jmet = jfn(jstate, jnp.asarray(x), jnp.asarray(y),
                            jnp.float32(OPTIM["lr"]), jax.random.key(s))
@@ -272,7 +272,9 @@ def test_cli_pretrain_then_lora_only_resume_on_cpu(tiny_pretrain, tmp_path):
         CLI + ["-e", "1", "--lora_rank", "4", "--remat", "-r",
                str(ckpts[0]), "--outdir", str(tmp_path / "lora")],
         return_state=True)
-    assert state.lora_only and state.model.cfg.remat
+    assert state.model.cfg.remat
+    assert all(is_lora(n) == p.requires_grad
+               for n, p in state.model.named_parameters())
     tree = state.params
     for name, t in flatten_tree(saved["base"]).items():
         assert torch.equal(flatten_tree(tree["base"])[name], t), name
