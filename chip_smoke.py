@@ -91,14 +91,39 @@ non-zero exit code and without the final result line.
    each the device's busy share over them, its time per step by kernel
    family, the kernels with the most device time and the longest idle
    stretches.
-10. Prints the kernels line, then the result line.
+10. Eval phase, the eval and serving surface at the flagship width and
+   depth: train_pretrain makes the base it evaluates (255 steps of bs
+   120, until CosFace's eval margin no longer hides its predictions:
+   test accuracy at least 90 %); cli.test_model with scripts/test.sh's
+   flags (-b 240, rank 8) on that base, in bf16 with --ver_targets lfw
+   (a seeded lfw.bin of synthetic test pairs) and again with --gemm_impl
+   int8 (finite accuracies over every test image once, report.json,
+   class_accuracy.txt, the ROC artifact; bf16's overall and per-class
+   accuracy equal to engine/evaluate.eval_accuracy's on the card; int8
+   within 2.0 points of bf16); W8A8 on the card
+   (ops/quant.int8_linear at every projection shape of ViT-P8S8 and
+   ViT-B/16 against its float64 twin, to 1e-6 relative, with its times
+   beside the bf16 product's; each model's int8 eval against its bf16
+   eval: embedding cosine > 0.99, top-1 agreement >= 0.9);
+   cli.backbone_probe, 2 epochs (backbone frozen, head trained, no
+   attention backward); recovery (10 forget steps against 6, a
+   save_train_state / restore_train_state round trip and 4 more, within
+   5e-3); run_continual_forgetting(boundary="keep") with the continual
+   phase's config (task 1 starts from task 0's final LoRA); and
+   tools/bench_inference's serving points (both models, bf16 and int8:
+   images/s, ms per batch, mfu against the card's dense peak, peak
+   memory), with the P8S8 bs-240 points traced. K1's counts of every run
+   are checked against those derived from its flags.
+11. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -120,19 +145,25 @@ from gslora_tpu_torch.baselines.lirf import (LIRFState,  # noqa: E402
 from gslora_tpu_torch.baselines.regularization import (  # noqa: E402
     make_reg_step)
 from gslora_tpu_torch.baselines.scrub import make_scrub_steps  # noqa: E402
-from gslora_tpu_torch.checkpoints.io import (load_params,  # noqa: E402
-                                              save_params)
-from gslora_tpu_torch.cli import (export_torch, train_forget,  # noqa: E402
-                                  train_forget_cl, train_pretrain)
+from gslora_tpu_torch.checkpoints.io import (  # noqa: E402
+    load_params, restore_train_state, save_params, save_train_state)
+from gslora_tpu_torch.cli import (backbone_probe, export_torch,  # noqa: E402
+                                  test_model, train_forget, train_forget_cl,
+                                  train_pretrain)
 from gslora_tpu_torch.cli.common import (build_datasets,  # noqa: E402
                                          build_missing_dataset,
                                          build_params)
 from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
                                      OptimConfig, ViTConfig, build_parser,
                                      config_from_args)
+from gslora_tpu_torch.data.folders import SubsetDataset  # noqa: E402
+from gslora_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
 from gslora_tpu_torch.data.splits import make_order_list  # noqa: E402
+from gslora_tpu_torch.engine import continual as CONT  # noqa: E402
 from gslora_tpu_torch.engine.continual import (PROTO_BATCH,  # noqa: E402
                                                detached, split_task_data)
+from gslora_tpu_torch.engine.evaluate import (eval_accuracy,  # noqa: E402
+                                              make_eval_step)
 from gslora_tpu_torch.engine.forget import (make_forget_step,  # noqa: E402
                                             scalars_for_epoch)
 from gslora_tpu_torch.engine.pretrain import (PretrainState,  # noqa: E402
@@ -151,6 +182,8 @@ from gslora_tpu_torch.models.vit_imagenet import (  # noqa: E402
 from gslora_tpu_torch.ops import attention as A  # noqa: E402
 from gslora_tpu_torch.ops import cuda_build  # noqa: E402
 from gslora_tpu_torch.ops import group_lasso as G  # noqa: E402
+from gslora_tpu_torch.ops import quant as Q  # noqa: E402
+from gslora_tpu_torch.tools import bench_inference as BI  # noqa: E402
 from gslora_tpu_torch.tools import group_bench as GB  # noqa: E402
 from gslora_tpu_torch.utils.profiling import (device_summary,  # noqa: E402
                                               trace)
@@ -234,10 +267,12 @@ def path_shapes():
     path, the bench recipe's fused batch (train + forget) and the
     continual path's prototype batch; the ImageNet path's train and
     missing-class batch (one size) and its eval batch, at its own scale;
-    the baselines' train and eval batches."""
+    the baselines' train and eval batches; the eval base's train and eval
+    batches and the rest of the eval and serving surface's
+    (eval_surface_shapes)."""
     shapes = set()
     for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV, IMAGENET_ARGV,
-                 BASELINE_ARGV):
+                 BASELINE_ARGV, EVAL_BASE_ARGV):
         cfg = config_from_args(build_parser().parse_args(argv))
         bs, m = cfg.data.batch_size, cfg.model
         batches = [bs, bs * cfg.data.test_batch_scale]
@@ -247,6 +282,7 @@ def path_shapes():
             batches.append(PROTO_BATCH)
         shapes.update((b * m.heads, m.seq_len, attention_scale(m))
                       for b in batches)
+    shapes.update(eval_surface_shapes())
     return sorted(shapes)
 
 
@@ -303,6 +339,10 @@ def kernel_phase(bw, peak):
     by_shape = {"fwd": {}, "bwd": {}}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for bh, n, scale in path_shapes():
+        # a shape at another scale than the flagship's carries its scale
+        # in its key (ViT-B/16's 384 slices beside the flagship's)
+        name = f"{bh}x{n}x{HEAD_DIM}" + (
+            "" if scale == SCALE else f"@{scale:.4f}")
         q, k, v, g = inputs(bh, n, HEAD_DIM, 7, bias=scale != SCALE)
         bounds = k1_bounds(bh, n, HEAD_DIM, bw, peak)
         # library yardsticks at the same shape: SDPA forward, and its
@@ -316,11 +356,11 @@ def kernel_phase(bw, peak):
                      lambda: sdpa(q[None], k[None], v[None], scale=scale)),
                     ("bwd", lambda: A.attention_bwd_kernel(q, k, v, g,
                                                            scale), None)):
-                by_shape[key][f"{bh}x{n}x{HEAD_DIM}"] = {
+                by_shape[key][name] = {
                     "scale": scale, "ms": cuda_ms(fn),
                     "cold_ms": cuda_cold_ms(fn), "bound_ms": bounds[key][0],
                     "library_ms": cuda_ms(lib) if lib else None}
-        by_shape["bwd"][f"{bh}x{n}x{HEAD_DIM}"]["library_ms"] = cuda_ms(
+        by_shape["bwd"][name]["library_ms"] = cuda_ms(
             lambda: torch.autograd.grad(out_l, (ql, kl, vl), g[None],
                                         retain_graph=True))
         del out_l, ql, kl, vl
@@ -770,7 +810,8 @@ def expected_pretrain_launches(argv):
 def run_pretrain_cli(argv, what):
     """train_pretrain.main on the card with the launch counts read around
     it; checks finite accuracies and logged losses and the counts the
-    path implies. Returns (report, state, launches, logged)."""
+    path implies; prints the test accuracy of every eval. Returns
+    (report, state, launches)."""
     want, steps = expected_pretrain_launches(argv)
     torch.cuda.synchronize()
     reset_counts()
@@ -794,7 +835,9 @@ def run_pretrain_cli(argv, what):
              if "images_per_sec" in rec]
     print(f"{what} " + json.dumps({
         "wall_s": wall, "steps": steps, "report": report,
-        "epoch_images_per_sec": rates, "launches": launches}), flush=True)
+        "epoch_images_per_sec": rates, "launches": launches,
+        "test_accs": [rec["Test Accuracy"] for rec in logged
+                      if "Test Accuracy" in rec]}), flush=True)
     return report, state, launches
 
 
@@ -1611,6 +1654,514 @@ def baseline_bench(card, bs=48, steps=10):
         "card": card, **out}), flush=True)
 
 
+# The eval and serving surface (slice 8), at the flagship width and depth:
+# the base it evaluates, pretrained until CosFace's margin no longer hides
+# its predictions (255 steps of bs 120; on the card the test accuracy
+# jumps from 0 to 100 % by batch 140); scripts/test.sh's flags (-b 240,
+# rank 8, -r that base) on the synthetic test split; the head-only probe
+# at bs 48 with the main path's windows, 2 epochs; the serving bench's
+# batches
+EVAL_BASE_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
+                  "-b", "120", "-e", "15", "--lr", "3e-4",
+                  "--warmup-epochs", "1", "--compute_dtype", "bfloat16"]
+EVAL_BASE_MIN_ACC = 90.0  # percent; chance is 1
+EVAL_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "8",
+             "-b", "240"]
+PROBE_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "8",
+              "-b", "48", "-e", "2", "--lr", "1e-3", "--warmup-epochs", "0",
+              "--num_of_first_cls", "90", "--per_forget_cls", "10",
+              "--compute_dtype", "bfloat16"]
+VER_PAIRS = 128  # lfw.bin of 256 images: one embed batch per flip
+VER_BATCH = 256  # evaluation/verification.perform_val's embed batch
+SERVING_K = 20  # chained forwards per serving point
+SERVING_LORA = LoraConfig(rank=8)
+
+
+def eval_surface_shapes():
+    """(batch x heads, tokens, scale) of the eval and serving surface:
+    test_model's batch and the pair verification's, the probe's train
+    batch, its ragged last one and its eval batch, and the serving
+    bench's batches of both models."""
+    shapes = set()
+    cfg = config_from_args(build_parser().parse_args(EVAL_ARGV))
+    m = cfg.model
+    shapes.update((b * m.heads, m.seq_len, attention_scale(m))
+                  for b in (cfg.data.batch_size, VER_BATCH))
+    cfg = config_from_args(build_parser().parse_args(PROBE_ARGV))
+    bs, m = cfg.data.batch_size, cfg.model
+    n_train = len(backbone_probe.probe_data(cfg, *build_datasets(cfg))[0])
+    batches = [bs, bs * cfg.data.test_batch_scale] + (
+        [n_train % bs] if n_train % bs else [])
+    shapes.update((b * m.heads, m.seq_len, attention_scale(m))
+                  for b in batches)
+    for name, batches in BI.BATCHES.items():
+        m = BI.serving_model(name)
+        shapes.update((b * m.heads, m.seq_len, attention_scale(m))
+                      for b in batches)
+    return shapes
+
+
+def write_lfw_bin(root, cfg, pairs=VER_PAIRS):
+    """<root>/lfw.bin: JPEG bytes of 2 x pairs synthetic test images at
+    112x112, same class for odd pairs, another class for even ones (the
+    .bin layout of tests/test_cli.py)."""
+    from PIL import Image
+    _, test = build_datasets(cfg)
+    targets = np.asarray(test.targets)
+    rng = np.random.RandomState(5)
+    idx, issame = [], []
+    for p in range(pairs):
+        a = rng.randint(len(targets))
+        same = bool(p % 2)
+        idx += [a, rng.choice(np.flatnonzero((targets == targets[a]) ==
+                                             same))]
+        issame.append(same)
+    bins = []
+    for img in test.decode_batch(idx):
+        # the blobs span about +-3: map them onto the pixel range
+        u8 = np.clip((img.transpose(1, 2, 0) + 3.0) / 6.0 * 255.0, 0, 255)
+        buf = io.BytesIO()
+        Image.fromarray(u8.astype(np.uint8)).save(buf, format="JPEG",
+                                                  quality=95)
+        bins.append(buf.getvalue())
+    with open(os.path.join(root, "lfw.bin"), "wb") as fh:
+        pickle.dump((bins, issame), fh)
+
+
+def expected_eval_launches(argv):
+    """K1 launches test_model implies: 'depth' forward launches per padded
+    test batch of -b, and per embed batch (VER_BATCH images) of each flip
+    of each --ver_targets .bin; no backward."""
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    _, test = build_datasets(cfg)
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    fwd = batches(len(test), cfg.data.batch_size)
+    for t in [t for t in args.ver_targets.split(",") if t]:
+        with open(os.path.join(cfg.data.data_root, f"{t}.bin"), "rb") as fh:
+            n = len(pickle.load(fh)[0])
+        fwd += 2 * batches(n, VER_BATCH)
+    return {"attention_fwd": cfg.model.depth * fwd, "attention_bwd": 0,
+            "group_prox": 0, "group_norms": 0, "group_scale": 0}
+
+
+def expected_probe_launches(argv):
+    """K1 launches backbone_probe implies: 'depth' forward launches per
+    training batch (ragged last one included) and per padded forget and
+    remain test batch after each epoch; no backward, since nothing
+    upstream of the head trains (the JAX package takes the whole
+    gradient and zeroes it)."""
+    cfg = config_from_args(build_parser().parse_args(argv))
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    bs = cfg.data.batch_size
+    test_bs = bs * cfg.data.test_batch_scale
+    n_train, n_f, n_r = map(len, backbone_probe.probe_data(
+        cfg, *build_datasets(cfg)))
+    per_epoch = batches(n_train, bs) + batches(n_f, test_bs) + \
+        batches(n_r, test_bs)
+    return {"attention_fwd": cfg.model.depth * cfg.num_epoch * per_epoch,
+            "attention_bwd": 0, "group_prox": 0, "group_norms": 0,
+            "group_scale": 0}
+
+
+def run_counted(fn, argv, want, what):
+    """fn(argv) with the launch counts read around it, held to ``want``;
+    returns (result, launches, wall seconds)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}; the path "
+                             f"implies {want}")
+    return out, launches, wall
+
+
+def eval_base(root):
+    """train_pretrain with EVAL_BASE_ARGV, counted like the pretrain
+    phase's runs: its final test accuracy at least EVAL_BASE_MIN_ACC.
+    Returns (its last checkpoint, {"eval_base": launches})."""
+    out = os.path.join(root, "base")
+    report, _, launches = run_pretrain_cli(EVAL_BASE_ARGV + ["--outdir", out],
+                                           "eval_base")
+    if report["final_test_acc"] < EVAL_BASE_MIN_ACC:
+        raise AssertionError(f"eval_base: {report} (at least "
+                             f"{EVAL_BASE_MIN_ACC})")
+    ckpts = [f for f in os.listdir(out) if f.startswith("Backbone_VIT_")]
+    last = max(ckpts, key=lambda f: int(f.split("_Batch_")[1].split("_")[0]))
+    return os.path.join(out, last), {"eval_base": launches}
+
+
+def eval_reference(argv, test):
+    """(test accuracy, {class: accuracy}) of argv's checkpoint through
+    engine/evaluate.eval_accuracy on the card, in padded batches of -b:
+    the whole split, and each class's images alone."""
+    cfg = config_from_args(build_parser().parse_args(argv))
+    params = detached(build_params(cfg), DEV)
+    step = make_eval_step(cfg.model, cfg.lora, compute_dtype=torch.bfloat16)
+
+    def acc(ds):
+        return eval_accuracy(step, params, BatchLoader(
+            ds, cfg.data.batch_size, shuffle=False, prefetch=0,
+            mask_padding=True))
+
+    targets = np.asarray(test.targets)
+    return acc(test), {str(c): acc(SubsetDataset(
+        test, np.flatnonzero(targets == c))) for c in np.unique(targets)}
+
+
+def test_model_phase(ckpt, root):
+    """cli.test_model with scripts/test.sh's flags on the eval base: bf16
+    with --ver_targets lfw (a seeded lfw.bin), then --gemm_impl int8.
+    Finite accuracies over every test image once (num_samples),
+    report.json and class_accuracy.txt, the ROC artifact; bf16's test_acc
+    at least EVAL_BASE_MIN_ACC and equal to eval_reference's, its class_acc
+    equal to eval_reference's class by class (the same kernels at the same
+    batch shape: padding and the ragged last batch must not move a
+    prediction); int8 within 2.0 points of bf16 (the bound of the JAX
+    package's tests/test_cli.py); K1 counts as derived."""
+    write_lfw_bin(root, config_from_args(build_parser().parse_args(
+        EVAL_ARGV)))
+    _, test = build_datasets(config_from_args(build_parser().parse_args(
+        EVAL_ARGV)))
+    runs = {}
+    for name, extra in (("test_model", ["--data_root", root,
+                                        "--ver_targets", "lfw"]),
+                        ("test_model_int8", ["--gemm_impl", "int8"])):
+        out = os.path.join(root, name)
+        argv = EVAL_ARGV + ["-r", ckpt, "--outdir", out] + extra
+        report, launches, wall = run_counted(
+            test_model.main, argv, expected_eval_launches(argv), name)
+        vals = [report["test_acc"]] + ([report["lfw_verification_acc"]]
+                                       if "--ver_targets" in extra else [])
+        files = ["report.json", "class_accuracy.txt"] + (
+            [f for f in os.listdir(out) if f.startswith("lfw_ROC_Curve")]
+            if "--ver_targets" in extra else [])
+        if not all(math.isfinite(v) for v in vals) or len(files) < 2 + (
+                "--ver_targets" in extra) or not all(
+                os.path.exists(os.path.join(out, f)) for f in files) or \
+                report["num_samples"] != len(test):
+            raise AssertionError(f"{name}: {report}, files {files}, "
+                                 f"{len(test)} test images")
+        with open(os.path.join(out, "report.json")) as fh:
+            class_acc = json.load(fh)["class_acc"]
+        runs[name] = {"wall_s": wall, "launches": launches, **report,
+                      "class_acc": class_acc}
+    bf16 = runs["test_model"]
+    ref_acc, ref_class = eval_reference(EVAL_ARGV + ["-r", ckpt], test)
+    if bf16["test_acc"] < EVAL_BASE_MIN_ACC or \
+            bf16["test_acc"] != ref_acc or bf16["class_acc"] != ref_class:
+        wrong = {c: (a, ref_class.get(c)) for c, a in
+                 bf16["class_acc"].items() if ref_class.get(c) != a}
+        raise AssertionError(f"test_model: test_acc {bf16['test_acc']} "
+                             f"where eval_accuracy reads {ref_acc} (at "
+                             f"least {EVAL_BASE_MIN_ACC}); classes that "
+                             f"differ {wrong}")
+    gap = abs(runs["test_model_int8"]["test_acc"] - bf16["test_acc"])
+    if gap > 2.0:
+        raise AssertionError(f"test_model: int8 {gap:.2f} points from "
+                             f"bf16 (bound 2.0)")
+    for run in runs.values():
+        accs = run.pop("class_acc").values()
+        run["class_acc_min"] = min(accs)
+    print("test_model " + json.dumps({**runs, "eval_accuracy": ref_acc}),
+          flush=True)
+    return {k: v["launches"] for k, v in runs.items()}
+
+
+def projection_shapes(model, bs):
+    """(name, rows, K, N) of every projection GEMM of ``model`` at batch
+    ``bs``: the patch embedding and each block's qkv, attn_out, fc1,
+    fc2."""
+    t, d, inner = model.seq_len, model.dim, model.inner_dim
+    return [("patch", bs * model.num_patches, model.patch_dim, d),
+            ("qkv", bs * t, d, 3 * inner), ("attn_out", bs * t, inner, d),
+            ("fc1", bs * t, d, model.mlp_dim),
+            ("fc2", bs * t, model.mlp_dim, d)]
+
+
+def int8_check(ckpt):
+    """W8A8 on the card: int8_linear at every projection shape of both
+    models against its float64 twin (ops/quant.quant_mismatch, 1e-6
+    relative), with the times of int8_linear, its int8 product alone and
+    the bf16 product at the same shape; then each model's int8 eval
+    against its bf16 eval (tests/test_quant.py's envelope: embedding
+    cosine > 0.99, top-1 agreement >= 0.9): the flagship from the
+    pretrain phase's checkpoint on 240 test images, ViT-B/16 at full size
+    with random weights on 4 images."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    flagship = config_from_args(build_parser().parse_args(EVAL_ARGV)).model
+    shapes = {}
+    for label, model, bs in (("p8s8", flagship, 240),
+                             ("b16", ViTConfig.vit_b16(), 64)):
+        for name, rows, k, n in projection_shapes(model, bs):
+            x = torch.randn(rows, k, device=DEV, generator=gen).to(
+                torch.bfloat16)
+            w = torch.randn(k, n, device=DEV, generator=gen) * k ** -0.5
+            got = Q.int8_linear(x, w)
+            want = Q.int8_linear_reference(x, w)
+            torch.cuda.synchronize()
+            stats = Q.quant_mismatch(got, want)
+            if not stats["ok"]:
+                raise AssertionError(f"int8_linear at {label} {name} "
+                                     f"({rows}, {k}, {n}): {stats}")
+            qx, _ = Q.quantize_per_tensor(x)
+            qw, _ = Q.quantize_per_channel(w)
+            wb = w.to(torch.bfloat16)
+            shapes[f"{label} {name} {rows}x{k}x{n}"] = {
+                "max_rel": stats["max_rel"],
+                "int8_linear_ms": cuda_ms(lambda: Q.int8_linear(x, w),
+                                          iters=20),
+                "int_mm_ms": cuda_ms(lambda: Q.int8_matmul(qx, qw),
+                                     iters=20),
+                "bf16_ms": cuda_ms(lambda: x @ wb, iters=20)}
+    print("int8 projections (vs float64 twin, times) " +
+          json.dumps(shapes), flush=True)
+
+    cfg = config_from_args(build_parser().parse_args(
+        EVAL_ARGV + ["-r", ckpt]))
+    _, test = build_datasets(cfg)
+    x = torch.from_numpy(test.decode_batch(list(range(240))))
+    b16 = ViTConfig.vit_b16()
+    b16_params = init_vit_params(torch.Generator().manual_seed(1), b16,
+                                 LoraConfig(rank=8))
+    size = b16.image_size
+    xb = torch.randn(4, 3, size, size,
+                     generator=torch.Generator().manual_seed(2))
+    envelope = {}
+    for label, model, lora, params, images in (
+            ("p8s8_pretrained", cfg.model, cfg.lora, build_params(cfg), x),
+            ("b16_random", b16, LoraConfig(rank=8), b16_params, xb)):
+        params = detached(params, DEV)
+        out = {}
+        with torch.inference_mode():
+            for impl in ("default", "int8"):
+                m = dataclasses.replace(model, gemm_impl=impl)
+                y = torch.zeros(images.shape[0], dtype=torch.long,
+                                device=DEV)
+                logits, emb = vit_apply(params, images.to(DEV), y, m, lora,
+                                        compute_dtype=torch.bfloat16)
+                out[impl] = (logits.float(), emb.float())
+        cos = torch.nn.functional.cosine_similarity(out["default"][1],
+                                                    out["int8"][1])
+        agree = (out["default"][0].argmax(1) ==
+                 out["int8"][0].argmax(1)).float().mean()
+        envelope[label] = {"images": images.shape[0],
+                           "cos_min": float(cos.min()),
+                           "top1_agreement": float(agree)}
+        if not (envelope[label]["cos_min"] > 0.99 and
+                envelope[label]["top1_agreement"] >= 0.9):
+            raise AssertionError(f"int8 eval of {label} against bf16: "
+                                 f"{envelope[label]}")
+    print("int8 eval vs bf16 " + json.dumps(envelope), flush=True)
+
+
+def probe_phase(ckpt, root):
+    """cli.backbone_probe from the pretrain phase's checkpoint, 2 epochs:
+    backbone frozen, head trained, finite curves, K1 counts as derived
+    (no backward)."""
+    argv = PROBE_ARGV + ["-r", ckpt, "--outdir", os.path.join(root,
+                                                              "probe")]
+    report, launches, wall = run_counted(
+        backbone_probe.main, argv, expected_probe_launches(argv),
+        "backbone_probe")
+    curves = report["forget_acc_curve"] + report["remain_acc_curve"]
+    if not (report["backbone_frozen"] and report["head_trained"] and
+            len(curves) == 4 and all(math.isfinite(v) for v in curves)):
+        raise AssertionError(f"backbone_probe: {report}")
+    print("backbone_probe " + json.dumps({"wall_s": wall, **report,
+                                          "launches": launches}),
+          flush=True)
+    return launches
+
+
+def recovery_phase(root, steps=10, cut=6):
+    """Mid-task recovery at flagship width (dropout 0, rank-8 FFN LoRA,
+    AdamW, bf16 compute, forget and remain batches of 24): ``steps``
+    forget steps straight, against ``cut`` steps, save_train_state,
+    restore_train_state into a fresh state, the rest. The LoRA and the
+    optimizer moments must agree within 5e-3 (the trained-LoRA tolerance
+    of tests/test_training_parity.py); prints whether they are bitwise
+    equal."""
+    model = ViTConfig(dropout=0.0, emb_dropout=0.0)
+    lora = LoraConfig(rank=8)
+    params = init_vit_params(torch.Generator().manual_seed(0), model, lora)
+    opt = make_optimizer(OptimConfig(lr=1e-2))
+    step = make_forget_step(model, lora, ForgetConfig(bnd=110.0),
+                            opt, compute_dtype=torch.bfloat16,
+                            use_prototype=False)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    size = model.image_size
+    xf, xr = (torch.randn(24, 3, size, size, device=DEV, generator=gen)
+              for _ in range(2))
+    yf = torch.randint(90, 100, (24,), device=DEV, generator=gen)
+    yr = torch.randint(0, 90, (24,), device=DEV, generator=gen)
+    protos = torch.zeros(model.num_class, model.dim, device=DEV)
+    sc = {"beta": 0.15, "alpha": 0.01, "lr": 1e-2, "bnd": 110.0,
+          "bnd_pro": 18.0, "w_pro_f": 0.0, "w_pro_r": 0.0}
+
+    def fresh():
+        return ForgetState.create(ViT(params, model, lora).to(DEV), opt)
+
+    def run(state, start, end):
+        for i in range(start, end):
+            state, _ = step(state, xf, yf, xr, yr, protos, sc,
+                            torch.Generator(device=DEV).manual_seed(i))
+        return state
+
+    torch.cuda.synchronize()
+    reset_counts()
+    ref = run(fresh(), 0, steps)
+    path = os.path.join(root, "train_state.pth")
+    save_train_state(path, run(fresh(), 0, cut))
+    final = run(restore_train_state(path, fresh()), cut, steps)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    depth = model.depth
+    want = {"attention_fwd": 2 * depth * 2 * steps,
+            "attention_bwd": 2 * (depth - 1) * 2 * steps,
+            "group_prox": 0, "group_norms": 0, "group_scale": 0}
+    if launches != want:
+        raise AssertionError(f"recovery launched {launches}; the path "
+                             f"implies {want}")
+
+    def diff(a, b):
+        return max(float((x.detach().float() - y.detach().float()).abs()
+                         .max()) for x, y in zip(a, b))
+
+    got = {"lora": diff(final.trainable_params(), ref.trainable_params()),
+           "mu": diff(final.opt_state["mu"], ref.opt_state["mu"]),
+           "nu": diff(final.opt_state["nu"], ref.opt_state["nu"])}
+    bitwise = all(torch.equal(x, y) for x, y in zip(
+        final.trainable_params() + final.opt_state["mu"] +
+        final.opt_state["nu"], ref.trainable_params() +
+        ref.opt_state["mu"] + ref.opt_state["nu"]))
+    if final.step != ref.step or max(got.values()) > 5e-3:
+        raise AssertionError(f"recovery: max abs differences {got}, steps "
+                             f"{final.step} / {ref.step}")
+    print("recovery " + json.dumps({
+        "steps": steps, "saved_after": cut, "max_abs_diff": got,
+        "bitwise": bitwise, "launches": launches}), flush=True)
+    return launches
+
+
+def keep_phase():
+    """run_continual_forgetting(boundary="keep") with the continual
+    phase's config (CL_ARGV: 2 tasks x 1 epoch, prox, EMA): task 1 starts
+    from task 0's final LoRA, K2 once per training step, K1 counts those
+    of the merge_reinit run (expected_cl_launches)."""
+    cfg = config_from_args(build_parser().parse_args(CL_ARGV))
+    train, test = build_datasets(cfg)
+    order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
+    params = build_params(cfg)
+    starts = []
+    real = CONT.run_forget_training
+
+    def recorded(cfg, params, *args, **kwargs):
+        starts.append(host_tree(params["lora"]))
+        return real(cfg, params, *args, **kwargs)
+
+    CONT.run_forget_training = recorded
+    try:
+        out, launches, wall = run_counted(
+            lambda argv: CONT.run_continual_forgetting(
+                cfg, params, train, test, order, boundary="keep"),
+            CL_ARGV, expected_cl_launches(CL_ARGV), "cl_keep")
+    finally:
+        CONT.run_forget_training = real
+    end0 = host_tree(out.tasks[0].result.state.params["lora"])
+    assert_same(starts[1], end0, "keep boundary: task 1's starting LoRA")
+    for t in out.tasks:
+        r = t.result
+        vals = [r.forget_acc_before, r.forget_acc, r.remain_acc, r.best_h]
+        if t.task:
+            vals += [t.old_acc, t.old_acc_before]
+        if not all(v is not None and math.isfinite(v) for v in vals):
+            raise AssertionError(f"cl_keep: task {t.task}: {vals}")
+    print("cl_keep " + json.dumps({
+        "wall_s": wall, "tasks": [
+            {"task": t.task, "forget_acc_before": t.result.forget_acc_before,
+             "forget_acc": t.result.forget_acc,
+             "remain_acc": t.result.remain_acc,
+             "old_acc_before": t.old_acc_before, "old_acc": t.old_acc}
+            for t in out.tasks], "launches": launches}), flush=True)
+    return launches
+
+
+def serving_phase(card):
+    """tools/bench_inference's points on the card: ViT-P8S8 at 64 / 128 /
+    240 / 512 and ViT-B/16 at 32 / 64 / 128 / 256, bf16 and int8, random
+    bf16 parameters, merged LoRA, SERVING_K chained forwards each;
+    images/s, ms per batch, mfu against the card's dense peak, peak
+    memory; K1 'depth' launches per forward. Then five forwards of each
+    P8S8 bs-240 point traced (profiler_phase)."""
+    launches = dict.fromkeys(read_counts(), 0)
+    traced = []
+    for name in ("p8s8", "b16"):
+        params = BI.serving_params(BI.serving_model(name), SERVING_LORA,
+                                   DEV)
+        for int8 in (False, True):
+            model = BI.serving_model(name, int8)
+            for bs in BI.BATCHES[name]:
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                reset_counts()
+                r = BI.measure(model, SERVING_LORA, bs, SERVING_K,
+                               BI.FWD_GFLOP[name], DEV, params=params)
+                torch.cuda.synchronize()
+                got = read_counts()
+                if got["attention_fwd"] != model.depth * (SERVING_K + 1) or \
+                        got["attention_bwd"] or not math.isfinite(
+                            r["images_per_sec"]):
+                    raise AssertionError(f"serving {name} {bs}: {r}, "
+                                         f"launches {got}")
+                for k, v in got.items():
+                    launches[k] += v
+                print("serving " + json.dumps({
+                    "model": name, "gemm_impl": model.gemm_impl, **r,
+                    "card": card}), flush=True)
+                if name == "p8s8" and bs == 240:
+                    traced.append((model, params, r["ms_per_batch"]))
+        del params
+    for model, params, ms in traced:
+        x = torch.randn(240, 3, model.image_size, model.image_size,
+                        device=DEV)
+        y = torch.zeros(240, dtype=torch.long, device=DEV)
+
+        def run(n, model=model, params=params, x=x, y=y):
+            with torch.inference_mode():
+                for _ in range(n):
+                    out = vit_apply(params, x, y, model, SERVING_LORA,
+                                    compute_dtype=torch.bfloat16,
+                                    lora_apply="merged")
+            return out
+
+        profiler_phase([(f"serving P8S8 bs 240 {model.gemm_impl}", run, ms,
+                         5)], card)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def eval_phase(card):
+    """The eval and serving surface (slice 8): the base it evaluates,
+    test_model (bf16 with pair verification, int8), the int8 checks,
+    backbone_probe, recovery, the keep boundary and the serving bench."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        ckpt, launches = eval_base(root)
+        launches.update(test_model_phase(ckpt, root))
+        int8_check(ckpt)
+        launches["backbone_probe"] = probe_phase(ckpt, root)
+        launches["recovery"] = recovery_phase(root)
+    launches["cl_keep"] = keep_phase()
+    launches["serving"] = serving_phase(card)
+    print(f"eval phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     t_script = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1644,6 +2195,7 @@ def main():
                    card)
     baseline_launches = baseline_phase()
     baseline_bench(card)
+    eval_launches = eval_phase(card)
     for row in rows:
         # each kernel's count from the path it serves: K1 the single-step
         # main path, K2 the continual path; K3 is on neither
@@ -1656,7 +2208,9 @@ def main():
             "train_forget_cl_imagenet": imagenet_launches[name],
             "train_pretrain": pre_launches[name],
             "train_pretrain_lora_remat": pre_lora_launches[name],
-            "baselines": baseline_launches[name]}
+            "baselines": baseline_launches[name],
+            **{path: counts[name] for path, counts in
+               eval_launches.items()}}
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)

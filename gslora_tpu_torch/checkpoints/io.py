@@ -18,6 +18,7 @@ from typing import Any, List
 import torch
 
 from gslora_tpu_torch.models.convert import flatten_tree, unflatten_tree
+from gslora_tpu_torch.utils.trees import tree_map
 
 
 def save_params(path: str, tree: Any) -> None:
@@ -111,6 +112,62 @@ class BestHCheckpointer:
 
     def latest(self) -> str | None:
         return self._saved[-1] if self._saved else None
+
+
+def save_train_state(path: str, state: Any) -> None:
+    """Full snapshot of a ForgetState or PretrainState (parameters,
+    optimizer state, step) for recovery in the middle of a task, finer
+    than the reference's per-task granularity (SURVEY §5.3: a crash there
+    loses the task's progress). Tensors are copied to host memory."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"params": {k: v.detach().cpu() for k, v in
+                           flatten_tree(state.params).items()},
+                "opt_state": tree_map(
+                    lambda x: x.detach().cpu() if isinstance(
+                        x, torch.Tensor) else x, state.opt_state),
+                "step": state.step}, path)
+
+
+def restore_train_state(path: str, template: Any) -> Any:
+    """Load a :func:`save_train_state` snapshot into ``template``, a fresh
+    state of the same model, optimizer and trainable scope (the JAX
+    package's restore into a template pytree): the parameters are copied
+    in place (shapes and dtypes checked), the optimizer's tensors moved to
+    the template's device. Returns the template."""
+    snap = torch.load(path, map_location="cpu", weights_only=True)
+    own = dict(template.model.named_parameters())
+    if set(own) != set(snap["params"]):
+        diff = sorted(set(own) ^ set(snap["params"]))
+        raise KeyError(f"restore {path}: parameters differ from the "
+                       f"template's: {diff[:5]}")
+    with torch.no_grad():
+        for name, p in own.items():
+            _copy_into(p, snap["params"][name], f"{path}: {name}")
+
+    def restored(t, saved):
+        # optimizer tensors move to the template's device in their saved
+        # dtype (RMSprop's trace of bf16 parameters turns fp32 after its
+        # first update); plain values (the step count) are taken as saved
+        if not isinstance(t, torch.Tensor):
+            return saved
+        if t.shape != saved.shape:
+            raise ValueError(f"restore {path}: optimizer tensor of shape "
+                             f"{tuple(saved.shape)} where the template has "
+                             f"{tuple(t.shape)}")
+        return saved.to(t.device)
+
+    template.opt_state = tree_map(restored, template.opt_state,
+                                  snap["opt_state"])
+    template.step = snap["step"]
+    return template
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
+    if dst.shape != src.shape or dst.dtype != src.dtype:
+        raise ValueError(f"restore {what}: {tuple(src.shape)} {src.dtype} "
+                         f"where the template has {tuple(dst.shape)} "
+                         f"{dst.dtype}")
+    dst.copy_(src)
 
 
 def save_task_checkpoint(workdir: str, task: int, tree: Any,

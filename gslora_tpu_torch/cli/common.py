@@ -45,19 +45,6 @@ def build_datasets(cfg: RunConfig) -> Tuple[Dataset, Dataset]:
     return train, test
 
 
-def param_summary(params) -> dict:
-    """{'base': N, 'lora': M, 'total': N + M, 'trainable_fraction': M/total}
-    parameter counts of a {base, lora} tree."""
-    def count(tree):
-        return sum(count(v) if isinstance(v, dict) else v.numel()
-                   for v in tree.values())
-
-    base, lora = count(params.get("base", {})), count(params.get("lora", {}))
-    total = base + lora
-    return {"base": base, "lora": lora, "total": total,
-            "trainable_fraction": lora / total if total else 0.0}
-
-
 def build_params(cfg: RunConfig, seed: Optional[int] = None):
     """Fresh parameter tree (on the CPU) from a seeded CPU generator, then
     resumed from ``cfg.resume`` (``-r``) when it is set.

@@ -14,8 +14,9 @@ ValueError, as it has no single-step path in the reference either.
 
 Runs on the GPU unless ``--device cpu`` is given. ``-r`` resumes from a
 port checkpoint or a reference-named ``.pth`` (cli/common.build_params);
-``--profile_dir`` writes a profiler trace of the run there. ``--dp`` and
-``--gemm_impl int8`` raise.
+``--profile_dir`` writes a profiler trace of the run there. ``--dp``
+raises (not ported yet); ``--gemm_impl int8`` raises the model's
+ValueError at the first training step, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -26,8 +27,7 @@ from functools import partial
 
 from gslora_tpu_torch.baselines.regularization import (
     estimate_importance, run_regularization_task)
-from gslora_tpu_torch.cli.common import build_datasets, build_params, \
-    param_summary
+from gslora_tpu_torch.cli.common import build_datasets, build_params
 from gslora_tpu_torch.config import build_parser, config_from_args
 from gslora_tpu_torch.data import pipeline
 from gslora_tpu_torch.data.folders import ConcatDataset
@@ -40,6 +40,7 @@ from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.loop import ForgetData, _dtype, \
     resolve_device, run_forget_training
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
+from gslora_tpu_torch.utils.params import param_summary
 
 # The methods the reference's single-step open script runs besides
 # --one_stage (train_own_forget_open.py:837-1063); every other one has no
@@ -171,9 +172,6 @@ def main(argv=None):
     baseline = cfg.baseline.method != "gs_lora" and not args.one_stage
     if args.dp:
         raise NotImplementedError("--dp (data parallel) is not ported yet")
-    if args.gemm_impl == "int8":
-        raise NotImplementedError("gemm_impl='int8' (an eval and serving "
-                                  "path) is not ported yet")
     resolve_device(cfg.device)  # no card when one is asked for: fail first
     # a baseline builds its own model (Retrain skips the -r resume)
     params = None if baseline else build_params(cfg)

@@ -29,7 +29,9 @@ old-class eval): ``--retrain``, ``--replay``, ``--l2``, ``--ewc``,
       --open_cls_num 10 --lora_rank 0 -r <pretrained.pth> [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; ``-r`` resumes as in
-cli/common.build_params. ``--dp`` and ``--gemm_impl int8`` raise.
+cli/common.build_params. ``--dp`` raises (not ported yet); ``--gemm_impl
+int8`` raises the model's ValueError at the first training step, as in
+the JAX CLI (int8 is an eval and serving path).
 ``--profile_dir`` is accepted and ignored, as by the JAX CLI.
 """
 from __future__ import annotations
@@ -49,7 +51,7 @@ from gslora_tpu_torch.baselines.scrub import run_scrub_task
 from gslora_tpu_torch.checkpoints.io import save_task_checkpoint
 from gslora_tpu_torch.cli.common import (build_datasets,
                                          build_missing_dataset, build_params,
-                                         param_summary, prepare_imagenet_head)
+                                         prepare_imagenet_head)
 from gslora_tpu_torch.config import RunConfig, build_parser, \
     config_from_args
 from gslora_tpu_torch.data import pipeline
@@ -65,6 +67,7 @@ from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
 from gslora_tpu_torch.models.vit_imagenet import resume_head
+from gslora_tpu_torch.utils.params import param_summary
 
 
 def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
@@ -233,9 +236,6 @@ def main(argv=None):
     if args.dp:
         raise NotImplementedError("--dp (data parallel, ROADMAP Slice 7) is "
                                   "not ported yet")
-    if args.gemm_impl == "int8":
-        raise NotImplementedError("gemm_impl='int8' (an eval and serving "
-                                  "path) is not ported yet")
     device = resolve_device(cfg.device)  # no card when asked for: fail first
     train_ds, test_ds = build_datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)

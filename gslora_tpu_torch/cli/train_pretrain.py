@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from gslora_tpu_torch.checkpoints.io import BestHCheckpointer
-from gslora_tpu_torch.cli.common import build_datasets, build_params, \
-    param_summary
+from gslora_tpu_torch.cli.common import build_datasets, build_params
 from gslora_tpu_torch.config import build_parser, config_from_args
 from gslora_tpu_torch.data.pipeline import BatchLoader, DevicePrefetcher
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
@@ -37,6 +36,7 @@ from gslora_tpu_torch.engine.state import make_optimizer
 from gslora_tpu_torch.metrics.logging import MetricLogger, buffer_val, \
     gen_roc_plot
 from gslora_tpu_torch.models.vit import ViT, vit_apply
+from gslora_tpu_torch.utils.params import param_summary
 
 VER_FREQ = 20  # train_own.py:483-544: eval + checkpoint every 20 batches
 

@@ -74,8 +74,8 @@ class ViTConfig:
     # blocks as a Python loop and ignores it (kept so recipes carry over)
     scan_unroll: int = 0
     # projection-GEMM implementation: "default" = compute-dtype matmul,
-    # "int8" = W8A8 dynamic quantization (eval/serving only in the JAX
-    # package); "int8" is not ported yet and raises
+    # "int8" = W8A8 dynamic quantization (ops/quant.py; eval and serving
+    # only: a training forward raises)
     gemm_impl: str = "default"
     # dropout mask generation: "uniform" = keep with probability 1-rate,
     # scale by 1/keep. The "bits*" variants are TPU RNG workarounds of the
@@ -513,7 +513,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gemm_impl", default="default", type=str,
                    choices=["default", "int8"],
                    help="projection GEMMs: compute-dtype matmul, or W8A8 "
-                        "dynamic int8 (not ported yet: raises)")
+                        "dynamic int8 (eval and serving only)")
     p.add_argument("--dropout_impl", default="uniform", type=str,
                    choices=["uniform", "bits16", "bits32", "bits8"],
                    help="dropout mask generator; the port maps every "

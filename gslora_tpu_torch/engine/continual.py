@@ -102,13 +102,20 @@ def detached(tree, device=None):
 def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
                              test_ds: Dataset, order_list: List[int],
                              logger: Optional[MetricLogger] = None,
-                             workdir: Optional[str] = None
+                             workdir: Optional[str] = None,
+                             boundary: str = "merge_reinit"
                              ) -> ContinualResult:
     """GS-LoRA(++) over cfg.forget.num_tasks tasks on ``cfg.device``.
 
-    Every task after the first starts with the fold (reference merged
-    save + reload + LoRA reinit, cl.py:523-536); the reinit draws from one
-    CPU generator seeded with the run's seed."""
+    ``boundary``: "merge_reinit" (reference semantics: every task after
+    the first starts with the fold, merged save + reload + LoRA reinit,
+    cl.py:523-536; the reinit draws from one CPU generator seeded with the
+    run's seed) or "keep" (the adapters carry over untouched: an A/B knob
+    that tells old-class resurfacing caused by the fold from that caused
+    by a task's training)."""
+    if boundary not in ("merge_reinit", "keep"):
+        raise ValueError(f"boundary must be merge_reinit|keep, "
+                         f"got {boundary!r}")
     logger = logger or MetricLogger()
     model, lora, f = cfg.model, cfg.lora, cfg.forget
     device = resolve_device(cfg.device)
@@ -126,7 +133,7 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
                            mask_padding=pad, uint8_transfer=u8)
 
     for task in range(f.num_tasks):
-        if task > 0:
+        if task > 0 and boundary == "merge_reinit":
             # task boundary: fold LoRA into the base, fresh LoRA
             # (reference merged-save + reload + reinit, cl.py:523-536)
             with torch.no_grad():

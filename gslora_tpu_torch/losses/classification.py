@@ -31,8 +31,23 @@ def bounded_forget_loss(logits, labels, bnd):
 
 
 def top1_accuracy(logits, labels):
-    """Top-1 accuracy in percent (util/utils.py train_accuracy topk=(1,)),
-    pad sentinel masked; ties go to the first index, as in the JAX
-    package's top_k."""
-    hit = (torch.argmax(logits, dim=-1) == labels).float()
-    return 100.0 * _masked_mean(hit, labels)
+    """Top-1 accuracy in percent (util/utils.py train_accuracy topk=(1,));
+    the k=1 case of :func:`topk_accuracy`."""
+    return topk_accuracy(logits, labels, (1,))[0]
+
+
+def topk_accuracy(logits, labels, topk=(1,)) -> tuple:
+    """Precision@k for each k (util/utils.py:354-368 train_accuracy): a
+    tuple of 0-dim percentages, pad sentinel (-1) masked. Ties go to the
+    lower class index, as ``jax.lax.top_k`` breaks them (``torch.topk``
+    promises no order): argmax for k = 1, else a stable descending
+    sort."""
+    maxk = max(topk)
+    if maxk == 1:
+        pred = torch.argmax(logits, dim=-1, keepdim=True)
+    else:
+        pred = torch.sort(logits, dim=-1, descending=True,
+                          stable=True).indices[..., :maxk]
+    hit = (pred == labels[..., None]).float()  # (..., maxk)
+    return tuple(100.0 * _masked_mean(hit[..., :k].sum(dim=-1), labels)
+                 for k in topk)

@@ -84,22 +84,37 @@ class MetricLogger:
 
 
 def gen_roc_plot(fpr, tpr) -> bytes:
-    """Render an ROC curve to JPEG bytes (util/utils.py:129-142 gen_plot,
-    without the interactive pyplot state)."""
+    """Render an ROC curve to JPEG bytes (util/utils.py:129-142 gen_plot):
+    the curve over the unit square with its axes, "FPR", "TPR" and "ROC
+    Curve" written on them. Drawn with PIL, which the port needs anyway:
+    the machines with the card need not have matplotlib."""
     import io as _io
 
-    import matplotlib
-    matplotlib.use("Agg")
-    from matplotlib.figure import Figure
+    import numpy as np
+    from PIL import Image, ImageDraw
 
-    fig = Figure()
-    ax = fig.subplots()
-    ax.set_xlabel("FPR", fontsize=14)
-    ax.set_ylabel("TPR", fontsize=14)
-    ax.set_title("ROC Curve", fontsize=14)
-    ax.plot(fpr, tpr, linewidth=2)
+    size = 480  # pixels a side
+    img = Image.new("RGB", (size, size), "white")
+    draw = ImageDraw.Draw(img)
+    lo, hi = 50, size - 30  # plot area in pixels
+
+    def xy(f, t):
+        return lo + f * (hi - lo), hi - t * (hi - lo)
+
+    draw.rectangle([lo, lo - 20, hi, hi], outline="black")
+    for v in (0.0, 0.5, 1.0):  # ticks
+        x, y = xy(v, v)
+        draw.text((x - 8, hi + 4), f"{v:.1f}", fill="black")
+        draw.text((lo - 30, y - 6), f"{v:.1f}", fill="black")
+    draw.text(((lo + hi) // 2 - 12, hi + 16), "FPR", fill="black")
+    draw.text((4, (lo + hi) // 2), "TPR", fill="black")
+    draw.text(((lo + hi) // 2 - 30, 10), "ROC Curve", fill="black")
+    pts = [xy(float(f), float(t)) for f, t in
+           zip(np.clip(fpr, 0, 1), np.clip(tpr, 0, 1))]
+    if len(pts) > 1:
+        draw.line(pts, fill="blue", width=2)
     buf = _io.BytesIO()
-    fig.savefig(buf, format="jpeg")
+    img.save(buf, format="JPEG")
     return buf.getvalue()
 
 

@@ -37,6 +37,7 @@ from gslora_tpu_torch.config import (IMAGENET_MEAN, IMAGENET_STD, LoraConfig,
 from gslora_tpu_torch.lora.core import init_lora, lora_delta, merge_lora
 from gslora_tpu_torch.models.heads import apply_head
 from gslora_tpu_torch.ops.attention import fused_attention_bhnd
+from gslora_tpu_torch.ops.quant import int8_linear
 from gslora_tpu_torch.utils.inits import (kaiming_uniform, lecun_linear_bias,
                                           xavier_normal, xavier_uniform)
 
@@ -164,9 +165,12 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5, ln_dtype: str = "fp32"):
 
 
 def _proj(x, kernel, model: ViTConfig):
-    """x @ kernel in the compute dtype (the projection GEMMs)."""
+    """x @ kernel for the projection GEMMs (qkv, attn_out, fc1, fc2 and the
+    patch embedding), by ``model.gemm_impl``: "default" in the compute
+    dtype; "int8" W8A8 dynamic quantization of x and of the kernel as
+    stored (ops/quant.int8_linear, eval only), out in the compute dtype."""
     if model.gemm_impl == "int8":
-        raise NotImplementedError("gemm_impl='int8' is not ported yet")
+        return int8_linear(x, kernel, out_dtype=x.dtype)
     return x @ kernel.to(x.dtype)
 
 
@@ -348,8 +352,10 @@ def vit_embed(params: Params, images, model: ViTConfig, lora: LoraConfig, *,
     (gradients flow through the fold). With bf16 base params the fold is
     quantized to the kernel dtype (vit.py:450-454)."""
     if train and model.gemm_impl == "int8":
+        # int8 rounding has zero gradient: training would see dead
+        # gradients through every projection
         raise ValueError("gemm_impl='int8' is an inference/serving path; "
-                         "train with the default GEMMs")
+                         "train with the default bf16 GEMMs")
     base = params["base"]
     lora_tree = params.get("lora", {})
     if lora_tree and lora_apply == "merged":

@@ -199,6 +199,70 @@ def test_two_tasks_match_jax(same_reinit, tmp_path, mode):
                    if "loss_structure" in m)
 
 
+@pytest.mark.parametrize("mode", ["prox", "loss"])
+def test_keep_boundary_matches_jax(monkeypatch, mode):
+    """boundary="keep": no fold and no reinit, task 1 trains on from task
+    0's final LoRA, in both packages; per-task accuracies the same, the
+    final LoRA and base within 5e-3 / 5e-5."""
+    def never(*args):
+        raise AssertionError("keep must not reinit the LoRA")
+
+    monkeypatch.setattr(jcont, "reinit_lora", never)
+    monkeypatch.setattr(tcont, "reinit_lora", never)
+    p = jax_init(jax.random.key(0), jc.ViTConfig(**MODEL), jc.LoraConfig(4))
+    p = jax.tree.map(np.asarray, p)
+    order = make_order_list(8, seed=1337)
+    starts = []
+    run_forget = tcont.run_forget_training
+
+    def recorded(cfg, params, *args, **kwargs):
+        starts.append({k: v.clone() for k, v in
+                       flatten_tree(params["lora"]).items()})
+        return run_forget(cfg, params, *args, **kwargs)
+
+    monkeypatch.setattr(tcont, "run_forget_training", recorded)
+    jout = jcont.run_continual_forgetting(
+        _cfg(jc, mode), jax.tree.map(jnp.asarray, p), *_datasets(jax_synth),
+        order, logger=_Recorder(), boundary="keep")
+    tout = tcont.run_continual_forgetting(
+        _cfg(tc, mode, device="cpu"), params_from_jax(p),
+        *_datasets(synthetic_face_dataset), order, logger=_Recorder(),
+        boundary="keep")
+    for t, j in zip(tout.tasks, jout.tasks):
+        for key in ("forget_acc_before", "forget_acc", "remain_acc"):
+            assert getattr(t.result, key) == pytest.approx(
+                getattr(j.result, key), abs=1e-6), (t.task, key)
+        if t.task:
+            assert t.old_acc == pytest.approx(j.old_acc, abs=1e-6)
+            assert t.old_acc_before == pytest.approx(j.old_acc_before,
+                                                     abs=1e-6)
+    # task 1 started from task 0's final LoRA, not a fresh one
+    final0 = flatten_tree(tout.tasks[0].result.state.params["lora"])
+    assert all(torch.equal(starts[1][k], final0[k].detach())
+               for k in final0)
+    assert float(starts[1]["ffn.B1"].abs().max()) > 0
+    want = flatten_tree(jax.tree.map(np.asarray, jout.final_params))
+    got = flatten_tree(tout.final_params)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=5e-3,
+                                   atol=5e-5, err_msg=name)
+
+
+def test_unknown_boundary_raises_as_jax():
+    cfg = _cfg(tc, "loss", device="cpu")
+    data = _datasets(synthetic_face_dataset)
+    order = make_order_list(8, seed=1337)
+    with pytest.raises(ValueError, match="merge_reinit|keep") as terr:
+        tcont.run_continual_forgetting(cfg, {}, *data, order,
+                                       boundary="fold")
+    jdata = _datasets(jax_synth)
+    with pytest.raises(ValueError) as jerr:
+        jcont.run_continual_forgetting(_cfg(jc, "loss"), {}, *jdata, order,
+                                       boundary="fold")
+    assert str(terr.value) == str(jerr.value)
+
+
 # ---------------------------------------------------------------------------
 # the CL CLI
 # ---------------------------------------------------------------------------
@@ -254,7 +318,7 @@ def test_cl_cli_runs_end_to_end_on_cpu(tiny_cl_cli, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dp", "--SCRUB"], "--dp"), (["--gemm_impl", "int8"], "int8"),
+    (["--dp", "--SCRUB"], "--dp"), (["--dp", "--LIRF"], "--dp"),
     (["--dp", "--one_stage"], "--dp"),
 ])
 def test_cl_cli_unported_paths_raise(tiny_cl_cli, tmp_path, flags, match):

@@ -17,6 +17,7 @@ from gslora_tpu.engine.forget import scalars_for_epoch as jax_scalars
 from gslora_tpu.engine.state import ForgetState as JaxState
 from gslora_tpu.engine.state import make_optimizer as jax_optimizer
 from gslora_tpu.models.vit import init_vit_params as jax_init
+from gslora_tpu.models.vit import vit_apply as jax_vit_apply
 
 import gslora_tpu_torch.config as tc
 from gslora_tpu_torch.engine.forget import make_forget_step, \
@@ -194,13 +195,26 @@ def test_adamw_matches_optax(dtype):
 
 
 def test_unported_options_raise():
+    """gemm_impl="int8" is ported as an eval and serving path: a training
+    forward raises the JAX package's ValueError, word for word; an eval
+    forward runs."""
     tm, tl = tc.ViTConfig(**MODEL), tc.LoraConfig(rank=4)
     params = init_vit_params(torch.Generator().manual_seed(0), tm, tl)
-    x = np.zeros((2, 3, 16, 16), np.float32)
+    x = np.random.RandomState(0).rand(2, 3, 16, 16).astype(np.float32)
     int8 = dataclasses.replace(tm, gemm_impl="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        vit_apply(params, torch.from_numpy(x), None, int8, tl,
-                  compute_dtype=torch.float32)
+    jm = jc.ViTConfig(**{**MODEL, "gemm_impl": "int8"})
+    jp = jax_init(jax.random.key(0), jm, jc.LoraConfig(rank=4))
+    with pytest.raises(ValueError) as jerr:
+        jax_vit_apply(jp, jnp.asarray(x), None, jm, jc.LoraConfig(rank=4),
+                      train=True, rng=jax.random.key(1),
+                      compute_dtype=jnp.float32)
+    with pytest.raises(ValueError) as terr:
+        vit_apply(params, torch.from_numpy(x), None, int8, tl, train=True,
+                  generator=torch.Generator(), compute_dtype=torch.float32)
+    assert str(terr.value) == str(jerr.value)
+    emb = vit_apply(params, torch.from_numpy(x), None, int8, tl,
+                    compute_dtype=torch.float32)
+    assert emb.shape == (2, tm.dim) and bool(torch.isfinite(emb).all())
 
 
 def test_forget_step_rejects_bad_options():

@@ -43,3 +43,15 @@ def test_no_source_names_jax_or_the_jax_package():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if forbidden.search(f.read_text())]
     assert offenders == []
+
+
+def test_shell_mirrors_run_the_port():
+    """Every script mirror under gslora_tpu_torch/scripts calls the port's
+    CLIs and never the JAX package's."""
+    scripts = sorted((PORT / "scripts").glob("*.sh"))
+    assert len(scripts) == 7
+    jax_package = re.compile(r"\bgslora_tpu\.")
+    for path in scripts:
+        text = path.read_text()
+        assert "python -m gslora_tpu_torch.cli." in text, path.name
+        assert not jax_package.search(text), path.name

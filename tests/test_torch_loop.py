@@ -190,7 +190,7 @@ def test_cli_runs_end_to_end_on_cpu(tiny_cli, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dp"], "--dp"), (["--gemm_impl", "int8"], "int8"),
+    (["--dp"], "--dp"), (["--dp", "--ewc"], "--dp"),
 ])
 def test_cli_unported_paths_raise(tiny_cli, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
