@@ -114,7 +114,29 @@ non-zero exit code and without the final result line.
    images/s, ms per batch, mfu against the card's dense peak, peak
    memory), with the P8S8 bs-240 points traced. K1's counts of every run
    are checked against those derived from its flags.
-11. Prints the kernels line, then the result line.
+11. Native phase (slice 7): builds the native host IO from
+   gslora_tpu_torch/csrc/*.cpp with g++ (the record reader; the JPEG/PNG
+   decoder where libjpeg and libpng are installed, else it prints why
+   not), writes a seeded 112x112 face folder of JPEGs (100 classes x 48
+   train, x 4 test) and a .rec of the train images; holds the decoder
+   against PIL over the whole folder (where it builds) and the record
+   reader against the Python reader, both to the bit; times the four
+   decode paths of a 480-image batch on the host; runs train_pretrain
+   from the folder for one epoch (10 steps of bs 480; K1's counts
+   derived), untraced for its images/s and traced for the device's busy
+   share over the epoch, beside pretrain_bench's synthetic step.
+12. Data-parallel phase (slice 7): train_forget (GS-LoRA, bs 48, 20
+   steps), train_forget_cl (--one_stage, prox, EMA, 2 tasks) and
+   train_pretrain (bs 480, 10 steps; and with --grad_accum 2) with --dp
+   at the flagship width, dropout off, in two ranks of this script
+   (``--dp-rank``) sharing the card through gloo, each against one
+   process with twice the --grad_accum (whose micro-batches are the
+   ranks' rows): K1's and K2's counts per rank as derived, both ranks'
+   parameters equal to the bit, the final parameters within the JAX
+   suite's rtol 1e-4 / atol 1e-5 of the one process's, every eval within
+   one test image; walls of both (two ranks on one card measure the path,
+   not scaling).
+13. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
@@ -156,8 +178,12 @@ from gslora_tpu_torch.cli.common import (build_datasets,  # noqa: E402
 from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
                                      OptimConfig, ViTConfig, build_parser,
                                      config_from_args)
-from gslora_tpu_torch.data.folders import SubsetDataset  # noqa: E402
+from gslora_tpu_torch import native  # noqa: E402
+from gslora_tpu_torch.data.folders import (ImageFolderDataset,  # noqa: E402
+                                           SubsetDataset)
 from gslora_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
+from gslora_tpu_torch.data.recordio import (FaceRecordDataset,  # noqa: E402
+                                            read_record, write_recordio)
 from gslora_tpu_torch.data.splits import make_order_list  # noqa: E402
 from gslora_tpu_torch.engine import continual as CONT  # noqa: E402
 from gslora_tpu_torch.engine.continual import (PROTO_BATCH,  # noqa: E402
@@ -282,6 +308,15 @@ def path_shapes():
             batches.append(PROTO_BATCH)
         shapes.update((b * m.heads, m.seq_len, attention_scale(m))
                       for b in batches)
+    # a rank of the data-parallel phase: its rows of the train and eval
+    # batches, and its micro-batches under --grad_accum (the one-process
+    # references' micro-batches are the ranks' rows)
+    for _, argv, accum in DP_RUNS.values():
+        cfg = config_from_args(build_parser().parse_args(argv))
+        local, m = cfg.data.batch_size // DP_WORLD, cfg.model
+        shapes.update((b * m.heads, m.seq_len, attention_scale(m)) for b in
+                      (local, local // accum,
+                       local * cfg.data.test_batch_scale))
     shapes.update(eval_surface_shapes())
     return sorted(shapes)
 
@@ -602,14 +637,25 @@ MAIN_ARGV = ["-d", "synthetic", "-n", "VIT", "--vit_depth", "6",
              "--pro_r_weight", "0.01", "--compute_dtype", "bfloat16"]
 
 
+def forget_passes(grad_accum):
+    """(forwards, backwards) per stream and step of the forget step: one
+    of each, or with --grad_accum n the gate pass's n forwards and the
+    grad pass's n forwards and backwards (a rank's rows split n ways)."""
+    return (1, 1) if grad_accum == 1 else (2 * grad_accum, grad_accum)
+
+
 def expected_launches(argv):
-    """Attention launches the main path implies: 'depth' forward launches
-    per forward; 'depth - 1' backward launches per training forward (the
-    FFN LoRA's gradient never needs block 0's attention inputs, so autograd
-    skips that backward)."""
+    """Attention launches the single-step path implies (on one rank of a
+    --dp run: the same counts over its rows): 'depth' forward launches per
+    forward; 'depth - 1' backward launches per training forward (the FFN
+    LoRA's gradient never needs block 0's attention inputs, so autograd
+    skips that backward); the test evals before training, every ver_freq
+    steps and at the end; the prototypes (--prototype)."""
     cfg = config_from_args(build_parser().parse_args(argv))
     bs = cfg.data.batch_size
-    train, test = build_datasets(cfg)
+    assert not cfg.forget.few_shot and not cfg.forget.average_weight and \
+        not cfg.fused_batch
+    train, test = datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
     data = train_forget.single_step_data(cfg, train, test, order)
     n_tf, n_tr = len(data.train_forget), len(data.train_remain)
@@ -617,12 +663,30 @@ def expected_launches(argv):
     test_bs = bs * cfg.data.test_batch_scale
     evals = batches(len(data.test_forget), test_bs) + \
         batches(len(data.test_remain), test_bs)
-    protos = batches(n_tf, bs) + batches(n_tr, bs)
-    steps = batches(n_tr, bs)  # the remain stream drives the epoch
-    assert steps < cfg.ver_freq and cfg.num_epoch == 1
-    train_fwd = 2 * steps  # forget and remain forwards (no fused batch)
+    protos = batches(n_tf, bs) + batches(n_tr, bs) \
+        if cfg.forget.prototype else 0
+    # the remain stream drives each epoch
+    steps = cfg.num_epoch * batches(n_tr, bs)
+    rounds = 2 + steps // cfg.ver_freq
+    fwd, bwd = forget_passes(cfg.optim.grad_accum)
     depth = cfg.model.depth
-    return depth * (2 * evals + protos + train_fwd), (depth - 1) * train_fwd
+    # forget and remain forwards (no fused batch)
+    return depth * (rounds * evals + protos + 2 * fwd * steps), \
+        (depth - 1) * 2 * bwd * steps
+
+
+_DATASETS = {}
+
+
+def datasets(cfg):
+    """build_datasets(cfg), kept per data source: the launch derivations
+    ask for the same synthetic sets (300 MB at the flagship) many times."""
+    d = cfg.data
+    key = (d.data_mode, d.data_root, d.seed, d.uint8_transfer,
+           cfg.model.num_class, cfg.model.image_size)
+    if key not in _DATASETS:
+        _DATASETS[key] = build_datasets(cfg)
+    return _DATASETS[key]
 
 
 def reset_counts():
@@ -789,11 +853,12 @@ def expected_pretrain_launches(argv):
     backward reruns every block, attention first); 'depth' backward
     launches per training forward when every parameter trains (block 0's
     qkv kernel needs its dq), 'depth - 1' when only the FFN LoRA trains
-    (lora_rank > 0 with -r); one eval forward per test batch every
-    VER_FREQ steps and at the end."""
+    (lora_rank > 0 with -r); with --grad_accum n, n of each per step (the
+    batch, or a rank's rows under --dp, split n ways); one eval forward
+    per test batch every VER_FREQ steps and at the end."""
     cfg = config_from_args(build_parser().parse_args(argv))
     assert not cfg.lora.rank or cfg.lora.pos == "FFN"
-    train, test = build_datasets(cfg)
+    train, test = datasets(cfg)
     batches = lambda n, b: -(-n // b)  # noqa: E731
     bs = cfg.data.batch_size
     steps = cfg.num_epoch * batches(len(train), bs)
@@ -802,8 +867,9 @@ def expected_pretrain_launches(argv):
     depth = cfg.model.depth
     lora_only = cfg.lora.rank > 0 and bool(cfg.resume)
     per_train_fwd = 2 * depth if cfg.model.remat else depth
-    return {"attention_fwd": depth * evals + per_train_fwd * steps,
-            "attention_bwd": (depth - 1 if lora_only else depth) * steps,
+    n = cfg.optim.grad_accum
+    return {"attention_fwd": depth * evals + per_train_fwd * n * steps,
+            "attention_bwd": (depth - 1 if lora_only else depth) * n * steps,
             "group_prox": 0, "group_norms": 0, "group_scale": 0}, steps
 
 
@@ -1016,14 +1082,17 @@ def expected_cl_launches(argv):
     epoch from ema_epoch on (--average_weight) and at the end; two training
     forwards per step. With --imagenet_miss_root, the missing-class evals
     before and after the run (batches of -b). 'depth' forward launches per
-    forward, 'depth - 1' backward per training forward (FFN LoRA); K2 once
-    per training step under --structure_mode prox."""
+    forward, 'depth - 1' backward per training forward (FFN LoRA), with
+    --grad_accum as forget_passes says; K2 once per training step under
+    --structure_mode prox. One rank of a --dp run launches these counts
+    over its rows."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     f, bs = cfg.forget, cfg.data.batch_size
     assert f.open_cls_num == 0 and cfg.lora.pos == "FFN" and \
-        cfg.optim.grad_accum == 1 and not cfg.fused_batch
-    train, test = build_datasets(cfg)
+        not cfg.fused_batch
+    f_pass, b_pass = forget_passes(cfg.optim.grad_accum)
+    train, test = datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
     batches = lambda n, b: -(-n // b)  # noqa: E731
     test_bs = bs * cfg.data.test_batch_scale
@@ -1043,7 +1112,7 @@ def expected_cl_launches(argv):
         protos = batches(len(data.train_forget), PROTO_BATCH) + \
             batches(len(data.train_remain), PROTO_BATCH) \
             if f.prototype else 0
-        fwd += rounds * evals + old_evals + protos + 2 * n
+        fwd += rounds * evals + old_evals + protos + 2 * f_pass * n
         steps += n
     if cfg.data.data_mode == "imagenet100" and args.imagenet_miss_root:
         miss = build_missing_dataset(cfg, args.imagenet_miss_root)
@@ -1051,7 +1120,7 @@ def expected_cl_launches(argv):
     depth = cfg.model.depth
     prox = steps if cfg.structure_mode == "prox" else 0
     return {"attention_fwd": depth * fwd,
-            "attention_bwd": (depth - 1) * 2 * steps,
+            "attention_bwd": (depth - 1) * 2 * b_pass * steps,
             "group_prox": prox, "group_norms": 0, "group_scale": 0}
 
 
@@ -2145,6 +2214,431 @@ def serving_phase(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# native host IO (slice 7)
+# ---------------------------------------------------------------------------
+
+# The face folder of the native phase: 112x112 JPEGs, 48 train and 4 test
+# images in each of 100 classes; one epoch of the folder pretrain is 10
+# steps of bs 480.
+FACE_FOLDER = {"classes": 100, "train": 48, "test": 4, "size": 112}
+DECODE_BATCH = 480
+# --data_root and --outdir are appended
+FOLDER_PRETRAIN_ARGV = ["-d", "casia100", *MODEL_FLAGS, "--lora_rank", "0",
+                        "-b", "480", "-e", "1", "--lr", "3e-4",
+                        "--compute_dtype", "bfloat16"]
+
+
+def face_folder(root, seed=0):
+    """A seeded face folder under root: train/ and test/ with one folder
+    per class (a smooth pattern of the class plus noise, JPEG quality 90),
+    and train.rec / train.idx of the train images' bytes and labels.
+    Returns the .rec path."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    size = FACE_FOLDER["size"]
+    records = []
+    for c in range(FACE_FOLDER["classes"]):
+        base = np.asarray(Image.fromarray(
+            rng.randint(0, 256, (14, 14, 3)).astype(np.uint8)).resize(
+                (size, size), Image.BILINEAR), np.int16)
+        for split in ("train", "test"):
+            folder = os.path.join(root, split, f"{c:03d}")
+            os.makedirs(folder)
+            for i in range(FACE_FOLDER[split]):
+                img = np.clip(base + rng.randint(-24, 25, base.shape), 0, 255)
+                buf = io.BytesIO()
+                Image.fromarray(img.astype(np.uint8)).save(
+                    buf, format="JPEG", quality=90)
+                with open(os.path.join(folder, f"{i:03d}.jpg"), "wb") as fh:
+                    fh.write(buf.getvalue())
+                if split == "train":
+                    records.append((np.asarray([float(c)], np.float32),
+                                    buf.getvalue()))
+    rec = os.path.join(root, "train.rec")
+    # record 0 names [start, end) of the identity records: none follow
+    n = float(len(records) + 1)
+    write_recordio(rec, records, header0=np.asarray([n, n], np.float32))
+    return rec
+
+
+def host_ms(fn, reps=3):
+    """Median host ms of fn() over reps calls, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def native_build():
+    """Both native libraries built from csrc/*.cpp; seconds per library,
+    None for a decoder that cannot build here, and why."""
+    out = {}
+    for name in ("recordio", "imagedec"):
+        t0 = time.perf_counter()
+        lib = native.load_library(name)
+        out[name] = time.perf_counter() - t0 if lib is not None else None
+    reason = native.unavailable_reason("imagedec")
+    print("native build " + json.dumps({
+        "seconds": out, "threads": native.default_threads(),
+        "imagedec_unavailable": reason}), flush=True)
+    return reason
+
+
+def native_phase(card, synthetic_ms):
+    """The native host IO on the card's host: the decoder against PIL and
+    the record reader against the Python reader over the whole face
+    folder, both to the bit; host ms per 480-image batch of the four
+    decode paths; then the pretrain CLI fed from the folder for one epoch
+    (K1's counts derived), untraced for its images/s and traced for the
+    device's busy share over the epoch, beside the synthetic-data step of
+    pretrain_bench (``synthetic_ms``, same run)."""
+    reason = native_build()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rec_path = face_folder(root)
+        folder = ImageFolderDataset(os.path.join(root, "train"),
+                                    image_size=FACE_FOLDER["size"])
+        faces = FaceRecordDataset(rec_path, rand_mirror=False)
+        n = len(folder)
+        print(f"native: wrote {n} train and "
+              f"{FACE_FOLDER['classes'] * FACE_FOLDER['test']} test JPEGs "
+              f"and a .rec of the train images in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        threads = native.default_threads()
+        if reason is None:
+            size = FACE_FOLDER["size"]
+            out, ok = native.decode_image_batch(
+                [p for p, _ in folder.samples], size, size, threads=threads)
+            bad = [i for i in range(n) if not ok[i] or not np.array_equal(
+                out[i], folder.decode(i))]
+            if bad:
+                raise AssertionError(f"native decode differs from PIL at "
+                                     f"{len(bad)} images, e.g. {bad[:5]}")
+        reader = native.NativeRecordReader(rec_path, n_threads=threads)
+        keys = [k for k, _ in faces.samples]
+        labels, bodies = reader.read_batch(
+            [reader._key_to_pos[k] for k in keys])
+        with open(rec_path, "rb") as fh:
+            for k, label, body in zip(keys, labels, bodies):
+                want_labels, want_body = read_record(fh, faces.idx[k])
+                if body != want_body or label != want_labels[0]:
+                    raise AssertionError(f"native record read differs from "
+                                         f"the Python reader at key {k}")
+        reader.close()
+        idxs = [int(i) for i in
+                np.random.RandomState(1).permutation(n)[:DECODE_BATCH]]
+        if not np.array_equal(faces.decode_batch(idxs),
+                              np.stack([faces.decode(i) for i in idxs])):
+            raise AssertionError("FaceRecordDataset.decode_batch differs "
+                                 "from the Python reader's images")
+        times = {
+            "folder_decode_batch": host_ms(lambda: folder.decode_batch(idxs)),
+            "folder_pil_per_image": host_ms(
+                lambda: np.stack([folder.decode(i) for i in idxs])),
+            "rec_decode_batch_native": host_ms(
+                lambda: faces.decode_batch(idxs)),
+            "rec_python_reader": host_ms(
+                lambda: np.stack([faces.decode(i) for i in idxs])),
+        }
+        print("native decode " + json.dumps({
+            "batch": DECODE_BATCH, "card": card, "host_ms": times,
+            "folder_decode_batch_route": "PIL per image (decoder "
+            "unavailable)" if reason else "native",
+            "equal_to_pil": "not checked here: " + reason if reason
+            else n, "records_equal": n}), flush=True)
+
+        argv = FOLDER_PRETRAIN_ARGV + ["--data_root", root]
+        out = os.path.join(root, "out")
+        _, _, launches = run_pretrain_cli(argv + ["--outdir", out],
+                                          "train_pretrain_folder")
+        with open(os.path.join(out, "metrics.jsonl")) as fh:
+            rate = [json.loads(line)["images_per_sec"] for line in fh
+                    if "images_per_sec" in line][0]
+        with tempfile.TemporaryDirectory() as tdir:
+            with trace(tdir):
+                train_pretrain.main(argv + ["--outdir",
+                                            os.path.join(root, "traced")])
+            summary = device_summary(os.path.join(tdir, "trace.json"),
+                                     window="epoch", top=5, gaps=5,
+                                     families=FAMILIES)
+    step_ms = 1e3 * DECODE_BATCH / rate
+    print("folder_pretrain " + json.dumps({
+        "recipe": "train_pretrain -d casia100 from a 112x112 JPEG folder, "
+                  "bs 480, 10 steps, depth 6, bf16 compute",
+        "card": card, "epoch_images_per_sec": rate,
+        "epoch_ms_per_step": step_ms,
+        "synthetic_step_ms": synthetic_ms,
+        "host_share_of_epoch": 1.0 - synthetic_ms / step_ms,
+        "busy_share_traced_epoch": summary["busy_share"],
+        "traced_epoch_ms": summary["window_ms"],
+        "idle_gaps": summary["idle_gaps"],
+        "families_ms": summary["families_ms"]}), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: two ranks on the one card (slice 7)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_FORGET_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "8",
+                  "-b", "48", "-e", "5", "--lr", "1e-2", "--warmup-epochs",
+                  "0", "--BND", "110", "--beta", "0.15", "--alpha", "0.01",
+                  "--alpha_epoch", "0", "--compute_dtype", "bfloat16"]
+DP_CL_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "8", "-b",
+              "48", "-e", "1", "--lr", "1e-2", "--warmup-epochs", "0",
+              "--BND", "110", "--alpha", "0.01", "--one_stage",
+              "--num_tasks", "2", "--num_of_first_cls", "90",
+              "--per_forget_cls", "10", "--structure_mode", "prox",
+              "--cl_beta_list", "0.15", "0.2", "--average_weight",
+              "--ema_epoch", "0", "--compute_dtype", "bfloat16"]
+DP_PRETRAIN_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
+                    "-b", "480", "-e", "2", "--lr", "3e-4",
+                    "--compute_dtype", "bfloat16"]
+# path -> (CLI module, argv, --grad_accum of each rank); the one-process
+# reference runs --grad_accum DP_WORLD times that, so its micro-batches
+# are the ranks' rows: the same rows at the same shapes through the same
+# kernels, and the same fp32 sums of the masked sums and the gradients
+# (added as a tree, utils/trees.PairwiseSum: each rank's total is one
+# subtree, the all_reduce adds the last pair).
+DP_RUNS = {"train_forget_dp": (train_forget, DP_FORGET_ARGV, 1),
+           "train_forget_cl_dp": (train_forget_cl, DP_CL_ARGV, 1),
+           "train_pretrain_dp": (train_pretrain, DP_PRETRAIN_ARGV, 1),
+           "train_pretrain_dp_accum": (train_pretrain, DP_PRETRAIN_ARGV, 2)}
+DP_TIMEOUT_S = 600
+# Final parameters of two ranks against one process: the JAX suite's fp32
+# tolerance (tests/test_mesh_loop.py:79-80). The training runs the same
+# bf16 GEMMs and kernels on the same rows either way and adds the fp32
+# partials in one order, so it holds to the bit (a sequential sum of four
+# micro-batches against two ranks' pairs moved the pretrain with
+# --grad_accum 2 by 1.8e-5 through Adam in 10 steps, before the tree).
+DP_RTOL, DP_ATOL = 1e-4, 1e-5
+
+
+def dp_expected(name, accum):
+    """K1 and K2 launches of one rank (or of the one-process reference),
+    from the flags with --grad_accum ``accum``."""
+    module, argv, _ = DP_RUNS[name]
+    argv = argv + ["--grad_accum", str(accum)]
+    if module is train_forget:
+        fwd, bwd = expected_launches(argv)
+        return {"attention_fwd": fwd, "attention_bwd": bwd,
+                "group_prox": 0, "group_norms": 0, "group_scale": 0}
+    if module is train_forget_cl:
+        return expected_cl_launches(argv)
+    return expected_pretrain_launches(argv)[0]
+
+
+def dp_run(name, accum, dp):
+    """DP_RUNS[name] through its CLI in this process, dropout off (each
+    rank draws its own masks), --grad_accum ``accum``, ``--dp`` if asked;
+    launch counts held to dp_expected. Returns the report, the final
+    parameters (host fp32, flat), the eval history, the launches and the
+    wall seconds."""
+    module, argv, _ = DP_RUNS[name]
+    argv = argv + ["--grad_accum", str(accum), "--outdir", ""] + \
+        (["--dp"] if dp else [])
+    seen = {"history": []}
+
+    def config(args):
+        cfg = config_from_args(args)
+        cfg.model = dataclasses.replace(cfg.model, dropout=0.0,
+                                        emb_dropout=0.0)
+        return cfg
+
+    def host(tree):
+        return {k: v.detach().float().cpu()
+                for k, v in flatten_tree(tree).items()}
+
+    patched = {"config_from_args": config}
+    if module is train_forget:
+        run = module.run_forget_training
+
+        def spy(*a, **k):
+            res = run(*a, **k)
+            seen.update(params=host(res.state.params), history=[res.history])
+            return res
+        patched["run_forget_training"] = spy
+    elif module is train_forget_cl:
+        run = module.run_continual_forgetting
+
+        def spy(*a, **k):
+            res = run(*a, **k)
+            seen.update(params=host(res.final_params),
+                        history=[t.result.history for t in res.tasks])
+            return res
+        patched["run_continual_forgetting"] = spy
+    saved = {k: getattr(module, k) for k in patched}
+    for k, v in patched.items():
+        setattr(module, k, v)
+    try:
+        if module is train_pretrain:
+            fn = lambda a: module.main(a, return_state=True)  # noqa: E731
+        else:
+            fn = module.main
+        out, launches, wall = run_counted(fn, argv, dp_expected(name, accum),
+                                          name)
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+    if module is train_pretrain:
+        out, state = out
+        seen["params"] = host(state.params)
+    return {"report": out, "launches": launches, "wall_s": wall, **seen}
+
+
+def dp_rank_main(rank, world, port, outdir):
+    """One rank of the data-parallel phase (``chip_smoke.py --dp-rank``):
+    torchrun's environment, a gloo group (NCCL refuses two ranks on one
+    card; gloo all_reduces and broadcasts CUDA tensors), every DP_RUNS
+    path through its CLI with --dp on cuda:0; results to outdir."""
+    rank, world = int(rank), int(world)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    try:
+        for name, (_, _, accum) in DP_RUNS.items():
+            torch.save(dp_run(name, accum, dp=True),
+                       os.path.join(outdir, f"{name}.rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_dp_ranks(outdir):
+    """DP_WORLD ranks of this script, started together; each rank's log
+    under outdir. Raises with a rank's log if one fails or outlives
+    DP_TIMEOUT_S; no rank outlives this call."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w")
+            for r in range(DP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         str(DP_WORLD), str(port), outdir], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(outdir, f"rank{r}.log")) as fh:
+                tail = fh.read()[-4000:]
+            raise AssertionError(f"dp rank {r} exited {p.returncode}:\n"
+                                 f"{tail}")
+    return [{name: torch.load(os.path.join(outdir, f"{name}.rank{r}.pt"),
+                              weights_only=False) for name in DP_RUNS}
+            for r in range(DP_WORLD)]
+
+
+def accuracy_tolerances(name):
+    """Per eval key, one test image of its set in percent: the ranks' eval
+    batches hold half the rows of the one-process eval's, so cuBLAS may
+    tile its bf16 GEMMs otherwise and sum a logit in another order, which
+    can flip the argmax of a near tie."""
+    module, argv, _ = DP_RUNS[name]
+    cfg = config_from_args(build_parser().parse_args(argv))
+    train, test = datasets(cfg)
+    if module is train_pretrain:
+        return {"final_test_acc": 100.0 / len(test)}
+    order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
+    if module is train_forget:
+        sets = [train_forget.single_step_data(cfg, train, test, order)]
+    else:
+        sets = [split_task_data(cfg, train, test, order, t,
+                                cfg.data.seed + t)[0]
+                for t in range(cfg.forget.num_tasks)]
+    tol_f = max(100.0 / len(d.test_forget) for d in sets)
+    tol_r = max(100.0 / len(d.test_remain) for d in sets)
+    return {"Test forget Accuracy": tol_f, "Test remain Accuracy": tol_r,
+            "H_mean": 2 * (tol_f + tol_r)}
+
+
+def dp_phase(card):
+    """Every DP_RUNS path at the flagship width on two gloo ranks sharing
+    the card, against one process with --grad_accum 2x: each rank's K1 and
+    K2 counts as derived, one set of parameters on both ranks to the bit,
+    the final parameters within DP_RTOL / DP_ATOL of the one process's,
+    every eval within accuracy_tolerances. Walls and images/s are of two
+    ranks sharing one card: they measure the path, not scaling."""
+    refs = {name: dp_run(name, DP_WORLD * accum, dp=False)
+            for name, (_, _, accum) in DP_RUNS.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ranks = spawn_dp_ranks(out)
+    ranks_wall = time.perf_counter() - t0
+    print(f"dp phase: {DP_WORLD} ranks ran every path in {ranks_wall:.1f} s "
+          f"(start-up included)", flush=True)
+    launches = {}
+    for name, (_, argv, accum) in DP_RUNS.items():
+        want = dp_expected(name, accum)
+        got = [r[name] for r in ranks]
+        for r, run in enumerate(got):
+            if run["launches"] != want:
+                raise AssertionError(f"{name} rank {r} launched "
+                                     f"{run['launches']}; its rows imply "
+                                     f"{want}")
+        same = [k for k, v in got[0]["params"].items()
+                if not torch.equal(v, got[1]["params"][k])]
+        if same:
+            raise AssertionError(f"{name}: the ranks' parameters differ at "
+                                 f"{same[:5]}")
+        ref, diffs = refs[name], {}
+        for k, want_t in ref["params"].items():
+            have = got[0]["params"][k]
+            diffs[k] = float((have - want_t).abs().max())
+            if not torch.allclose(have, want_t, rtol=DP_RTOL, atol=DP_ATOL):
+                raise AssertionError(f"{name}: {k} of two ranks differs from "
+                                     f"one process by {diffs[k]}")
+        tols = accuracy_tolerances(name)
+        pairs = [(h, w) for hs, ws in zip(got[0]["history"], ref["history"])
+                 for h, w in zip(hs, ws)]
+        if len(got[0]["history"]) != len(ref["history"]) or any(
+                len(hs) != len(ws) for hs, ws in zip(got[0]["history"],
+                                                     ref["history"])):
+            raise AssertionError(f"{name}: eval histories of other lengths")
+        if not pairs:
+            pairs = [(got[0]["report"], ref["report"])]
+        worst = {k: max(abs(h[k] - w[k]) for h, w in pairs) for k in tols}
+        if any(worst[k] > tols[k] + 1e-9 for k in tols):
+            raise AssertionError(f"{name}: evals differ by {worst} (at most "
+                                 f"{tols})")
+        launches[name] = got[0]["launches"]
+        print("dp " + json.dumps({
+            "path": name, "ranks": DP_WORLD, "card": card,
+            "note": "two gloo ranks sharing one card: walls measure the "
+                    "path, not scaling",
+            "rank_grad_accum": accum, "one_process_grad_accum":
+                DP_WORLD * accum,
+            "rank_wall_s": [r["wall_s"] for r in got],
+            "one_process_wall_s": ref["wall_s"],
+            "max_abs_param_diff": max(diffs.values()),
+            "worst_eval_diff": worst, "launches_per_rank": want,
+            "report_rank0": got[0]["report"] if not isinstance(
+                got[0]["report"], list) else None}), flush=True)
+    return launches
+
+
 def eval_phase(card):
     """The eval and serving surface (slice 8): the base it evaluates,
     test_model (bf16 with pair verification, int8), the int8 checks,
@@ -2191,8 +2685,11 @@ def main():
     profiler_phase([("ViT-B/16 forget step", *imagenet_bench(card), 2)],
                    card)
     pre_launches, pre_lora_launches = pretrain_phase()
-    profiler_phase([("pretrain step bs 480", *pretrain_bench(card), 2)],
-                   card)
+    pre_run, pre_ms = pretrain_bench(card)
+    profiler_phase([("pretrain step bs 480", pre_run, pre_ms, 2)], card)
+    del pre_run
+    folder_launches = native_phase(card, pre_ms)
+    dp_launches = dp_phase(card)
     baseline_launches = baseline_phase()
     baseline_bench(card)
     eval_launches = eval_phase(card)
@@ -2209,6 +2706,8 @@ def main():
             "train_pretrain": pre_launches[name],
             "train_pretrain_lora_remat": pre_lora_launches[name],
             "baselines": baseline_launches[name],
+            "train_pretrain_folder": folder_launches[name],
+            **{path: counts[name] for path, counts in dp_launches.items()},
             **{path: counts[name] for path, counts in
                eval_launches.items()}}
 
@@ -2221,4 +2720,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(*sys.argv[2:])  # one rank of dp_phase
+    else:
+        main()

@@ -41,6 +41,7 @@ from gslora_tpu_torch.losses.classification import cross_entropy
 from gslora_tpu_torch.losses.distillation import lwf_kd_loss
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.vit import ViT, vit_apply
+from gslora_tpu_torch.parallel.mesh import check_baseline_placement
 
 
 def der_loss(emb_s, emb_t, labels=None) -> torch.Tensor:
@@ -169,6 +170,7 @@ def run_distill_task(cfg: RunConfig, params, teacher_params,
     hp = {"T": b.lwf_T, "lambda_kd": b.lwf_lambda_kd,
           "lambda_remain": b.lwf_lambda_remain, "lambda_der": b.der_lambda,
           "lambda_der_plus": b.der_plus_lambda, "lambda_fdr": b.fdr_lambda}
+    check_baseline_placement(cfg.mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()

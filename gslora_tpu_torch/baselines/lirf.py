@@ -51,6 +51,7 @@ from gslora_tpu_torch.losses.distillation import attention_transfer_loss, \
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.heads import apply_head
 from gslora_tpu_torch.models.vit import _Node, vit_embed
+from gslora_tpu_torch.parallel.mesh import check_baseline_placement
 
 
 @dataclass
@@ -201,6 +202,7 @@ def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     in (cli/train_forget_cl does). ``carry=None`` builds them from ``params``.
     The optimizer state starts anew each task either way ("create again to
     reinitialize optimizer", cl.py:811-815)."""
+    check_baseline_placement(cfg.mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()

@@ -41,6 +41,7 @@ from gslora_tpu_torch.losses.regularization import quadratic_penalty
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.convert import flatten_tree, unflatten_tree
 from gslora_tpu_torch.models.vit import ViT, vit_apply
+from gslora_tpu_torch.parallel.mesh import check_baseline_placement
 from gslora_tpu_torch.utils.trees import tree_map
 
 
@@ -150,6 +151,7 @@ def run_regularization_task(cfg: RunConfig, params, train_loader_factory,
     ``train_loader_factory()`` gives the epoch's batches (relabeled forget,
     remain for Retrain, or the Replay concat). Returns the trained tree
     (``params``) and the accuracies."""
+    check_baseline_placement(cfg.mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()

@@ -35,6 +35,7 @@ from gslora_tpu_torch.losses.distillation import kd_kl_loss
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.convert import flatten_tree
 from gslora_tpu_torch.models.vit import ViT, vit_apply
+from gslora_tpu_torch.parallel.mesh import check_baseline_placement
 from gslora_tpu_torch.utils.trees import tree_map
 
 
@@ -136,6 +137,7 @@ def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     give the single-task set-up: teacher = the entry params, the first
     SWA update copies."""
     b = cfg.baseline
+    check_baseline_placement(cfg.mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()

@@ -15,8 +15,13 @@ ValueError, as it has no single-step path in the reference either.
 Runs on the GPU unless ``--device cpu`` is given. ``-r`` resumes from a
 port checkpoint or a reference-named ``.pth`` (cli/common.build_params);
 ``--profile_dir`` writes a profiler trace of the run there. ``--dp``
-raises (not ported yet); ``--gemm_impl int8`` raises the model's
-ValueError at the first training step, as in the JAX CLI.
+trains GS-LoRA (and ``--one_stage``) data-parallel over torch.distributed
+ranks, one per card:
+  torchrun --nproc_per_node N -m gslora_tpu_torch.cli.train_forget --dp ...
+each rank loading its rows of every global batch (engine/loop); a
+baseline under more than one rank raises NotImplementedError.
+``--gemm_impl int8`` raises the model's ValueError at the first training
+step, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.loop import ForgetData, _dtype, \
     resolve_device, run_forget_training
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
+from gslora_tpu_torch.parallel.mesh import check_baseline, make_mesh
 from gslora_tpu_torch.utils.params import param_summary
 
 # The methods the reference's single-step open script runs besides
@@ -170,8 +176,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     baseline = cfg.baseline.method != "gs_lora" and not args.one_stage
-    if args.dp:
-        raise NotImplementedError("--dp (data parallel) is not ported yet")
+    mesh = None
+    if baseline:
+        # before any process group; the runners check the mesh flags
+        check_baseline(cfg.baseline.method, args.dp)
+    else:
+        mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, device=str(mesh.device))
+    main_rank = mesh is None or mesh.is_main
     resolve_device(cfg.device)  # no card when one is asked for: fail first
     # a baseline builds its own model (Retrain skips the -r resume)
     params = None if baseline else build_params(cfg)
@@ -181,7 +194,8 @@ def main(argv=None):
 
     data = single_step_data(cfg, train_ds, test_ds, order)
 
-    logger = MetricLogger(use_wandb=cfg.log_wandb, outdir=cfg.outdir,
+    logger = MetricLogger(use_wandb=cfg.log_wandb and main_rank,
+                          outdir=cfg.outdir if main_rank else None,
                           config=json.loads(cfg.to_json()))
     # method dispatch as in the reference script: one_stage first
     # (train_own_forget_open.py:785), then the reg family
@@ -189,17 +203,18 @@ def main(argv=None):
         report = run_single_step_baseline(cfg, train_ds, data, order,
                                           logger=logger)
     else:
-        print("params:", json.dumps(param_summary(params)))
+        if main_rank:
+            print("params:", json.dumps(param_summary(params)))
+        run = partial(run_forget_training, cfg, params, data, logger=logger,
+                      workdir=cfg.outdir, mesh=mesh)
         if args.profile_dir:
             # a torch.profiler trace around the whole run (every step and
             # eval)
             from gslora_tpu_torch.utils.profiling import trace
             with trace(args.profile_dir):
-                res = run_forget_training(cfg, params, data, logger=logger,
-                                          workdir=cfg.outdir)
+                res = run()
         else:
-            res = run_forget_training(cfg, params, data, logger=logger,
-                                      workdir=cfg.outdir)
+            res = run()
         report = {
             "forget_acc_before": res.forget_acc_before,
             "forget_acc": res.forget_acc, "remain_acc": res.remain_acc,
@@ -209,11 +224,14 @@ def main(argv=None):
     # run name assembled from hyperparameters at exit
     # (train_own_forget.py:844-877)
     logger.set_run_name(make_run_name(cfg))
-    print(json.dumps(report, indent=2))
-    if cfg.outdir:
-        with open(os.path.join(cfg.outdir, "report.json"), "w") as fh:
-            json.dump(report, fh, indent=2)
+    if main_rank:
+        print(json.dumps(report, indent=2))
+        if cfg.outdir:
+            with open(os.path.join(cfg.outdir, "report.json"), "w") as fh:
+                json.dump(report, fh, indent=2)
     logger.finish()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are complete for every rank
     return report
 
 

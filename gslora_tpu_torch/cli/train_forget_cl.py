@@ -29,9 +29,13 @@ old-class eval): ``--retrain``, ``--replay``, ``--l2``, ``--ewc``,
       --open_cls_num 10 --lora_rank 0 -r <pretrained.pth> [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; ``-r`` resumes as in
-cli/common.build_params. ``--dp`` raises (not ported yet); ``--gemm_impl
-int8`` raises the model's ValueError at the first training step, as in
-the JAX CLI (int8 is an eval and serving path).
+cli/common.build_params. ``--dp`` runs GS-LoRA(++) and ``--one_stage``
+data-parallel over torch.distributed ranks, one per card (``torchrun
+--nproc_per_node N -m gslora_tpu_torch.cli.train_forget_cl --dp ...``;
+engine/continual); a baseline under more than one rank raises
+NotImplementedError. ``--gemm_impl int8`` raises the model's ValueError
+at the first training step, as in the JAX CLI (int8 is an eval and
+serving path).
 ``--profile_dir`` is accepted and ignored, as by the JAX CLI.
 """
 from __future__ import annotations
@@ -67,6 +71,8 @@ from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
 from gslora_tpu_torch.models.vit_imagenet import resume_head
+from gslora_tpu_torch.parallel.mesh import check_baseline, make_mesh
+from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 from gslora_tpu_torch.utils.params import param_summary
 
 
@@ -233,9 +239,17 @@ def _put_low(blocks, low, half):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.dp:
-        raise NotImplementedError("--dp (data parallel, ROADMAP Slice 7) is "
-                                  "not ported yet")
+    gs_lora = cfg.baseline.method == "gs_lora" or args.one_stage
+    mesh = None
+    if gs_lora:
+        # the parallel flags are checked before any process group is made
+        mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp)
+    else:
+        # the baseline runners check the mesh flags themselves
+        check_baseline(cfg.baseline.method, args.dp)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, device=str(mesh.device))
+    main_rank = mesh is None or mesh.is_main
     device = resolve_device(cfg.device)  # no card when asked for: fail first
     train_ds, test_ds = build_datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
@@ -248,8 +262,10 @@ def main(argv=None):
         params, original_head = prepare_imagenet_head(cfg, params, train_ds)
         if args.imagenet_miss_root and original_head is not None:
             miss_ds = build_missing_dataset(cfg, args.imagenet_miss_root)
-    print("params:", json.dumps(param_summary(params)))
-    logger = MetricLogger(use_wandb=cfg.log_wandb, outdir=cfg.outdir,
+    if main_rank:
+        print("params:", json.dumps(param_summary(params)))
+    logger = MetricLogger(use_wandb=cfg.log_wandb and main_rank,
+                          outdir=cfg.outdir if main_rank else None,
                           config=json.loads(cfg.to_json()))
 
     # one eval step for both missing-class evals, padded batches on the
@@ -263,17 +279,20 @@ def main(argv=None):
             return None
         acc = eval_accuracy(
             miss_ev, detached(resume_head(p, original_head), device),
-            pipeline.BatchLoader(miss_ds, cfg.data.batch_size,
-                                 shuffle=False, prefetch=0,
-                                 mask_padding=device.type != "cpu"))
-        print(f"missing-class acc {tag}: {acc:.2f}%")
+            process_sharded_loader(mesh, miss_ds, cfg.data.batch_size,
+                                   shuffle=False, prefetch=0,
+                                   mask_padding=device.type != "cpu"),
+            mesh=mesh)
+        if main_rank:
+            print(f"missing-class acc {tag}: {acc:.2f}%")
         logger.log({f"imagenet-val-miss_{tag}": acc})
         return acc
 
     missing_acc("before", params)
-    if cfg.baseline.method == "gs_lora" or args.one_stage:
+    if gs_lora:
         out = run_continual_forgetting(cfg, params, train_ds, test_ds, order,
-                                       logger=logger, workdir=cfg.outdir)
+                                       logger=logger, workdir=cfg.outdir,
+                                       mesh=mesh)
         final_params = out.final_params
         report = [{
             "task": t.task, "forget_acc_before": t.result.forget_acc_before,
@@ -289,13 +308,16 @@ def main(argv=None):
             cfg, params, train_ds, test_ds, order, logger, cfg.outdir)
     missing_acc("after", final_params)
 
-    print(json.dumps(report, indent=2))
-    if cfg.outdir:
-        os.makedirs(cfg.outdir, exist_ok=True)
-        with open(os.path.join(cfg.outdir, "report.json"), "w") as fh:
-            json.dump(report, fh, indent=2)
+    if main_rank:
+        print(json.dumps(report, indent=2))
+        if cfg.outdir:
+            os.makedirs(cfg.outdir, exist_ok=True)
+            with open(os.path.join(cfg.outdir, "report.json"), "w") as fh:
+                json.dump(report, fh, indent=2)
     logger.set_run_name(make_run_name(cfg, cl=True))
     logger.finish()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are complete for every rank
     return report
 
 

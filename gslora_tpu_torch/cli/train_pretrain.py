@@ -11,10 +11,20 @@ with ``--lora_rank > 0`` and ``-r`` (a base checkpoint) only the LoRA
 trains (train_own.py:385-386). Every 20 batches it evaluates the test
 split, saves the best-accuracy checkpoint under ``--outdir`` and runs the
 ``--ver_targets`` pair verification; then a final eval and
-``report.json``. ``--dp`` raises (not ported yet).
+``report.json``.
+
+``--dp`` trains data-parallel over torch.distributed ranks, one per card
+(the reference's 8-GPU ``nn.DataParallel`` recipe, train_own.py:403-406):
+  torchrun --nproc_per_node N -m gslora_tpu_torch.cli.train_pretrain \
+      --dp -b 480 ...
+Each rank loads its rows of every global batch of ``-b``; the loss and its
+gradient are the global batch's (engine/pretrain._accumulated); rank 0
+alone logs, verifies and writes checkpoints. Under one process ``--dp``
+changes nothing, as in JAX on one device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -26,7 +36,7 @@ import torch
 from gslora_tpu_torch.checkpoints.io import BestHCheckpointer
 from gslora_tpu_torch.cli.common import build_datasets, build_params
 from gslora_tpu_torch.config import build_parser, config_from_args
-from gslora_tpu_torch.data.pipeline import BatchLoader, DevicePrefetcher
+from gslora_tpu_torch.data.pipeline import DevicePrefetcher
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
 from gslora_tpu_torch.engine.pretrain import PretrainState, is_lora, \
@@ -36,6 +46,8 @@ from gslora_tpu_torch.engine.state import make_optimizer
 from gslora_tpu_torch.metrics.logging import MetricLogger, buffer_val, \
     gen_roc_plot
 from gslora_tpu_torch.models.vit import ViT, vit_apply
+from gslora_tpu_torch.parallel.mesh import check_batch_divisible, make_mesh
+from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 from gslora_tpu_torch.utils.params import param_summary
 
 VER_FREQ = 20  # train_own.py:483-544: eval + checkpoint every 20 batches
@@ -46,48 +58,61 @@ def main(argv=None, return_state: bool = False):
     ``PretrainState`` with ``return_state``)."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.dp:
-        raise NotImplementedError("--dp (data parallel) is not ported yet")
+    # the parallel flags are checked (JAX placement()) before any process
+    # group is made
+    mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, device=str(mesh.device))
+        check_batch_divisible(mesh, cfg.data.batch_size)
+    main_rank = mesh is None or mesh.is_main
+    world = 1 if mesh is None else mesh.world
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
 
     train_ds, test_ds = build_datasets(cfg)
     params = build_params(cfg)
-    print("params:", json.dumps(param_summary(params)))
-    logger = MetricLogger(use_wandb=cfg.log_wandb, outdir=cfg.outdir,
+    if main_rank:
+        print("params:", json.dumps(param_summary(params)))
+    logger = MetricLogger(use_wandb=cfg.log_wandb and main_rank,
+                          outdir=cfg.outdir if main_rank else None,
                           config=json.loads(cfg.to_json()))
 
     opt = make_optimizer(cfg.optim)
     # LoRA-only pretraining when a rank is set AND a base checkpoint resumed
     lora_only = cfg.lora.rank > 0 and bool(cfg.resume)
-    state = PretrainState.create(ViT(params, cfg.model, cfg.lora).to(device),
-                                 opt, trains=is_lora if lora_only else None)
+    vit = ViT(params, cfg.model, cfg.lora).to(device)
+    if mesh is not None:
+        mesh.broadcast_(list(vit.parameters()))  # one set of weights
+    state = PretrainState.create(vit, opt,
+                                 trains=is_lora if lora_only else None)
     step = make_pretrain_step(cfg.model, cfg.lora, opt, compute_dtype=cdt,
-                              grad_accum=cfg.optim.grad_accum)
+                              grad_accum=cfg.optim.grad_accum, mesh=mesh)
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 
-    # static batch shapes on the card (label -1 sentinels), as the JAX CLI
-    # pads off the CPU
-    pad = device.type != "cpu"
+    # static batch shapes on the card and under a mesh (label -1
+    # sentinels), as the JAX CLI pads off the CPU; each rank loads its rows
+    pad = mesh is not None or device.type != "cpu"
     u8 = cfg.data.uint8_transfer
-    loader = BatchLoader(train_ds, cfg.data.batch_size, seed=cfg.data.seed,
-                         mask_padding=pad, uint8_transfer=u8)
+    loader = process_sharded_loader(mesh, train_ds, cfg.data.batch_size,
+                                    seed=cfg.data.seed, mask_padding=pad,
+                                    uint8_transfer=u8)
 
     def test_batches():
-        return BatchLoader(test_ds,
-                           cfg.data.batch_size * cfg.data.test_batch_scale,
-                           shuffle=False, prefetch=0, mask_padding=pad,
-                           uint8_transfer=u8)
+        return process_sharded_loader(
+            mesh, test_ds, cfg.data.batch_size * cfg.data.test_batch_scale,
+            shuffle=False, prefetch=0, mask_padding=pad, uint8_transfer=u8)
 
-    ckpt = BestHCheckpointer(cfg.outdir, name=cfg.net, async_save=pad) \
-        if cfg.outdir else None
+    ckpt = BestHCheckpointer(cfg.outdir, name=cfg.net,
+                             async_save=device.type != "cpu") \
+        if cfg.outdir and main_rank else None
     if ckpt:
         ckpt.save_config(cfg.to_json())
 
     # in-training LFW-style pair verification (train_own.py evaluates
     # perform_val + buffer_val per VER_FREQ window, util/utils.py:167-232)
     ver_sets = []
-    targets = [t for t in args.ver_targets.split(",") if t]
+    # rank 0 alone verifies (every rank holds the same parameters)
+    targets = [t for t in args.ver_targets.split(",") if t and main_rank]
     if targets:
         from gslora_tpu_torch.data.recordio import get_val_data
         ver_sets = get_val_data(cfg.data.data_root, targets,
@@ -117,42 +142,54 @@ def main(argv=None, return_state: bool = False):
             buffer_val(logger, name, vacc, vstd, xnorm, thr,
                        gen_roc_plot(fpr, tpr), batch=batch)
 
-    generator = torch.Generator(device=device).manual_seed(cfg.data.seed)
+    # each rank draws its rows' dropout masks from a stream of its own
+    rank = 0 if mesh is None else mesh.rank
+    generator = torch.Generator(device=device).manual_seed(
+        cfg.data.seed + 7919 * rank)
     best_acc = float("-inf")
     batch = 0
     for epoch in range(cfg.num_epoch):
         lr = timm_cosine_lr(cfg.optim, epoch)
         ep_t0, ep_images = time.perf_counter(), 0
-        for x, y in DevicePrefetcher(iter(loader), device, depth=2):
-            state, metrics = step(state, x, y, lr, generator)
-            if (batch + 1) % cfg.disp_freq == 0:
-                logger.log({k: float(v) for k, v in metrics.items()},
-                           step=batch)
-            if (batch + 1) % VER_FREQ == 0:
-                acc = eval_accuracy(eval_step, state.params, test_batches())
-                logger.log({"Test Accuracy": acc}, step=batch)
-                run_verification(batch)
-                if acc > best_acc and ckpt:
-                    best_acc = acc
-                    ckpt.maybe_save(acc, state.params, epoch, batch)
-            batch += 1
-            ep_images += int(x.shape[0])
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        # a host span per epoch: utils/profiling.device_summary's window
+        with torch.profiler.record_function("epoch"):
+            for x, y in DevicePrefetcher(iter(loader), device, depth=2):
+                state, metrics = step(state, x, y, lr, generator)
+                if (batch + 1) % cfg.disp_freq == 0:
+                    logger.log({k: float(v) for k, v in metrics.items()},
+                               step=batch)
+                if (batch + 1) % VER_FREQ == 0:
+                    acc = eval_accuracy(eval_step, state.params,
+                                        test_batches(), mesh=mesh)
+                    logger.log({"Test Accuracy": acc}, step=batch)
+                    run_verification(batch)
+                    # the best accuracy is tracked where a checkpoint is kept
+                    # (on every rank alike: rank 0 alone writes it)
+                    if acc > best_acc and cfg.outdir:
+                        best_acc = acc
+                        if ckpt:
+                            ckpt.maybe_save(acc, state.params, epoch, batch)
+                batch += 1
+                ep_images += int(x.shape[0]) * world
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         dt = time.perf_counter() - ep_t0
         if dt > 0 and ep_images:
             logger.log({"images_per_sec": ep_images / dt, "epoch": epoch,
                         "lr": lr}, step=batch)
 
-    acc = eval_accuracy(eval_step, state.params, test_batches())
+    acc = eval_accuracy(eval_step, state.params, test_batches(), mesh=mesh)
     if ckpt:
         ckpt.wait()  # drain an in-flight async save
     report = {"final_test_acc": acc, "best_test_acc": max(best_acc, acc)}
-    print(json.dumps(report, indent=2))
-    if cfg.outdir:
+    if main_rank:
+        print(json.dumps(report, indent=2))
+    if cfg.outdir and main_rank:
         with open(os.path.join(cfg.outdir, "report.json"), "w") as fh:
             json.dump(report, fh, indent=2)
     logger.finish()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are complete for every rank
     return (report, state) if return_state else report
 
 

@@ -296,9 +296,11 @@ class DataConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh layout of the JAX package (data / model axes, tp, fsdp,
-    pp, sp, multi-slice; gslora_tpu/config.py describes each). Kept so the
-    same flags parse; the port runs on one device, and its parallel modes
-    (DDP, FSDP2, DTensor, pipelining) are still to port."""
+    pp, sp, multi-slice; gslora_tpu/config.py describes each). The port
+    runs the data axis (``--dp``: torch.distributed ranks, one per card,
+    parallel/mesh); tp, fsdp, sp, pp and multi-slice are still to port
+    (to DTensor, FSDP2, torch.distributed.pipelining), and their flags
+    raise rather than pass silently (parallel/mesh.check_placement)."""
 
     data: int = -1  # -1 => all devices (after model/slices)
     model: int = 1

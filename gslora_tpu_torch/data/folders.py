@@ -1,8 +1,10 @@
 """Host-side dataset ingestion (replaces torchvision ImageFolder +
 mxnet recordio paths, image_iter.py).
 
-The port's copy of ``gslora_tpu/data/folders.py``, decoding with PIL
-(the JAX package's optional native batch decoder is not carried over).
+The port's copy of ``gslora_tpu/data/folders.py``: images decode with
+PIL, and :meth:`ImageFolderDataset.decode_batch` decodes a batch of
+already-sized JPEG/PNG files on the C++ thread pool of
+gslora_tpu_torch/native (``csrc/imagedec.cpp``) first.
 
 Datasets here are lightweight index structures: ``samples`` (path or array,
 label) pairs with ``targets``/``classes`` metadata — decode happens at batch
@@ -68,6 +70,28 @@ class ImageFolderDataset(Dataset):
                     self.samples.append((os.path.join(cdir, fn),
                                          self.class_to_idx[c]))
         self.targets = [label for _, label in self.samples]
+
+    def decode_batch(self, idxs: Sequence[int]) -> np.ndarray:
+        """Batched decode on the native C++ thread pool (libjpeg/libpng,
+        the codecs PIL wraps: pixels equal PIL's to the bit for images
+        already at ``image_size``). Images the native decoder declines
+        (a resize is needed, another codec) are decoded one by one with
+        PIL, as is the whole batch on the ImageNet and raw-uint8 paths and
+        where the decoder is unavailable (native.decode_image_batch says
+        why, once)."""
+        idxs = list(idxs)
+        if not self.imagenet_eval and not self.raw_uint8:
+            from gslora_tpu_torch.native import (decode_image_batch,
+                                                 default_threads)
+            res = decode_image_batch([self.samples[i][0] for i in idxs],
+                                     self.image_size, self.image_size,
+                                     threads=default_threads())
+            if res is not None:
+                out, ok = res
+                for j in np.nonzero(~ok)[0]:
+                    out[j] = self.decode(idxs[int(j)])
+                return out
+        return np.stack([self.decode(i) for i in idxs])
 
     def decode(self, idx: int) -> np.ndarray:
         from PIL import Image

@@ -2,9 +2,10 @@
 verification-pair files — WITHOUT mxnet (the reference's only native-code
 dependency besides torch, image_iter.py:18-86 / util/utils.py:38-75).
 
-The port's own copy of ``gslora_tpu/data/recordio.py``: the pure-Python
-reader only (the JAX package's threaded C++ pread path is host IO and not
-ported); PIL is imported only where an image is decoded.
+The port's own copy of ``gslora_tpu/data/recordio.py``: a pure-Python
+reader, and :meth:`FaceRecordDataset.decode_batch` reading a batch's
+records through the threaded C++ pread reader (gslora_tpu_torch/native,
+``csrc/recordio.cpp``); PIL is imported only where an image is decoded.
 
 RecordIO layout (mxnet C++ recordio.h): each record is
   uint32 magic (0xced7230a) | uint32 lrecord | payload | pad to 4 bytes
@@ -80,7 +81,8 @@ class FaceRecordDataset:
                  rand_mirror: bool = True, seed: int = 0):
         import threading
         self.rec_path = rec_path
-        self.idx = read_idx_file(idx_path or rec_path[:-4] + ".idx")
+        self.idx_path = idx_path or rec_path[:-4] + ".idx"
+        self.idx = read_idx_file(self.idx_path)
         self.rand_mirror = rand_mirror
         self._rng = np.random.RandomState(seed)
         # decode() runs inside BatchLoader prefetch threads, and the
@@ -135,10 +137,25 @@ class FaceRecordDataset:
                 arr = arr[:, ::-1]
         return arr.transpose(2, 0, 1).copy()
 
+    def native_reader(self):
+        """The threaded C++ reader of this .rec (built and opened at first
+        use); an open error raises."""
+        if getattr(self, "_native_reader", None) is None:
+            from gslora_tpu_torch.native import (NativeRecordReader,
+                                                 default_threads)
+            self._native_reader = NativeRecordReader(
+                self.rec_path, self.idx_path, n_threads=default_threads())
+        return self._native_reader
+
     def decode_batch(self, idxs) -> np.ndarray:
-        """Batched decode: one record at a time, mirror draws in
-        per-sample order."""
-        return np.stack([self.decode(i) for i in idxs])
+        """Batched decode: the records' bytes come from the C++ pread
+        thread pool in one call (byte-identical to the Python reader), PIL
+        decodes them. Mirror draws stay in per-sample order, so the batch
+        equals the one ``decode`` gives image by image."""
+        reader = self.native_reader()
+        pos = [reader._key_to_pos[self.samples[i][0]] for i in idxs]
+        _, bodies = reader.read_batch(pos)
+        return np.stack([self._decode_body(b) for b in bodies])
 
 
 def write_recordio(path: str, records: List[Tuple[np.ndarray, bytes]],

@@ -6,7 +6,10 @@ Task boundary: the reference saves the eval-mode (loralib-MERGED)
 state_dict at task end and re-loads + LoRA-reinits at the next task start
 (:523-536, :1696-1714). Here that is the fold ``base <- merged(base,
 lora); lora <- reinit`` with no file round-trip; task snapshots are still
-written. The parameters live on ``cfg.device`` for the whole run.
+written. The parameters live on ``cfg.device`` for the whole run. Under a
+data mesh every rank runs the task loop on its rows of each batch; the
+fold draws from one identically seeded generator on every rank, so the
+ranks keep one set of parameters, and rank 0 alone writes the snapshots.
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ import torch
 from gslora_tpu_torch.checkpoints.io import save_task_checkpoint
 from gslora_tpu_torch.config import RunConfig
 from gslora_tpu_torch.data.folders import Dataset
-from gslora_tpu_torch.data.pipeline import BatchLoader
 from gslora_tpu_torch.data.splits import (few_shot_subset, open_task_windows,
                                           ratio_subset,
                                           split_by_class_window,
@@ -30,6 +32,7 @@ from gslora_tpu_torch.engine.loop import ForgetData, ForgetResult, _dtype, \
 from gslora_tpu_torch.engine.prototypes import calculate_prototypes
 from gslora_tpu_torch.lora.core import reinit_lora
 from gslora_tpu_torch.metrics.logging import MetricLogger
+from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 
 PROTO_BATCH = 500  # per-task prototype batch (cl.py:634-644)
 
@@ -103,8 +106,8 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
                              test_ds: Dataset, order_list: List[int],
                              logger: Optional[MetricLogger] = None,
                              workdir: Optional[str] = None,
-                             boundary: str = "merge_reinit"
-                             ) -> ContinualResult:
+                             boundary: str = "merge_reinit",
+                             mesh=None) -> ContinualResult:
     """GS-LoRA(++) over cfg.forget.num_tasks tasks on ``cfg.device``.
 
     ``boundary``: "merge_reinit" (reference semantics: every task after
@@ -112,7 +115,11 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
     cl.py:523-536; the reinit draws from one CPU generator seeded with the
     run's seed) or "keep" (the adapters carry over untouched: an A/B knob
     that tells old-class resurfacing caused by the fold from that caused
-    by a task's training)."""
+    by a task's training).
+
+    ``mesh``: an optional parallel/mesh.DataMesh, passed to every task's
+    run_forget_training as JAX passes its mesh (continual.py:98-176); the
+    old-class evals and the prototypes sum their counts over the ranks."""
     if boundary not in ("merge_reinit", "keep"):
         raise ValueError(f"boundary must be merge_reinit|keep, "
                          f"got {boundary!r}")
@@ -122,15 +129,17 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
     cdt = _dtype(cfg)
     eval_step = make_eval_step(model, lora, compute_dtype=cdt)
     test_bs = cfg.data.batch_size * cfg.data.test_batch_scale
-    pad = device.type != "cpu"  # static batch shapes on the card
+    # static batch shapes on the card and under a mesh
+    pad = mesh is not None or device.type != "cpu"
     u8 = cfg.data.uint8_transfer
     out = ContinualResult()
     generator = torch.Generator().manual_seed(cfg.data.seed)
     params = detached(params, device)
 
     def loader(ds, bs):
-        return BatchLoader(ds, bs, shuffle=False, prefetch=0,
-                           mask_padding=pad, uint8_transfer=u8)
+        return process_sharded_loader(mesh, ds, bs, shuffle=False,
+                                      prefetch=0, mask_padding=pad,
+                                      uint8_transfer=u8)
 
     for task in range(f.num_tasks):
         if task > 0 and boundary == "merge_reinit":
@@ -146,7 +155,8 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
                                          task, cfg.data.seed + task)
 
         def old_eval(p):
-            return eval_accuracy(eval_step, p, loader(test_old, test_bs))
+            return eval_accuracy(eval_step, p, loader(test_old, test_bs),
+                                 mesh=mesh)
 
         old_acc_before = None
         if test_old is not None and len(test_old) > 0:
@@ -162,7 +172,8 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
             pb = list(loader(data.train_forget, PROTO_BATCH)) + \
                 list(loader(data.train_remain, PROTO_BATCH))
             protos = calculate_prototypes(params, pb, model, lora,
-                                          model.num_class, compute_dtype=cdt)
+                                          model.num_class, compute_dtype=cdt,
+                                          mesh=mesh)
 
         beta = f.cl_beta_list[task] if task < len(f.cl_beta_list) else f.beta
         w_pro_f = f.cl_prof_list[task] if task < len(f.cl_prof_list) else \
@@ -174,14 +185,15 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
             protos=protos, beta=beta, pro_f_weight=w_pro_f,
             seed_offset=task * 1000,
             h_eps=1e-8,  # CL H-mean guard (engine_cl.py:279)
-            continual=True)  # engine_cl: remain drives, no alpha gate
+            continual=True,  # engine_cl: remain drives, no alpha gate
+            mesh=mesh)
         params = detached(res.state.params)
 
         old_acc = None
         if test_old is not None and len(test_old) > 0:
             old_acc = old_eval(params)
             logger.log({f"Task {task} old Accuracy": old_acc})
-        if workdir:
+        if workdir and (mesh is None or mesh.is_main):
             with torch.no_grad():
                 merged = merged_params(params["base"], params["lora"],
                                        lora.scaling)

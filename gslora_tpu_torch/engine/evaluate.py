@@ -36,12 +36,17 @@ def make_eval_step(model: ViTConfig, lora: LoraConfig,
     return eval_step
 
 
-def eval_accuracy(eval_step, params, batches: Iterable[Tuple]) -> float:
+def eval_accuracy(eval_step, params, batches: Iterable[Tuple],
+                  mesh=None) -> float:
     """Top-1 accuracy in percent over an iterable of (x, y) numpy batches
     (reference engine.eval_data semantics), run on the parameters' device.
     Counts stay on the device until the end; label -1 (pad sentinel) never
     equals an argmax, so the correct count needs no mask and the total
-    counts valid labels only."""
+    counts valid labels only.
+
+    Under a data mesh each rank passes its rows of every batch
+    (parallel/multihost.process_sharded_loader) and the integer counts are
+    summed over the ranks, so the accuracy is the one-device one exactly."""
     device = params_device(params)
     correct = None
     total = 0
@@ -50,9 +55,12 @@ def eval_accuracy(eval_step, params, batches: Iterable[Tuple]) -> float:
                          torch.from_numpy(np.asarray(y)).to(device))
         correct = c if correct is None else correct + c
         total += int((np.asarray(y) >= 0).sum())
-    if correct is None:
+    correct = 0 if correct is None else int(correct)
+    if mesh is not None:
+        correct, total = (int(v) for v in mesh.sum([correct, total]))
+    if total == 0:
         return 0.0
-    return 100.0 * int(correct) / max(total, 1)
+    return 100.0 * correct / total
 
 
 def h_mean(forget_acc_before: float, forget_acc: float,

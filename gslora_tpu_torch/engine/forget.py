@@ -23,6 +23,8 @@ from gslora_tpu_torch.losses.prototype import hinged_prototype_losses, \
     prototype_loss
 from gslora_tpu_torch.models.vit import vit_apply
 from gslora_tpu_torch.ops.group_lasso import fp32_threshold, lora_group_prox
+from gslora_tpu_torch.parallel.multihost import check_local_feed
+from gslora_tpu_torch.utils.trees import PairwiseSum
 
 
 def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
@@ -32,7 +34,7 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
                      lora_apply: str = "factored",
                      fused_batch: bool = False,
                      trainable: str = "lora",
-                     grad_accum: int = 1):
+                     grad_accum: int = 1, mesh=None):
     """Build the dual-batch train step.
 
     step(state, xf, yf, xr, yr, protos, scalars, generator) ->
@@ -59,8 +61,24 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
     whose micro-gradients sum to the full-batch gradient. Each micro-batch
     draws the same dropout masks in both passes (its generator state is
     saved before the gate pass and restored for the grad pass); gradients
-    accumulate in fp32. A batch that grad_accum does not divide (in either
+    add up in fp32, as a tree (utils/trees.PairwiseSum), as do the sums.
+    A batch that grad_accum does not divide (in either
     stream) runs unaccumulated, as in the JAX step.
+
+    ``mesh`` (parallel/mesh.DataMesh): each rank passes its rows of the
+    global batch pair and the step computes the one-device loss over the
+    GLOBAL batch, as the JAX step does under a mesh. The gates and the
+    means are nonlinear in the global masked sums, so the step always runs
+    the gated-linear scheme above: the masked sums and counts of every
+    data term are summed over the ranks (one all_reduce) before the gates,
+    each rank differentiates its share of the surrogate divided by the
+    global counts, and one all_reduce (SUM) over flat buckets of the
+    trainable gradients gives every rank the full-batch gradient. DDP's
+    mean of per-rank gradients would need each rank's loss already divided
+    by the global count and its gates taken on global means, which is this
+    scheme with an extra wrapper. With grad_accum 1 the sums come from the
+    same forward that is differentiated (one forward per step); with
+    grad_accum > 1 each rank microbatches its own rows in the two passes.
     """
     use_proto = fcfg.prototype if use_prototype is None else use_prototype
     if structure_mode not in ("loss", "prox"):
@@ -142,21 +160,9 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
             s["pro_r"] = prototype_loss(emb_r, yr, protos, dist) * wr
         return s
 
-    def accum_grads(state, leaves, xf, yf, xr, yr, protos, sc, generator):
-        """Gradients over ``grad_accum`` micro-batch pairs, equal to the
-        full-batch gradient (JAX ``_accum_grads``, forget.py:177-261)."""
-        n = grad_accum
-        params = state.params
-        micros = list(zip(*(t.split(t.shape[0] // n)
-                            for t in (xf, yf, xr, yr))))
-        # phase 1: forward only; each micro-batch's generator state first
-        gen_states, sums = [], None
-        with torch.no_grad():
-            for mb in micros:
-                gen_states.append(generator.get_state()
-                                  if generator is not None else None)
-                s = micro_sums(params, *mb, protos, generator)
-                sums = s if sums is None else {k: sums[k] + s[k] for k in s}
+    def gates(sums, params, sc):
+        """The global means, the relu gates and the step's metrics from the
+        masked sums over the whole (global) batch pair."""
         nf = torch.clamp(sums["nf"], min=1.0)
         nr = torch.clamp(sums["nr"], min=1.0)
         ce_f, ce_r = sums["ce_f"] / nf, sums["ce_r"] / nr
@@ -183,36 +189,92 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
             "acc_forget": sums["acc_f"] / nf,
             "acc_remain": sums["acc_r"] / nr,
         }
+        return (nf, nr, gate_f, gate_p), metrics
 
-        # phase 2: the gated-linear surrogate, same dropout masks
-        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-        for mb, gen_state in zip(micros, gen_states):
-            if generator is not None:
-                generator.set_state(gen_state)
-            s = micro_sums(params, *mb, protos, generator)
-            g = (-sc["beta"] * gate_f * s["ce_f"]) / nf + s["ce_r"] / nr
-            if use_proto:
-                g = g + (-sc["w_pro_f"] * gate_p * s["pro_f"]) / nf \
-                    + sc["w_pro_r"] * s["pro_r"] / nr
-            if not train_base and not use_prox:
-                # data-independent; 1/n per micro-batch sums to it once
-                g = g + sc["alpha"] * group_lasso(
-                    params["lora"], fcfg.group_type, fcfg.group_pos) / n
-            for acc, gi in zip(gsum, torch.autograd.grad(g, leaves)):
-                acc.add_(gi.float())
-        grads = [acc.to(p.dtype) for acc, p in zip(gsum, leaves)]
-        return grads, metrics
+    def surrogate(s, g, params, sc, share):
+        """The gated-linear loss of one micro-batch pair's sums ``s``: its
+        gradient is that pair's part of the full-batch gradient. The
+        data-independent structure term enters with weight ``share``, the
+        pair's fraction of all pairs over all ranks."""
+        nf, nr, gate_f, gate_p = g
+        out = (-sc["beta"] * gate_f * s["ce_f"]) / nf + s["ce_r"] / nr
+        if use_proto:
+            out = out + (-sc["w_pro_f"] * gate_p * s["pro_f"]) / nf \
+                + sc["w_pro_r"] * s["pro_r"] / nr
+        if not train_base and not use_prox:
+            out = out + sc["alpha"] * group_lasso(
+                params["lora"], fcfg.group_type, fcfg.group_pos) * share
+        return out
+
+    def global_sums(sums):
+        """Detached sums, summed over the ranks under a mesh."""
+        sums = {k: v.detach() for k, v in sums.items()}
+        if mesh is not None:
+            keys = sorted(sums)
+            flat = torch.stack([sums[k].float() for k in keys])
+            mesh.all_reduce_([flat])
+            sums = dict(zip(keys, flat.unbind()))
+        return sums
+
+    def accum_grads(state, leaves, xf, yf, xr, yr, protos, sc, generator,
+                    n):
+        """Gradients over ``n`` micro-batch pairs of this rank's rows,
+        equal to the full-batch gradient (JAX ``_accum_grads``,
+        forget.py:177-261)."""
+        params = state.params
+        world = 1 if mesh is None else mesh.world
+        micros = list(zip(*(t.split(t.shape[0] // n)
+                            for t in (xf, yf, xr, yr))))
+        if n == 1:
+            # one pass: the gates come from this forward's detached sums
+            s = micro_sums(params, *micros[0], protos, generator)
+            g, metrics = gates(global_sums(s), params, sc)
+            grads = [gi.float() for gi in torch.autograd.grad(
+                surrogate(s, g, params, sc, 1.0 / world), leaves)]
+        else:
+            # phase 1: forward only; each micro-batch's generator state
+            # first
+            gen_states, sums = [], PairwiseSum()
+            with torch.no_grad():
+                for mb in micros:
+                    gen_states.append(generator.get_state()
+                                      if generator is not None else None)
+                    s = micro_sums(params, *mb, protos, generator)
+                    keys = sorted(s)
+                    sums.add([s[k] for k in keys])
+            g, metrics = gates(global_sums(dict(zip(keys, sums.total()))),
+                               params, sc)
+            # phase 2: the gated-linear surrogate, same dropout masks
+            acc = PairwiseSum()
+            for mb, gen_state in zip(micros, gen_states):
+                if generator is not None:
+                    generator.set_state(gen_state)
+                s = micro_sums(params, *mb, protos, generator)
+                acc.add([gi.float() for gi in torch.autograd.grad(
+                    surrogate(s, g, params, sc, 1.0 / (n * world)),
+                    leaves)])
+            grads = acc.total()
+        if mesh is not None:
+            mesh.all_reduce_(grads)
+        return [gr.to(p.dtype) for gr, p in zip(grads, leaves)], metrics
 
     def step(state: ForgetState, xf, yf, xr, yr, protos,
              scalars: Dict[str, float], generator=None):
         if state.trainable != trainable:
             raise ValueError(f"state trains {state.trainable!r}, the step "
                              f"{trainable!r}")
+        if mesh is not None:  # each rank feeds its rows, not the batch
+            check_local_feed(mesh, xf.shape[0])
+            check_local_feed(mesh, xr.shape[0])
         leaves = state.trainable_params()
         if grad_accum > 1 and xf.shape[0] % grad_accum == 0 and \
                 xr.shape[0] % grad_accum == 0:
             grads, metrics = accum_grads(state, leaves, xf, yf, xr, yr,
-                                         protos, scalars, generator)
+                                         protos, scalars, generator,
+                                         grad_accum)
+        elif mesh is not None:
+            grads, metrics = accum_grads(state, leaves, xf, yf, xr, yr,
+                                         protos, scalars, generator, 1)
         else:
             # grad_accum == 1, or a ragged tail batch the micro split
             # cannot cut evenly: run it unaccumulated

@@ -7,9 +7,13 @@ train_own_forget.py:722-826).
 * eval on test forget/remain before training, every VER_FREQ batches and
   at the end, with H-mean-gated checkpointing (engine.py:381-409);
 * per-epoch alpha-warmup/beta-decay and timm cosine LR;
-* EMA of the merged model after ema_epoch (train_own_forget.py:783-826).
-
-A device mesh is still to port.
+* EMA of the merged model after ema_epoch (train_own_forget.py:783-826);
+* data parallelism over torch.distributed ranks (``mesh``, a
+  parallel/mesh.DataMesh): each rank loads its rows of every global batch,
+  the step computes the global-batch loss, evaluations sum their counts
+  over the ranks, and rank 0 alone writes checkpoints. The model-axis
+  modes of the JAX mesh (tp, fsdp, pp, sp, multi-slice) are not ported:
+  their flags raise (parallel/mesh.check_placement).
 """
 from __future__ import annotations
 
@@ -22,8 +26,7 @@ import torch
 from gslora_tpu_torch.checkpoints.io import BestHCheckpointer
 from gslora_tpu_torch.config import RunConfig
 from gslora_tpu_torch.data.folders import Dataset
-from gslora_tpu_torch.data.pipeline import BatchLoader, CyclingLoader, \
-    DevicePrefetcher
+from gslora_tpu_torch.data.pipeline import CyclingLoader, DevicePrefetcher
 from gslora_tpu_torch.engine.ema import ema_init, ema_update
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
     make_eval_step
@@ -34,6 +37,9 @@ from gslora_tpu_torch.engine.state import ForgetState, make_optimizer
 from gslora_tpu_torch.lora.core import lora_group_norms
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.vit import ViT
+from gslora_tpu_torch.parallel.mesh import check_batch_divisible, \
+    check_placement
+from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 
 
 @dataclass
@@ -85,9 +91,16 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
                         pro_f_weight: Optional[float] = None,
                         seed_offset: int = 0,
                         h_eps: float = 0.0,
-                        continual: bool = False) -> ForgetResult:
+                        continual: bool = False,
+                        mesh=None) -> ForgetResult:
     """Train ``params`` (a parameter tree, moved to ``cfg.device``) with
     the GS-LoRA recipe of ``cfg``.
+
+    ``mesh``: an optional parallel/mesh.DataMesh, as JAX's ``mesh``
+    (loop.py:125-160): parameters are broadcast from rank 0, the train and
+    test batches split over the ranks (padded static global batches), the
+    LoRA gradients are summed over them; every rank ends with the same
+    parameters and the same history. ``cfg.device`` is the rank's device.
 
     ``continual``: engine_cl semantics for a CL task — the remain loader
     ALWAYS drives the epoch (engine_cl.py:50-60) and the structure loss
@@ -97,13 +110,22 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
     seed = cfg.data.seed + seed_offset
+    check_placement(cfg.mesh, mesh)
+    check_batch_divisible(mesh, cfg.data.batch_size)
 
     vit = ViT(params, model, lora).to(device)
-    # static batch shapes on the card (label -1 sentinels, masked by every
-    # loss/accuracy reduction), as the JAX loop pads off the CPU; CPU runs
-    # keep the reference's ragged tails
-    auto_pad = device.type != "cpu"
+    if mesh is not None:
+        mesh.broadcast_(list(vit.parameters()))  # one set of weights
+    # static batch shapes on the card and under a mesh (label -1
+    # sentinels, masked by every loss/accuracy reduction), as the JAX loop
+    # pads off the CPU; one-process CPU runs keep the reference's ragged
+    # tails
+    auto_pad = mesh is not None or device.type != "cpu"
     u8 = cfg.data.uint8_transfer
+
+    def loader(ds, bs, **kw):
+        return process_sharded_loader(mesh, ds, bs, mask_padding=auto_pad,
+                                      uint8_transfer=u8, **kw)
 
     # lora_rank 0 -> the reference trains ALL parameters under the same
     # dual-batch loss (train_own_forget_open.py:699-706)
@@ -114,48 +136,53 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
                                structure_mode=cfg.structure_mode,
                                fused_batch=cfg.fused_batch,
                                trainable=trainable,
-                               grad_accum=cfg.optim.grad_accum)
+                               grad_accum=cfg.optim.grad_accum, mesh=mesh)
     state = ForgetState.create(vit, opt, trainable=trainable)
     eval_step = make_eval_step(model, lora, compute_dtype=cdt)
 
     # prototypes from the *pretrained* model over forget ∪ remain subsets
     # (train_own_forget.py:591-611)
     if fcfg.prototype and protos is None:
+        aug_repeat = 20 if fcfg.aug_num > 0 else 0
+        # RandAugment's draws run in one sequence over the whole set, so
+        # augmented prototypes take every row on every rank
+        pmesh = None if aug_repeat else mesh
         proto_batches = [
             b for ds in (data.train_forget, data.train_remain)
-            for b in BatchLoader(ds, cfg.data.batch_size, shuffle=False,
-                                 prefetch=0, mask_padding=auto_pad,
-                                 uint8_transfer=u8)]
+            for b in process_sharded_loader(
+                pmesh, ds, cfg.data.batch_size, shuffle=False, prefetch=0,
+                mask_padding=auto_pad, uint8_transfer=u8)]
         protos = calculate_prototypes(
             state.params, proto_batches, model, lora, model.num_class,
-            compute_dtype=cdt, aug_repeat=20 if fcfg.aug_num > 0 else 0,
-            seed=seed, aug_magnitude=fcfg.aug_num)  # utils.py:511
+            compute_dtype=cdt, aug_repeat=aug_repeat,
+            seed=seed, aug_magnitude=fcfg.aug_num,  # utils.py:511
+            mesh=pmesh)
     if protos is None:
         protos = torch.zeros((model.num_class, model.dim), device=device)
 
     bs = cfg.data.batch_size
     test_bs = bs * cfg.data.test_batch_scale
-    loader_f = BatchLoader(data.train_forget, bs, seed=seed,
-                           mask_padding=auto_pad, uint8_transfer=u8)
-    loader_r = BatchLoader(data.train_remain, bs, seed=seed + 1,
-                           mask_padding=auto_pad, uint8_transfer=u8)
+    loader_f = loader(data.train_forget, bs, seed=seed)
+    loader_r = loader(data.train_remain, bs, seed=seed + 1)
 
     def test_batches(ds):
-        return BatchLoader(ds, test_bs, shuffle=False, prefetch=0,
-                           mask_padding=auto_pad, uint8_transfer=u8)
+        return loader(ds, test_bs, shuffle=False, prefetch=0)
 
-    def accuracy(ds):
-        return eval_accuracy(eval_step, state.params, test_batches(ds))
+    def accuracy(ds, params=None):
+        return eval_accuracy(eval_step, state.params if params is None
+                             else params, test_batches(ds), mesh=mesh)
 
     forget_acc_before = accuracy(data.test_forget)
     remain_acc_before = accuracy(data.test_remain)
     logger.log({"forget_acc_before": forget_acc_before,
                 "remain_acc_before": remain_acc_before}, step=0)
 
-    # async saves on the card: the loop never blocks on checkpoint IO
+    # async saves on the card: the loop never blocks on checkpoint IO;
+    # under a mesh rank 0 alone writes
+    main_rank = mesh is None or mesh.is_main
     ckpt = BestHCheckpointer(workdir, name=cfg.net,
                              async_save=device.type != "cpu") \
-        if workdir else None
+        if workdir and main_rank else None
     if ckpt:
         ckpt.save_config(cfg.to_json())
 
@@ -164,7 +191,12 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     forget_drives = (not continual and fcfg.few_shot and
                      len(loader_f) > len(loader_r))
 
-    generator = torch.Generator(device=device).manual_seed(seed)
+    # under a mesh each rank draws its rows' dropout masks from a stream
+    # of its own (rank 0's is the one-process stream)
+    rank = 0 if mesh is None else mesh.rank
+    generator = torch.Generator(device=device).manual_seed(seed +
+                                                           7919 * rank)
+    world = 1 if mesh is None else mesh.world
     batch = 0
     best_h = 0.0  # reference highest_H_mean init (train_own_forget.py:548)
     last = {"forget_acc": forget_acc_before, "remain_acc": remain_acc_before,
@@ -218,7 +250,7 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
             if (batch + 1) % cfg.ver_freq == 0:
                 run_eval(epoch)
             batch += 1
-            ep_images += int(xf.shape[0]) + int(xr.shape[0])
+            ep_images += (int(xf.shape[0]) + int(xr.shape[0])) * world
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - ep_t0
@@ -237,15 +269,17 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
             if ema is not None:
                 ema_params = {"base": ema, "lora": {}}
                 logger.log({
-                    "Test forget-ema Accuracy": eval_accuracy(
-                        eval_step, ema_params, test_batches(data.test_forget)),
-                    "Test remain-ema Accuracy": eval_accuracy(
-                        eval_step, ema_params, test_batches(data.test_remain)),
+                    "Test forget-ema Accuracy": accuracy(data.test_forget,
+                                                         ema_params),
+                    "Test remain-ema Accuracy": accuracy(data.test_remain,
+                                                         ema_params),
                 }, step=batch)
 
     run_eval(cfg.num_epoch - 1)
     if ckpt:
         ckpt.wait()  # drain any in-flight async save before returning
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are complete for every rank
     norms = lora_group_norms(state.params["lora"], fcfg.group_pos)
     logger.log({f"norm_group_{i}": n for i, n in enumerate(norms)},
                step=batch)

@@ -20,6 +20,8 @@ from gslora_tpu_torch.losses.classification import cross_entropy, \
     top1_accuracy
 from gslora_tpu_torch.models.heads import sface_head
 from gslora_tpu_torch.models.vit import ViT, vit_apply, vit_embed
+from gslora_tpu_torch.parallel.multihost import check_local_feed
+from gslora_tpu_torch.utils.trees import PairwiseSum
 
 
 @dataclass
@@ -60,7 +62,8 @@ def is_lora(name: str) -> bool:
     return name.startswith("lora.")
 
 
-def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32):
+def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32,
+                 mesh=None):
     """Wrap ``grad_fn(x, y) -> (grads, metrics)`` to run over ``n`` equal
     micro-batches, weighted to the exact full-batch masked mean (JAX
     ``_accumulated``, pretrain.py:41-108).
@@ -69,43 +72,54 @@ def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32):
     samples (label >= 0); scaled by that count they are masked sums, and
     their sum over the micro-batches divided by the global valid count is
     the full-batch mean, padded tails included (an all-padding micro-batch
-    adds zero). The sums are kept in ``accum_dtype`` (fp32 by default, also
+    adds zero). The sums are added as a tree (utils/trees.PairwiseSum)
+    and kept in ``accum_dtype`` (fp32 by default, also
     for bf16 parameters: autograd's own ``.grad`` accumulation would sum in
     the parameter's dtype) and cast back to each leaf's dtype at the end.
-    A batch that ``n`` does not divide runs as one full-batch call."""
+    A batch that ``n`` does not divide runs as one full-batch call.
+
+    ``mesh`` (parallel/mesh.DataMesh): each rank passes its rows of the
+    global batch, and the sums and the count are summed over the ranks (one
+    all_reduce over flat buckets: the full-model gradient, 19 M parameters
+    at the flagship, goes in 16 MiB buckets) before the division, so the
+    mean is the global batch's, as in the JAX step under a mesh."""
     def accum(x, y):
         b = x.shape[0]
-        if b % n:
+        parts = n if b % n == 0 else 1
+        if parts == 1 and mesh is None:
             return grad_fn(x, y)
-        total, count = None, 0.0
-        for xm, ym in zip(x.split(b // n), y.split(b // n)):
-            valid = torch.sum((ym >= 0).float())
+        sums = PairwiseSum()
+        for xm, ym in zip(x.split(b // parts), y.split(b // parts)):
+            valid = torch.sum((ym >= 0).to(accum_dtype))
             grads, metrics = grad_fn(xm, ym)
-            leaves = list(grads) + list(metrics.values())
-            if total is None:
-                dtypes = [t.dtype for t in leaves]
-                total = [torch.zeros_like(t, dtype=accum_dtype)
-                         for t in leaves]
-            for acc, t in zip(total, leaves):
-                acc.add_(t.to(accum_dtype) * valid.to(accum_dtype))
-            count = count + valid
-        denom = torch.clamp(count, min=1.0)
-        out = [(t / denom.to(accum_dtype)).to(dt)
-               for t, dt in zip(total, dtypes)]
+            leaves = list(grads) + [m.detach() for m in metrics.values()]
+            dtypes = [t.dtype for t in leaves]
+            sums.add([t.to(accum_dtype) * valid for t in leaves] +
+                     [valid.reshape(1)])
+        *total, count = sums.total()
+        if mesh is not None:
+            mesh.all_reduce_(total + [count])
+        denom = torch.clamp(count[0], min=1.0)
+        out = [(t / denom).to(dt) for t, dt in zip(total, dtypes)]
         return out[:len(grads)], dict(zip(metrics, out[len(grads):]))
 
     return accum
 
 
 def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
-                       compute_dtype=torch.bfloat16, grad_accum: int = 1, accum_dtype=torch.float32):
+                       compute_dtype=torch.bfloat16, grad_accum: int = 1,
+                       accum_dtype=torch.float32, mesh=None):
     """step(state, x, y, lr, generator=None) -> (state, metrics).
 
     The loss is CE over the margin head's logits (CosFace, ArcFace,
     Softmax) or SFace's own loss on the embedding; metrics ``loss`` and
     ``acc``; labels -1 (padding) are masked. ``grad_accum > 1`` splits each
     batch into that many micro-batches with one optimizer update
-    (``_accumulated``); ``state`` is updated in place and returned."""
+    (``_accumulated``); ``state`` is updated in place and returned.
+
+    ``mesh`` (parallel/mesh.DataMesh): each rank passes its rows of the
+    global batch, and the loss is the masked mean over the global batch
+    (``_accumulated``), with or without ``grad_accum``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -122,6 +136,8 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
 
     def step(state: PretrainState, x, y, lr: float,
              generator: Optional[torch.Generator] = None):
+        if mesh is not None:  # each rank feeds its rows, not the batch
+            check_local_feed(mesh, x.shape[0])
         leaves = state.trainable_params()
         params = state.params
 
@@ -129,9 +145,9 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
             loss, metrics = loss_fn(params, xm, ym, generator)
             return torch.autograd.grad(loss, leaves), metrics
 
-        if grad_accum > 1:
-            grads, metrics = _accumulated(grad_fn, grad_accum,
-                                          accum_dtype)(x, y)
+        if grad_accum > 1 or mesh is not None:
+            grads, metrics = _accumulated(grad_fn, grad_accum, accum_dtype,
+                                          mesh)(x, y)
         else:
             grads, metrics = grad_fn(x, y)
         optimizer.update(leaves, grads, state.opt_state, lr)

@@ -23,14 +23,22 @@ from gslora_tpu_torch.models.vit import params_device, vit_apply
 def calculate_prototypes(params, batches, model: ViTConfig, lora: LoraConfig,
                          num_classes: int, compute_dtype=torch.bfloat16,
                          aug_repeat: int = 0, seed: int = 0,
-                         aug_magnitude: int = 9) -> torch.Tensor:
+                         aug_magnitude: int = 9, mesh=None) -> torch.Tensor:
     """Stream (x, y) numpy batches through the (pretrained) model; return
     the dense class-mean embedding table (num_classes, dim) fp32 on the
     parameters' device. Pad slots (label -1) are dropped.
 
     aug_repeat=0: clean images once (the non-few-shot reference path).
     aug_repeat=k: k RandAugment(magnitude=aug_magnitude) views per image,
-    seeded with ``seed``, no clean view (the reference's x20 replication)."""
+    seeded with ``seed``, no clean view (the reference's x20 replication).
+
+    ``mesh``: each rank passed its rows of every batch; the per-class sums
+    and counts are summed over the ranks. Not with ``aug_repeat``, whose
+    RandAugment draws run in one sequence over the whole set: there every
+    rank passes every row and the table needs no collective."""
+    if mesh is not None and aug_repeat > 0:
+        raise ValueError("augmented prototypes take every row on every "
+                         "rank: pass mesh=None with unsharded batches")
     device = params_device(params)
 
     def embed(x):
@@ -73,5 +81,12 @@ def calculate_prototypes(params, batches, model: ViTConfig, lora: LoraConfig,
             np.add.at(sums, y[keep], e.float().cpu().numpy()[keep]
                       .astype(np.float64))
             np.add.at(counts, y[keep], 1)
+    if mesh is not None:
+        both = torch.from_numpy(np.concatenate(
+            [sums, counts[:, None].astype(np.float64)], axis=1)).to(
+                mesh.device)
+        mesh.all_reduce_([both])
+        both = both.cpu().numpy()
+        sums, counts = both[:, :-1], np.rint(both[:, -1]).astype(np.int64)
     safe = np.maximum(counts, 1)[:, None]
     return torch.from_numpy((sums / safe).astype(np.float32)).to(device)

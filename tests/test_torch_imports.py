@@ -45,6 +45,31 @@ def test_no_source_names_jax_or_the_jax_package():
     assert offenders == []
 
 
+def test_native_io_and_parallel_are_the_ports_own():
+    """The port builds its native libraries from its own csrc/*.cpp and
+    never loads the JAX package's library; the data-parallel modules are
+    imported by the walk above."""
+    out = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL.replace(
+            "print(len(names), bad)",
+            "print(sorted(n for n in names if '.native' in n or "
+            "'.parallel' in n))")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(sorted([
+        "gslora_tpu_torch.native", "gslora_tpu_torch.parallel",
+        "gslora_tpu_torch.parallel.mesh",
+        "gslora_tpu_torch.parallel.multihost"]))
+    assert sorted(p.name for p in (PORT / "csrc").glob("*.cpp")) == \
+        ["imagedec.cpp", "recordio.cpp"]
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cpp")) + \
+        [ROOT / "chip_smoke.py"]
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if re.search(r"libgslora_native|native/Makefile|"
+                              r"gslora_tpu/native/\w", f.read_text())]
+    assert offenders == []
+
+
 def test_shell_mirrors_run_the_port():
     """Every script mirror under gslora_tpu_torch/scripts calls the port's
     CLIs and never the JAX package's."""
