@@ -135,7 +135,15 @@ non-zero exit code and without the final result line.
    parameters equal to the bit, the final parameters within the JAX
    suite's rtol 1e-4 / atol 1e-5 of the one process's, every eval within
    one test image; walls of both (two ranks on one card measure the path,
-   not scaling).
+   not scaling). The same for the baselines under --dp, at
+   the baseline phase's flags: train_forget_cl with --ewc, --DER_plus,
+   --SCRUB and --LIRF (2 tasks each) and train_forget --ewc, K1's counts
+   per rank from expected_baseline_launches /
+   expected_single_step_launches over a rank's rows, every accuracy of
+   every task within one test image. Then checkpoints/dcp_io: a flagship
+   train state of CUDA tensors (parameters and AdamW moments) through
+   AsyncSaver in one process and in both ranks (one gloo group), read
+   back equal with a template on the card and without one.
 13. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
@@ -167,6 +175,8 @@ from gslora_tpu_torch.baselines.lirf import (LIRFState,  # noqa: E402
 from gslora_tpu_torch.baselines.regularization import (  # noqa: E402
     make_reg_step)
 from gslora_tpu_torch.baselines.scrub import make_scrub_steps  # noqa: E402
+from gslora_tpu_torch.checkpoints.dcp_io import (  # noqa: E402
+    AsyncSaver, load_dcp)
 from gslora_tpu_torch.checkpoints.io import (  # noqa: E402
     load_params, restore_train_state, save_params, save_train_state)
 from gslora_tpu_torch.cli import (backbone_probe, export_torch,  # noqa: E402
@@ -1391,11 +1401,15 @@ def expected_baseline_launches(argv, datasets=None):
     remain and open for all but LIRF, which scores forget and remain
     after each epoch and open at the end); the old-class eval (task > 0).
     'depth' launches per forward, per backward of a student forward, and
-    per importance batch; K2 and K3: 0. ``datasets``: the run's (train,
-    test), when already built."""
+    per importance batch, each of a training step and an importance batch
+    once per micro-batch of --grad_accum (padded batches on the card, so
+    it divides each); K2 and K3: 0. On a rank of a --dp run the same
+    counts hold over its rows. ``datasets``: the run's (train, test),
+    when already built."""
     cfg = config_from_args(build_parser().parse_args(argv))
     f, b, bs = cfg.forget, cfg.baseline, cfg.data.batch_size
-    assert cfg.optim.grad_accum == 1 and not cfg.model.remat and \
+    micro = cfg.optim.grad_accum
+    assert bs % micro == 0 and not cfg.model.remat and \
         cfg.lora.rank == 0 and f.few_shot and f.open_cls_num > 0
     method = b.method
     train, test = datasets or build_datasets(cfg)
@@ -1433,8 +1447,8 @@ def expected_baseline_launches(argv, datasets=None):
                     cfg, train, order, task + 1)), bs)
         per_fwd, per_bwd = BASELINE_STEP[
             "reg" if method in REG_FAMILY else method]
-        fwd += evals + per_fwd * steps + imp
-        bwd += per_bwd * steps + imp
+        fwd += evals + micro * (per_fwd * steps + imp)
+        bwd += micro * (per_bwd * steps + imp)
     return {"attention_fwd": depth * fwd, "attention_bwd": depth * bwd,
             "group_prox": 0, "group_norms": 0, "group_scale": 0}
 
@@ -1445,11 +1459,13 @@ def expected_single_step_launches(argv, datasets=None):
     eval before; one forward and backward per step over the remain subset
     (Retrain) or relabeled forget + remain; for EWC and MAS the importance
     batches over the full first window's remain split; the forget, remain
-    and open evals at the end. 'depth' launches each; ``datasets`` as
-    for :func:`expected_baseline_launches`."""
+    and open evals at the end. 'depth' launches each, a step's and an
+    importance batch's once per micro-batch of --grad_accum; ``datasets``
+    as for :func:`expected_baseline_launches`."""
     cfg = config_from_args(build_parser().parse_args(argv))
     f, b, bs = cfg.forget, cfg.baseline, cfg.data.batch_size
-    assert cfg.optim.grad_accum == 1 and not cfg.model.remat and \
+    micro = cfg.optim.grad_accum
+    assert bs % micro == 0 and not cfg.model.remat and \
         f.few_shot and f.open_cls_num > 0
     train, test = datasets or build_datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
@@ -1468,8 +1484,8 @@ def expected_single_step_launches(argv, datasets=None):
     evals = ev_f + (steps // cfg.ver_freq) * (ev_f + ev_r) + \
         ev_f + ev_r + ev_o
     depth = cfg.model.depth
-    return {"attention_fwd": depth * (evals + steps + imp),
-            "attention_bwd": depth * (steps + imp),
+    return {"attention_fwd": depth * (evals + micro * (steps + imp)),
+            "attention_bwd": depth * micro * (steps + imp),
             "group_prox": 0, "group_norms": 0, "group_scale": 0}
 
 
@@ -2405,10 +2421,19 @@ DP_PRETRAIN_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
 # kernels, and the same fp32 sums of the masked sums and the gradients
 # (added as a tree, utils/trees.PairwiseSum: each rank's total is one
 # subtree, the all_reduce adds the last pair).
+# The baselines run the baseline phase's flags (BASELINE_ARGV:
+# run_cl_forget_open.sh's windows, bs 48, 1 epoch, 4 images per class, 1
+# SCRUB superepoch), one runner family each through train_forget_cl and
+# EWC through train_forget.
 DP_RUNS = {"train_forget_dp": (train_forget, DP_FORGET_ARGV, 1),
            "train_forget_cl_dp": (train_forget_cl, DP_CL_ARGV, 1),
            "train_pretrain_dp": (train_pretrain, DP_PRETRAIN_ARGV, 1),
-           "train_pretrain_dp_accum": (train_pretrain, DP_PRETRAIN_ARGV, 2)}
+           "train_pretrain_dp_accum": (train_pretrain, DP_PRETRAIN_ARGV, 2),
+           **{f"train_forget_cl_{flag.lstrip('-').lower()}_dp":
+              (train_forget_cl, BASELINE_ARGV + [flag], 1)
+              for flag in ("--ewc", "--DER_plus", "--SCRUB", "--LIRF")},
+           "train_forget_ewc_dp": (train_forget, BASELINE_ARGV + ["--ewc"],
+                                   1)}
 DP_TIMEOUT_S = 600
 # Final parameters of two ranks against one process: the JAX suite's fp32
 # tolerance (tests/test_mesh_loop.py:79-80). The training runs the same
@@ -2419,11 +2444,20 @@ DP_TIMEOUT_S = 600
 DP_RTOL, DP_ATOL = 1e-4, 1e-5
 
 
+def is_baseline(argv):
+    """Whether ``argv`` runs a baseline (not GS-LoRA)."""
+    return config_from_args(build_parser().parse_args(
+        argv)).baseline.method != "gs_lora" and "--one_stage" not in argv
+
+
 def dp_expected(name, accum):
     """K1 and K2 launches of one rank (or of the one-process reference),
     from the flags with --grad_accum ``accum``."""
     module, argv, _ = DP_RUNS[name]
     argv = argv + ["--grad_accum", str(accum)]
+    if is_baseline(argv):
+        return (expected_single_step_launches if module is train_forget
+                else expected_baseline_launches)(argv)
     if module is train_forget:
         fwd, bwd = expected_launches(argv)
         return {"attention_fwd": fwd, "attention_bwd": bwd,
@@ -2455,7 +2489,23 @@ def dp_run(name, accum, dp):
                 for k, v in flatten_tree(tree).items()}
 
     patched = {"config_from_args": config}
-    if module is train_forget:
+    if is_baseline(argv) and module is train_forget:
+        run_reg = module.run_regularization_task
+
+        def spy(*a, **k):
+            res = run_reg(*a, **k)
+            seen["params"] = host(res["params"])
+            return res
+        patched["run_regularization_task"] = spy
+    elif is_baseline(argv):
+        run_cl = module.run_baseline_continual
+
+        def spy(*a, **k):
+            res = run_cl(*a, **k)
+            seen["params"] = host(res[1])
+            return res
+        patched["run_baseline_continual"] = spy
+    elif module is train_forget:
         run = module.run_forget_training
 
         def spy(*a, **k):
@@ -2491,6 +2541,74 @@ def dp_run(name, accum, dp):
     return {"report": out, "launches": launches, "wall_s": wall, **seen}
 
 
+def dcp_state(seed=0):
+    """A train state of CUDA tensors at the flagship width (ViT-P8S8 with
+    a rank-8 LoRA, 19.4 M parameters, and AdamW moments filled from a
+    seeded generator): the same on every rank."""
+    params = detached(init_vit_params(torch.Generator().manual_seed(seed),
+                                      ViTConfig(), LoraConfig(rank=8)), DEV)
+    leaves = list(flatten_tree(params).values())
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    moments = {k: [torch.randn(t.shape, generator=g, device=DEV)
+                   for t in leaves] for k in ("mu", "nu")}
+    return {"params": params, "opt_state": {"count": 7, **moments},
+            "step": 7}
+
+
+def dcp_leaves(tree, prefix=""):
+    """A state dict's tensors and numbers by their path."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return {p: x for k, v in items
+                for p, x in dcp_leaves(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def dcp_check(path):
+    """checkpoints/dcp_io on the card: dcp_state through AsyncSaver (every
+    rank of a group calls it with the same path), read back with a
+    template of zeros on the card and without one; raises unless both
+    equal the state. Returns the seconds of save() and of the wait, of a
+    first save (DCP's imports and set-up included) and a second."""
+    state = dcp_state()
+    saver = AsyncSaver()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(path, state)
+        t_save = time.perf_counter() - t0
+        saver.wait()
+        times.append({"save_s": t_save,
+                      "wait_s": time.perf_counter() - t0 - t_save})
+    saver.close()
+
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [zeros(v) for v in tree]
+        return torch.zeros_like(tree) if torch.is_tensor(tree) else 0
+
+    want = dcp_leaves(state)
+    template = zeros(state)
+    for what, back in (("a template on the card",
+                        load_dcp(path, template)),
+                       ("its metadata", load_dcp(path))):
+        got = dcp_leaves(back)
+        if set(got) != set(want) or not all(
+                torch.equal(got[k].to(DEV), b) if torch.is_tensor(b)
+                else got[k] == b for k, b in want.items()):
+            raise AssertionError(f"dcp_io: the state read back through "
+                                 f"{what} differs")
+    if not all(t.device.type == DEV.type
+               for t in dcp_leaves(template).values() if torch.is_tensor(t)):
+        raise AssertionError("dcp_io: the template's tensors left the card")
+    return {"first": times[0], "second": times[1],
+            "mbytes": sum(t.numel() * t.element_size() for t in want.values()
+                          if torch.is_tensor(t)) / 2 ** 20}
+
+
 def dp_rank_main(rank, world, port, outdir):
     """One rank of the data-parallel phase (``chip_smoke.py --dp-rank``):
     torchrun's environment, a gloo group (NCCL refuses two ranks on one
@@ -2506,6 +2624,9 @@ def dp_rank_main(rank, world, port, outdir):
         for name, (_, _, accum) in DP_RUNS.items():
             torch.save(dp_run(name, accum, dp=True),
                        os.path.join(outdir, f"{name}.rank{rank}.pt"))
+        # both ranks save one replicated state through one gloo group
+        torch.save(dcp_check(os.path.join(outdir, "dcp_ranks")),
+                   os.path.join(outdir, f"dcp.rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -2545,7 +2666,8 @@ def spawn_dp_ranks(outdir):
             raise AssertionError(f"dp rank {r} exited {p.returncode}:\n"
                                  f"{tail}")
     return [{name: torch.load(os.path.join(outdir, f"{name}.rank{r}.pt"),
-                              weights_only=False) for name in DP_RUNS}
+                              weights_only=False)
+             for name in list(DP_RUNS) + ["dcp"]}
             for r in range(DP_WORLD)]
 
 
@@ -2560,6 +2682,29 @@ def accuracy_tolerances(name):
     if module is train_pretrain:
         return {"final_test_acc": 100.0 / len(test)}
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
+    if is_baseline(argv):
+        # a baseline's report, per task: the evals of each set, the
+        # old-class eval and H (two points per image of forget: before
+        # and after)
+        if module is train_forget:
+            sets = [(train_forget.single_step_data(cfg, train, test, order),
+                     None)]
+        else:
+            sets = [split_task_data(cfg, train, test, order, t,
+                                    cfg.data.seed + t)
+                    for t in range(cfg.forget.num_tasks)]
+        one = {key: max(100.0 / len(getattr(d, key)) for d, _ in sets)
+               for key in ("test_forget", "test_remain", "test_open")}
+        tols = {"forget_acc_before": one["test_forget"],
+                "forget_acc": one["test_forget"],
+                "remain_acc": one["test_remain"],
+                "open_acc": one["test_open"],
+                "best_H_mean" if module is train_forget else "best_h":
+                2 * (2 * one["test_forget"] + one["test_remain"])}
+        olds = [old for _, old in sets if old is not None and len(old)]
+        if olds:
+            tols["old_acc"] = max(100.0 / len(old) for old in olds)
+        return tols
     if module is train_forget:
         sets = [train_forget.single_step_data(cfg, train, test, order)]
     else:
@@ -2581,6 +2726,8 @@ def dp_phase(card):
     ranks sharing one card: they measure the path, not scaling."""
     refs = {name: dp_run(name, DP_WORLD * accum, dp=False)
             for name, (_, _, accum) in DP_RUNS.items()}
+    with tempfile.TemporaryDirectory() as out:
+        dcp_one = dcp_check(os.path.join(out, "dcp"))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2589,6 +2736,11 @@ def dp_phase(card):
     ranks_wall = time.perf_counter() - t0
     print(f"dp phase: {DP_WORLD} ranks ran every path in {ranks_wall:.1f} s "
           f"(start-up included)", flush=True)
+    print("dp dcp " + json.dumps({
+        "what": "checkpoints/dcp_io.AsyncSaver of a flagship train state of "
+                "CUDA tensors, read back equal with and without a template",
+        "card": card, "one_process": dcp_one,
+        "ranks": [r["dcp"] for r in ranks]}), flush=True)
     launches = {}
     for name, (_, argv, accum) in DP_RUNS.items():
         want = dp_expected(name, accum)
@@ -2618,8 +2770,16 @@ def dp_phase(card):
                                                      ref["history"])):
             raise AssertionError(f"{name}: eval histories of other lengths")
         if not pairs:
-            pairs = [(got[0]["report"], ref["report"])]
-        worst = {k: max(abs(h[k] - w[k]) for h, w in pairs) for k in tols}
+            # a baseline's or the pretrain's report: per task, where a
+            # list
+            pairs = list(zip(*(r if isinstance(r, list) else [r] for r in
+                               (got[0]["report"], ref["report"]))))
+        for h, w in pairs:
+            if any((h[k] is None) != (w[k] is None) or h[k] is not None
+                   and not math.isfinite(h[k]) for k in tols):
+                raise AssertionError(f"{name}: evals {h} against {w}")
+        worst = {k: max(abs(h[k] - w[k]) for h, w in pairs
+                        if w[k] is not None) for k in tols}
         if any(worst[k] > tols[k] + 1e-9 for k in tols):
             raise AssertionError(f"{name}: evals differ by {worst} (at most "
                                  f"{tols})")

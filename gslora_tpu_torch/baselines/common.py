@@ -1,6 +1,6 @@
 """What the baseline runners share: batches onto the device, the last
-evals of a task, and the per-stream gradient accumulation of the
-teacher-student families."""
+evals of a task, the valid counts of a global batch, and the per-stream
+gradient accumulation every baseline step goes through."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -9,6 +9,9 @@ import numpy as np
 import torch
 
 from gslora_tpu_torch.engine.evaluate import eval_accuracy
+from gslora_tpu_torch.models.convert import flatten_tree
+from gslora_tpu_torch.parallel.multihost import check_local_feed
+from gslora_tpu_torch.utils.trees import PairwiseSum
 
 
 def to_device(device: torch.device, *arrays) -> List[torch.Tensor]:
@@ -21,52 +24,105 @@ def valid_count(labels: torch.Tensor) -> torch.Tensor:
     return torch.sum((labels >= 0).float())
 
 
+def global_counts(mesh, *labels: torch.Tensor) -> List[torch.Tensor]:
+    """The valid rows of each stream's global batch, clamped to at least 1
+    (the masked means' denominators): this rank's counts, summed over the
+    ranks under a mesh (one all_reduce of a small fp32 vector). Every
+    rank passes its rows (``check_local_feed``)."""
+    for y in labels:
+        check_local_feed(mesh, y.shape[0])
+    counts = torch.stack([valid_count(y) for y in labels])
+    if mesh is not None:
+        mesh.all_reduce_([counts])
+    return list(torch.clamp(counts, min=1.0).unbind())
+
+
+def broadcast_trees(mesh, *trees) -> None:
+    """Every leaf of each parameter tree overwritten with rank 0's, in
+    place (no-op without a mesh): the ranks start from one set of
+    weights."""
+    if mesh is not None:
+        mesh.broadcast_([t for tree in trees
+                         for t in flatten_tree(tree).values()])
+
+
+def rank_generator(cfg, device: torch.device, mesh) -> torch.Generator:
+    """The dropout stream of a runner: under a mesh each rank draws its
+    rows' masks from a stream of its own (seed + 7919·rank; rank 0's is
+    the one-process stream), as engine/loop does."""
+    rank = 0 if mesh is None else mesh.rank
+    return torch.Generator(device=device).manual_seed(cfg.data.seed +
+                                                      7919 * rank)
+
+
 def final_accuracies(eval_step, params, test_batches_f: Callable,
                      test_batches_r: Callable,
-                     test_batches_open: Optional[Callable] = None
-                     ) -> Tuple[float, float, Optional[float]]:
-    """Forget, remain and (when given) open-set accuracy after a task."""
-    facc = eval_accuracy(eval_step, params, test_batches_f())
-    racc = eval_accuracy(eval_step, params, test_batches_r())
-    oacc = eval_accuracy(eval_step, params, test_batches_open()) \
-        if test_batches_open else None
+                     test_batches_open: Optional[Callable] = None,
+                     mesh=None) -> Tuple[float, float, Optional[float]]:
+    """Forget, remain and (when given) open-set accuracy after a task; the
+    counts are summed over the ranks under a mesh."""
+    facc = eval_accuracy(eval_step, params, test_batches_f(), mesh=mesh)
+    racc = eval_accuracy(eval_step, params, test_batches_r(), mesh=mesh)
+    oacc = eval_accuracy(eval_step, params, test_batches_open(),
+                         mesh=mesh) if test_batches_open else None
     return facc, racc, oacc
 
 
 def stream_grads(sums_fn: Callable, combine: Callable,
                  leaves: Sequence[torch.Tensor],
-                 streams: Sequence[torch.Tensor], grad_accum: int
+                 streams: Sequence[torch.Tensor], grad_accum: int,
+                 mesh=None, fixed: Optional[torch.Tensor] = None
                  ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """Gradient of ``leaves`` and the metrics of a loss that mixes masked
     means over several streams (and raw sums), optionally over
     micro-batches (the JAX package's ``_accum_grads`` of
-    baselines/distill.py and baselines/lirf.py).
+    baselines/distill.py and baselines/lirf.py) and over the ranks of a
+    data mesh.
 
-    ``streams``: the step's tensors, images and labels of each stream;
-    each is split into ``grad_accum`` equal micro-batches, or run whole
-    when ``grad_accum`` does not divide one of them. ``sums_fn(*micro)``
-    returns the masked per-sample SUMS of each term over one micro-batch
-    (a masked mean times its valid count). ``combine(sums) -> (total,
-    metrics)`` divides them by the global valid counts of the step, so
-    the micro-gradients add up to the full-batch gradient exactly: every
-    term is linear in per-sample statistics. Gradients add up in fp32 and
-    are cast back to each leaf's dtype."""
+    ``streams``: the step's tensors, images and labels of each stream (a
+    rank's rows under a mesh); each is split into ``grad_accum`` equal
+    micro-batches, or run whole when ``grad_accum`` does not divide one of
+    them. ``sums_fn(*micro)`` returns the masked per-sample SUMS of each
+    term over one micro-batch (a masked mean times its valid count).
+    ``combine(sums) -> (total, metrics)`` divides them by the GLOBAL valid
+    counts of the step (:func:`global_counts`), so the micro-gradients and
+    the ranks' gradients add up to the global batch's gradient exactly:
+    every term is linear in per-sample statistics. Gradients add up in
+    fp32 as a tree (utils/trees.PairwiseSum), then one bucketed
+    all_reduce (SUM) takes the gradients and the sums over the ranks
+    before ``combine`` gives the metrics; so two ranks equal one process
+    with twice the micro-batches to the bit.
+
+    ``fixed``: a term of the loss that does not depend on the data (a
+    quadratic penalty, an SWA distance), as a 0-dim tensor with its
+    graph. Its gradient joins after the all_reduce, on every rank alike,
+    so it counts once, not once per micro-batch or rank; its value joins
+    ``loss_total``. Gradients are cast back to each leaf's dtype at the
+    end."""
     n = grad_accum
     if any(t.shape[0] % n for t in streams):
         n = 1
     parts = [t.split(t.shape[0] // n) for t in streams]
-    gsum, ssum = None, {}
+    gsum, ssum = PairwiseSum(), PairwiseSum()
     for i in range(n):
         sums = sums_fn(*(p[i] for p in parts))
+        keys = sorted(sums)
         total, _ = combine(sums)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
-                 else g.float() for g, p in zip(grads, leaves)]
-        gsum = grads if gsum is None else [a.add_(g) for a, g in
-                                           zip(gsum, grads)]
-        for k, v in sums.items():
-            ssum[k] = ssum[k] + v.detach() if k in ssum else v.detach()
-    total, metrics = combine(ssum)
+        gsum.add([torch.zeros_like(p, dtype=torch.float32) if g is None
+                  else g.float() for g, p in zip(grads, leaves)])
+        ssum.add([sums[k].detach().float() for k in keys])
+    grads = gsum.total()
+    flat = torch.stack(ssum.total())
+    if mesh is not None:
+        mesh.all_reduce_(grads + [flat])
+    total, metrics = combine(dict(zip(keys, flat.unbind())))
+    if fixed is not None:
+        if fixed.requires_grad:
+            extra = torch.autograd.grad(fixed, leaves, allow_unused=True)
+            grads = [g if e is None else g + e.float()
+                     for g, e in zip(grads, extra)]
+        total = total + fixed.detach()
     metrics["loss_total"] = total
-    return ([g.to(p.dtype) for g, p in zip(gsum, leaves)],
+    return ([g.to(p.dtype) for g, p in zip(grads, leaves)],
             {k: v.detach() for k, v in metrics.items()})

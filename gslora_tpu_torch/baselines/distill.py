@@ -25,7 +25,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from gslora_tpu_torch.baselines.common import (final_accuracies,
+from gslora_tpu_torch.baselines.common import (broadcast_trees,
+                                               final_accuracies,
+                                               global_counts, rank_generator,
                                                stream_grads, to_device,
                                                valid_count)
 from gslora_tpu_torch.baselines.freeze import freeze_flags, trains
@@ -72,7 +74,8 @@ def fdr_loss(logits_s, logits_t, labels=None) -> torch.Tensor:
 def make_distill_step(method: str, model: ViTConfig, lora: LoraConfig,
                       optimizer, hp: Dict[str, float],
                       compute_dtype=torch.bfloat16,
-                      faithful_zero_kd: bool = False, grad_accum: int = 1):
+                      faithful_zero_kd: bool = False, grad_accum: int = 1,
+                      mesh=None):
     """step(state, teacher, xf, yf, xr, yr, xr2, yr2, lr, generator=None)
     -> (state, metrics); ``teacher`` is a parameter tree.
 
@@ -81,7 +84,10 @@ def make_distill_step(method: str, model: ViTConfig, lora: LoraConfig,
     stream divided by the step's global valid count of that stream
     (baselines/common.stream_grads): one pass when ``grad_accum`` is 1,
     ``grad_accum`` micro-batches with fp32 gradient sums otherwise (the
-    same gradient), one pass again when it does not divide a stream."""
+    same gradient), one pass again when it does not divide a stream.
+    Under ``mesh`` each rank passes its rows of every stream: the counts
+    are the global batches', and DER's global SUM is the sum of the
+    ranks' sums (the all_reduce of the gradients), with no count."""
     method = method.lower()
     if method not in ("lwf", "der", "der_plus", "fdr"):
         raise ValueError(f"unknown distill method {method}")
@@ -91,8 +97,7 @@ def make_distill_step(method: str, model: ViTConfig, lora: LoraConfig,
              lr: float, generator: Optional[torch.Generator] = None):
         leaves = state.trainable_params()
         params = state.params
-        nf, nr, nr2 = (torch.clamp(valid_count(y), min=1.0)
-                       for y in (yf, yr, yr2))
+        nf, nr, nr2 = global_counts(mesh, yf, yr, yr2)
 
         def sums_fn(xf, yf, xr, yr, xr2=None, yr2=None):
             vf, vr = valid_count(yf), valid_count(yr)
@@ -147,7 +152,7 @@ def make_distill_step(method: str, model: ViTConfig, lora: LoraConfig,
         streams = (xf, yf, xr, yr, xr2, yr2) if method == "der_plus" \
             else (xf, yf, xr, yr)
         grads, metrics = stream_grads(sums_fn, combine, leaves, streams,
-                                      grad_accum)
+                                      grad_accum, mesh)
         optimizer.update(leaves, grads, state.opt_state, lr)
         state.step += 1
         return state, metrics
@@ -160,17 +165,21 @@ def run_distill_task(cfg: RunConfig, params, teacher_params,
                      test_batches_f: Callable, test_batches_r: Callable,
                      *, method: Optional[str] = None,
                      num_epoch: Optional[int] = None, logger=None,
-                     test_batches_open: Optional[Callable] = None
-                     ) -> Dict[str, Any]:
+                     test_batches_open: Optional[Callable] = None,
+                     mesh=None) -> Dict[str, Any]:
     """One task of LwF / DER / DER++ / FDR on ``cfg.device``: iterate the
     relabeled forget loader, and take remain batches from
-    ``remain_cycler.next()`` (two per step for DER++)."""
+    ``remain_cycler.next()`` (two per step for DER++: DER++'s second remain
+    batch is the cycler's next global batch).
+
+    ``mesh``: as for baselines/regularization.run_regularization_task;
+    the student and the teacher are broadcast from rank 0."""
     method = (method or cfg.baseline.method).lower()
     b = cfg.baseline
     hp = {"T": b.lwf_T, "lambda_kd": b.lwf_lambda_kd,
           "lambda_remain": b.lwf_lambda_remain, "lambda_der": b.der_lambda,
           "lambda_der_plus": b.der_plus_lambda, "lambda_fdr": b.fdr_lambda}
-    check_baseline_placement(cfg.mesh)
+    check_baseline_placement(cfg.mesh, mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
@@ -178,16 +187,20 @@ def run_distill_task(cfg: RunConfig, params, teacher_params,
     step = make_distill_step(method, cfg.model, cfg.lora, opt, hp,
                              compute_dtype=cdt,
                              faithful_zero_kd=b.lwf_faithful_zero_kd,
-                             grad_accum=cfg.optim.grad_accum)
+                             grad_accum=cfg.optim.grad_accum, mesh=mesh)
     state = PretrainState.create(
         ViT(params, cfg.model, cfg.lora).to(device), opt,
         trains=partial(trains, **freeze_flags(cfg)))
     teacher = detached(teacher_params, device)
+    broadcast_trees(mesh, state.params, teacher)
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 
-    facc_before = eval_accuracy(eval_step, state.params, test_batches_f())
+    def accuracy(batches):
+        return eval_accuracy(eval_step, state.params, batches, mesh=mesh)
+
+    facc_before = accuracy(test_batches_f())
     best_h = float("-inf")
-    generator = torch.Generator(device=device).manual_seed(cfg.data.seed)
+    generator = rank_generator(cfg, device, mesh)
     batch = 0
     for epoch in range(num_epoch if num_epoch is not None else cfg.num_epoch):
         lr = timm_cosine_lr(cfg.optim, epoch)
@@ -203,17 +216,15 @@ def run_distill_task(cfg: RunConfig, params, teacher_params,
                 logger.log({k: float(v) for k, v in metrics.items()},
                            step=batch)
             if (batch + 1) % cfg.ver_freq == 0:
-                facc = eval_accuracy(eval_step, state.params,
-                                     test_batches_f())
-                racc = eval_accuracy(eval_step, state.params,
-                                     test_batches_r())
+                facc = accuracy(test_batches_f())
+                racc = accuracy(test_batches_r())
                 best_h = max(best_h, h_mean(facc_before, facc, racc,
                                             eps=1e-8))
             batch += 1
 
     facc, racc, oacc = final_accuracies(eval_step, state.params,
                                         test_batches_f, test_batches_r,
-                                        test_batches_open)
+                                        test_batches_open, mesh=mesh)
     best_h = max(best_h, h_mean(facc_before, facc, racc, eps=1e-8))
     return {"params": detached(state.params), "forget_acc_before":
             facc_before, "forget_acc": facc, "remain_acc": racc,

@@ -36,8 +36,10 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from gslora_tpu_torch.baselines.common import stream_grads, to_device, \
-    valid_count
+from gslora_tpu_torch.baselines.common import (broadcast_trees,
+                                               global_counts, rank_generator,
+                                               stream_grads, to_device,
+                                               valid_count)
 from gslora_tpu_torch.config import LoraConfig, RunConfig, ViTConfig
 from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.ema import merged_params
@@ -102,7 +104,8 @@ def _up_logits(teacher, tokens, labels, model, lora, cdt):
 
 def make_lirf_step(model: ViTConfig, lora: LoraConfig, optimizer,
                    split: int, T: float, alpha: float,
-                   compute_dtype=torch.bfloat16, grad_accum: int = 1):
+                   compute_dtype=torch.bfloat16, grad_accum: int = 1,
+                   mesh=None):
     """step(state, teacher, xf, yf, xr, yr, lr, generator=None)
     -> (state, metrics); the gradient is taken w.r.t. the student's low
     half only.
@@ -111,15 +114,15 @@ def make_lirf_step(model: ViTConfig, lora: LoraConfig, optimizer,
     pt_re) or the remain stream (replay CE), so the step differentiates
     masked sums over the two streams divided by their global valid
     counts (baselines/common.stream_grads): ``grad_accum`` micro-batches
-    give the full-batch gradient; one pass when it does not divide a
-    stream."""
+    and the ranks of ``mesh`` give the global batch's gradient; one pass
+    when it does not divide a stream."""
     cdt = compute_dtype
 
     def step(state: LIRFState, teacher, xf, yf, xr, yr, lr: float,
              generator: Optional[torch.Generator] = None):
         leaves = list(state.student.parameters())
         student = state.student_low
-        nf, nr = (torch.clamp(valid_count(y), min=1.0) for y in (yf, yr))
+        nf, nr = global_counts(mesh, yf, yr)
 
         def sums_fn(xf, yf, xr, yr):
             vf, vr = valid_count(yf), valid_count(yr)
@@ -157,7 +160,7 @@ def make_lirf_step(model: ViTConfig, lora: LoraConfig, optimizer,
             return total, m
 
         grads, metrics = stream_grads(sums_fn, combine, leaves,
-                                      (xf, yf, xr, yr), grad_accum)
+                                      (xf, yf, xr, yr), grad_accum, mesh)
         optimizer.update(leaves, grads, state.opt_state, lr)
         state.step += 1
         return state, metrics
@@ -167,11 +170,13 @@ def make_lirf_step(model: ViTConfig, lora: LoraConfig, optimizer,
 
 @torch.no_grad()
 def lirf_eval_accuracy(teacher, student_low, batches, model: ViTConfig,
-                       lora: LoraConfig, compute_dtype=torch.bfloat16
-                       ) -> float:
+                       lora: LoraConfig, compute_dtype=torch.bfloat16,
+                       mesh=None) -> float:
     """eval_data_LIRF: accuracy of teacher_up(student_low(x)) in percent
     over valid rows (label -1, the pad sentinel, never equals an argmax);
-    counts stay on the device until the end."""
+    counts stay on the device until the end. Under ``mesh`` each rank
+    passes its rows and the correct and total counts are summed over the
+    ranks, as in engine/evaluate.eval_accuracy."""
     device = student_low["patch"]["kernel"].device
     correct, total = None, 0
     for x, y in batches:
@@ -182,9 +187,10 @@ def lirf_eval_accuracy(teacher, student_low, batches, model: ViTConfig,
         logits = _up_logits(teacher, mid, y, model, lora, compute_dtype)
         c = torch.sum(torch.argmax(logits, dim=-1) == y)
         correct = c if correct is None else correct + c
-    if correct is None:
-        return 0.0
-    return 100.0 * int(correct) / max(total, 1)
+    correct = 0 if correct is None else int(correct)
+    if mesh is not None:
+        correct, total = (int(v) for v in mesh.sum([correct, total]))
+    return 100.0 * correct / max(total, 1)
 
 
 def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
@@ -192,8 +198,8 @@ def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
                   test_batches_r: Callable, logger=None,
                   num_epoch: Optional[int] = None,
                   test_batches_open: Optional[Callable] = None,
-                  carry: Optional[Dict[str, Any]] = None
-                  ) -> Dict[str, Any]:
+                  carry: Optional[Dict[str, Any]] = None,
+                  mesh=None) -> Dict[str, Any]:
     """One LIRF task on ``cfg.device``. ``carry``: the state across tasks,
     a dict of ``teacher`` / ``student_low`` / ``deposit_low``; the
     reference builds the four models once from the pretrained checkpoint
@@ -201,8 +207,12 @@ def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     across tasks, so a multi-task caller threads the returned values back
     in (cli/train_forget_cl does). ``carry=None`` builds them from ``params``.
     The optimizer state starts anew each task either way ("create again to
-    reinitialize optimizer", cl.py:811-815)."""
-    check_baseline_placement(cfg.mesh)
+    reinitialize optimizer", cl.py:811-815).
+
+    ``mesh``: as for baselines/regularization.run_regularization_task;
+    the carry is broadcast from rank 0 and stays one on every rank (the
+    student's updates are the global batch's)."""
+    check_baseline_placement(cfg.mesh, mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
@@ -228,17 +238,18 @@ def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     step = make_lirf_step(cfg.model, cfg.lora, opt,
                           split=cfg.forget.per_forget_cls, T=b.lirf_T,
                           alpha=b.lirf_alpha, compute_dtype=cdt,
-                          grad_accum=cfg.optim.grad_accum)
+                          grad_accum=cfg.optim.grad_accum, mesh=mesh)
     student = _Node(student_low).to(device)  # a trainable copy
+    broadcast_trees(mesh, teacher, student.tree(), deposit_low)
     state = LIRFState(student=student, deposit_low=deposit_low,
                       opt_state=opt.init(list(student.parameters())))
 
     def accuracy(batches):
         return lirf_eval_accuracy(teacher, state.student_low, batches,
-                                  cfg.model, cfg.lora, cdt)
+                                  cfg.model, cfg.lora, cdt, mesh=mesh)
 
     facc_before = accuracy(test_batches_f())
-    generator = torch.Generator(device=device).manual_seed(cfg.data.seed)
+    generator = rank_generator(cfg, device, mesh)
     batch = 0
     best_h = float("-inf")
     n_ep = num_epoch if num_epoch is not None else cfg.num_epoch

@@ -22,17 +22,20 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
-from gslora_tpu_torch.baselines.common import (final_accuracies, to_device)
+from gslora_tpu_torch.baselines.common import (broadcast_trees,
+                                               final_accuracies,
+                                               global_counts, rank_generator,
+                                               stream_grads, to_device,
+                                               valid_count)
 from gslora_tpu_torch.baselines.freeze import freeze_flags, trains
 from gslora_tpu_torch.config import LoraConfig, RunConfig, ViTConfig
 from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
     make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
-from gslora_tpu_torch.engine.pretrain import PretrainState, _accumulated
+from gslora_tpu_torch.engine.pretrain import PretrainState
 from gslora_tpu_torch.engine.schedule import timm_cosine_lr
 from gslora_tpu_torch.engine.state import make_optimizer
 from gslora_tpu_torch.losses.classification import cross_entropy, \
@@ -46,55 +49,65 @@ from gslora_tpu_torch.utils.trees import tree_map
 
 
 def make_reg_step(model: ViTConfig, lora: LoraConfig, optimizer,
-                  compute_dtype=torch.bfloat16, grad_accum: int = 1):
+                  compute_dtype=torch.bfloat16, grad_accum: int = 1,
+                  mesh=None):
     """step(state, x, y, anchors, importances, lam, lr, generator=None)
     -> (state, metrics); one term of the penalty per anchor.
 
-    ``grad_accum > 1`` splits the batch through engine/pretrain's
-    ``_accumulated``, which is exact here: the loss is a masked-mean CE
-    plus a penalty that does not depend on the data (its valid-count
-    weighted sum over the micro-batches is the penalty itself). A batch
-    it does not divide runs whole."""
-
-    def loss_fn(params, x, y, anchors, importances, lam, generator):
-        logits, _ = vit_apply(params, x, y, model, lora, train=True,
-                              generator=generator,
-                              compute_dtype=compute_dtype)
-        ce = cross_entropy(logits, y)
-        reg = quadratic_penalty(params, anchors, importances, lam) \
-            if anchors else torch.zeros((), device=ce.device)
-        total = ce + reg
-        return total, {"loss_CE": ce, "loss_regularization": reg,
-                       "loss_total": total, "acc": top1_accuracy(logits, y)}
+    The CE is the masked sum over this rank's rows (micro-batches under
+    ``grad_accum``) divided by the global batch's valid count
+    (baselines/common.stream_grads), so micro-batches and the ranks of
+    ``mesh`` add up to the global batch's gradient. The quadratic penalty
+    does not depend on the data: its gradient is added once, after the
+    all_reduce, on every rank alike (``stream_grads(fixed=...)``), not
+    once per rank. A batch ``grad_accum`` does not divide runs whole."""
 
     def step(state: PretrainState, x, y, anchors, importances, lam: float,
              lr: float, generator: Optional[torch.Generator] = None):
         leaves = state.trainable_params()
         params = state.params
+        (n,) = global_counts(mesh, y)
 
-        def grad_fn(xm, ym):
-            loss, metrics = loss_fn(params, xm, ym, anchors, importances,
-                                    lam, generator)
-            return torch.autograd.grad(loss, leaves), metrics
+        def sums_fn(xm, ym):
+            v = valid_count(ym)
+            logits, _ = vit_apply(params, xm, ym, model, lora, train=True,
+                                  generator=generator,
+                                  compute_dtype=compute_dtype)
+            return {"ce": cross_entropy(logits, ym) * v,
+                    "acc": top1_accuracy(logits, ym) * v}
 
-        if grad_accum > 1:
-            grads, metrics = _accumulated(grad_fn, grad_accum)(x, y)
-        else:
-            grads, metrics = grad_fn(x, y)
+        def combine(s):
+            m = {"loss_CE": s["ce"] / n, "acc": s["acc"] / n}
+            return m["loss_CE"], m
+
+        reg = quadratic_penalty(params, anchors, importances, lam) \
+            if anchors else torch.zeros((), device=y.device)
+        grads, metrics = stream_grads(sums_fn, combine, leaves, (x, y),
+                                      grad_accum, mesh, fixed=reg)
+        metrics["loss_regularization"] = reg.detach()
         optimizer.update(leaves, grads, state.opt_state, lr)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step
 
 
 def estimate_importance(method: str, params, batches, model: ViTConfig,
-                        lora: LoraConfig, compute_dtype=torch.bfloat16):
+                        lora: LoraConfig, compute_dtype=torch.bfloat16,
+                        grad_accum: int = 1, mesh=None):
     """Importance tree of one task over every parameter
     (train_own_forget_cl.py:1425-1569), fp32, on the parameters' device.
     ``batches``: (images, labels) numpy batches, streamed (a BatchLoader:
     materializing a decoded split would cost tens of GB at ImageNet
-    scale)."""
+    scale); under ``mesh`` each rank's rows of the global batches.
+
+    Each batch's loss is the masked sum over this rank's rows (in
+    ``grad_accum`` micro-batches, as the training step splits them)
+    divided by the global batch's valid count; the gradient is summed
+    over the micro-batches and the ranks (baselines/common.stream_grads)
+    BEFORE it is squared (EWC) or its absolute value taken (MAS): a sum of
+    per-rank squares would be another Fisher. ``len(batches)`` counts
+    global batches, the same number on every rank."""
     if method == "l2":
         return tree_map(torch.ones_like, params)
     if method not in ("ewc", "mas"):
@@ -109,28 +122,30 @@ def estimate_importance(method: str, params, batches, model: ViTConfig,
     device = leaves[0].device
     imp = {k: torch.zeros_like(v, dtype=torch.float32)
            for k, v in flat.items()}
-    for x, y in batches:
-        valid = int((np.asarray(y) >= 0).sum())
-        x, y = to_device(device, x, y)
+
+    def sums_fn(x, y):
         logits, _ = vit_apply(tree, x, y, model, lora, train=False,
                               compute_dtype=compute_dtype)
-        w = (y >= 0).float()
         if method == "ewc":
-            loss = cross_entropy(logits, y)  # masks the -1 pad sentinel
-        else:
-            # mean of logits^2 over valid rows only, so a padded tail batch
-            # gives the reference's unpadded batch
-            sq = torch.mean(logits.float() ** 2, dim=1)
-            loss = torch.sum(sq * w) / torch.clamp(torch.sum(w), min=1.0)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # the CE of valid rows (the -1 pad sentinel masked)
+            return {"loss": cross_entropy(logits, y) * valid_count(y)}
+        # logits^2 over valid rows only, so a padded tail batch gives the
+        # reference's unpadded batch
+        sq = torch.mean(logits.float() ** 2, dim=1)
+        return {"loss": torch.sum(sq * (y >= 0).float())}
+
+    for x, y in batches:
+        x, y = to_device(device, x, y)
+        (count,) = global_counts(mesh, y)
+        grads, _ = stream_grads(sums_fn, lambda s: (s["loss"] / count, {}),
+                                leaves, (x, y), grad_accum, mesh)
         for k, g in zip(names, grads):
-            if g is None:
-                continue
             g = g.float()
             if method == "ewc":
                 # each batch weighs len(batch) / len(loader) as in the
-                # reference (:1505-1510), counting valid rows only
-                imp[k] += (g * g) * (valid / n)
+                # reference (:1505-1510), counting the global batch's
+                # valid rows only
+                imp[k] += (g * g) * (int(count) / n)
             else:
                 imp[k] += g.abs() / n
     out = unflatten_tree(imp)
@@ -145,29 +160,39 @@ def run_regularization_task(cfg: RunConfig, params, train_loader_factory,
                             anchors: List, importances: List,
                             num_epoch: Optional[int] = None, logger=None,
                             eval_every: Optional[int] = None,
-                            test_batches_open: Optional[Callable] = None
-                            ) -> Dict[str, Any]:
+                            test_batches_open: Optional[Callable] = None,
+                            mesh=None) -> Dict[str, Any]:
     """One task of reg-baseline training on ``cfg.device``.
     ``train_loader_factory()`` gives the epoch's batches (relabeled forget,
     remain for Retrain, or the Replay concat). Returns the trained tree
-    (``params``) and the accuracies."""
-    check_baseline_placement(cfg.mesh)
+    (``params``) and the accuracies.
+
+    ``mesh``: an optional parallel/mesh.DataMesh, as JAX's ``mesh``: the
+    starting parameters, anchors and importances are broadcast from rank
+    0, every loader gives this rank's rows of the global batches
+    (parallel/multihost.process_sharded_loader), the loss is the global
+    batch's, and the evals sum their counts over the ranks."""
+    check_baseline_placement(cfg.mesh, mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
     opt = make_optimizer(cfg.optim)
     step = make_reg_step(cfg.model, cfg.lora, opt, compute_dtype=cdt,
-                         grad_accum=cfg.optim.grad_accum)
+                         grad_accum=cfg.optim.grad_accum, mesh=mesh)
     state = PretrainState.create(
         ViT(params, cfg.model, cfg.lora).to(device), opt,
         trains=partial(trains, **freeze_flags(cfg)))
     anchors = [detached(a, device) for a in anchors]
     importances = [detached(i, device) for i in importances]
+    broadcast_trees(mesh, state.params, *anchors, *importances)
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 
-    facc_before = eval_accuracy(eval_step, state.params, test_batches_f())
+    def accuracy(batches):
+        return eval_accuracy(eval_step, state.params, batches, mesh=mesh)
+
+    facc_before = accuracy(test_batches_f())
     best_h = float("-inf")
-    generator = torch.Generator(device=device).manual_seed(cfg.data.seed)
+    generator = rank_generator(cfg, device, mesh)
     batch = 0
     n_ep = num_epoch if num_epoch is not None else cfg.num_epoch
     eval_every = eval_every or cfg.ver_freq
@@ -181,17 +206,15 @@ def run_regularization_task(cfg: RunConfig, params, train_loader_factory,
                 logger.log({k: float(v) for k, v in metrics.items()},
                            step=batch)
             if (batch + 1) % eval_every == 0:
-                facc = eval_accuracy(eval_step, state.params,
-                                     test_batches_f())
-                racc = eval_accuracy(eval_step, state.params,
-                                     test_batches_r())
+                facc = accuracy(test_batches_f())
+                racc = accuracy(test_batches_r())
                 best_h = max(best_h, h_mean(facc_before, facc, racc,
                                             eps=1e-8))
             batch += 1
 
     facc, racc, oacc = final_accuracies(eval_step, state.params,
                                         test_batches_f, test_batches_r,
-                                        test_batches_open)
+                                        test_batches_open, mesh=mesh)
     best_h = max(best_h, h_mean(facc_before, facc, racc, eps=1e-8))
     return {"params": detached(state.params), "forget_acc_before":
             facc_before, "forget_acc": facc, "remain_acc": racc,

@@ -19,7 +19,11 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from gslora_tpu_torch.baselines.common import final_accuracies, to_device
+from gslora_tpu_torch.baselines.common import (broadcast_trees,
+                                               final_accuracies,
+                                               global_counts, rank_generator,
+                                               stream_grads, to_device,
+                                               valid_count)
 from gslora_tpu_torch.baselines.freeze import freeze_flags, trains
 from gslora_tpu_torch.config import LoraConfig, OptimConfig, RunConfig, \
     ViTConfig
@@ -27,7 +31,7 @@ from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
     make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
-from gslora_tpu_torch.engine.pretrain import PretrainState, _accumulated
+from gslora_tpu_torch.engine.pretrain import PretrainState
 from gslora_tpu_torch.engine.schedule import step_decay_lr
 from gslora_tpu_torch.engine.state import make_optimizer
 from gslora_tpu_torch.losses.classification import cross_entropy
@@ -68,64 +72,66 @@ def swa_update(swa_params, student_params, n_averaged: int,
 def make_scrub_steps(model: ViTConfig, lora: LoraConfig, optimizer,
                      kd_T: float, smoothing: float, gamma: float,
                      alpha: float, compute_dtype=torch.bfloat16,
-                     grad_accum: int = 1):
+                     grad_accum: int = 1, mesh=None):
     """(max_step, min_step), each step(state, teacher, swa, x, y, lr,
     generator=None) -> (state, metrics).
 
-    ``grad_accum > 1`` splits both passes through engine/pretrain's
-    ``_accumulated``, which is exact here: KD and CE are masked row means,
-    and the SWA distance does not depend on the data."""
+    KD and CE are masked sums over this rank's rows (micro-batches under
+    ``grad_accum``) divided by the global batch's valid count
+    (baselines/common.stream_grads), exact over micro-batches and the
+    ranks of ``mesh``. The SWA distance does not depend on the data: its
+    gradient is added once, after the all_reduce, on every rank alike
+    (``stream_grads(fixed=...)``). Every rank runs every step, a rank
+    whose rows are all padding too: its collectives are the others'."""
     cdt = compute_dtype
 
-    def forwards(params, teacher, x, y, generator):
-        logits, _ = vit_apply(params, x, y, model, lora, train=True,
-                              generator=generator, compute_dtype=cdt)
-        with torch.no_grad():
-            t_logits, _ = vit_apply(teacher, x, y, model, lora, train=False,
-                                    compute_dtype=cdt)
-        return logits, kd_kl_loss(logits, t_logits, kd_T, labels=y)
-
-    def max_loss(params, teacher, swa, x, y, generator):
-        _, kd = forwards(params, teacher, x, y, generator)
-        total = -kd + param_dist(params, swa, smoothing)
-        return total, {"loss_kd_forget": kd, "loss_total_forget": total}
-
-    def min_loss(params, teacher, swa, x, y, generator):
-        logits, kd = forwards(params, teacher, x, y, generator)
-        ce = cross_entropy(logits, y)
-        total = gamma * ce + alpha * kd + param_dist(params, swa, smoothing)
-        return total, {"loss_kd_remain": kd, "loss_CE": ce,
-                       "loss_total_remain": total}
-
-    def make(loss_fn):
+    def make(maximize: bool):
         def step(state: PretrainState, teacher, swa, x, y, lr: float,
                  generator: Optional[torch.Generator] = None):
             leaves = state.trainable_params()
             params = state.params
+            (n,) = global_counts(mesh, y)
 
-            def grad_fn(xm, ym):
-                loss, metrics = loss_fn(params, teacher, swa, xm, ym,
-                                        generator)
-                return torch.autograd.grad(loss, leaves), metrics
+            def sums_fn(xm, ym):
+                v = valid_count(ym)
+                logits, _ = vit_apply(params, xm, ym, model, lora,
+                                      train=True, generator=generator,
+                                      compute_dtype=cdt)
+                with torch.no_grad():
+                    t_logits, _ = vit_apply(teacher, xm, ym, model, lora,
+                                            train=False, compute_dtype=cdt)
+                s = {"kd": kd_kl_loss(logits, t_logits, kd_T, labels=ym) * v}
+                if not maximize:
+                    s["ce"] = cross_entropy(logits, ym) * v
+                return s
 
-            if grad_accum > 1:
-                grads, metrics = _accumulated(grad_fn, grad_accum)(x, y)
-            else:
-                grads, metrics = grad_fn(x, y)
+            def combine(s):
+                kd = s["kd"] / n
+                if maximize:
+                    return -kd, {"loss_kd_forget": kd}
+                ce = s["ce"] / n
+                return gamma * ce + alpha * kd, {"loss_kd_remain": kd,
+                                                 "loss_CE": ce}
+
+            grads, metrics = stream_grads(
+                sums_fn, combine, leaves, (x, y), grad_accum, mesh,
+                fixed=param_dist(params, swa, smoothing))
+            metrics["loss_total_forget" if maximize else
+                    "loss_total_remain"] = metrics.pop("loss_total")
             optimizer.update(leaves, grads, state.opt_state, lr)
             state.step += 1
-            return state, {k: v.detach() for k, v in metrics.items()}
+            return state, metrics
         return step
 
-    return make(max_loss), make(min_loss)
+    return make(True), make(False)
 
 
 def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
                    remain_loader_factory: Callable,
                    test_batches_f: Callable, test_batches_r: Callable,
                    logger=None, test_batches_open: Optional[Callable] = None,
-                   teacher=None, swa=None, n_averaged: int = 0
-                   ) -> Dict[str, Any]:
+                   teacher=None, swa=None, n_averaged: int = 0,
+                   mesh=None) -> Dict[str, Any]:
     """A SCRUB task of cfg.baseline.scrub_superepoch superepochs on
     ``cfg.device``.
 
@@ -135,9 +141,15 @@ def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     multi-task caller threads the returned ``teacher`` / ``swa`` /
     ``n_averaged`` into the next task (cli/train_forget_cl does). The defaults
     give the single-task set-up: teacher = the entry params, the first
-    SWA update copies."""
+    SWA update copies.
+
+    ``mesh``: as for baselines/regularization.run_regularization_task;
+    the student, the teacher and the SWA model are broadcast from rank 0,
+    and every rank runs the same number of max and min steps (its
+    loaders give the same number of global batches) and the same SWA
+    updates."""
     b = cfg.baseline
-    check_baseline_placement(cfg.mesh)
+    check_baseline_placement(cfg.mesh, mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
@@ -149,17 +161,22 @@ def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
                                      weight_decay=b.sgda_weight_decay))
     max_step, min_step = make_scrub_steps(
         cfg.model, cfg.lora, opt, b.kd_T, b.sgda_smoothing, b.sgda_gamma,
-        b.sgda_alpha, compute_dtype=cdt, grad_accum=cfg.optim.grad_accum)
+        b.sgda_alpha, compute_dtype=cdt, grad_accum=cfg.optim.grad_accum,
+        mesh=mesh)
     state = PretrainState.create(
         ViT(params, cfg.model, cfg.lora).to(device), opt,
         trains=partial(trains, **freeze_flags(cfg)))
     teacher = detached(teacher if teacher is not None else params, device)
     swa = detached(swa if swa is not None else params, device)
+    broadcast_trees(mesh, state.params, teacher, swa)
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 
-    facc_before = eval_accuracy(eval_step, state.params, test_batches_f())
+    def accuracy(batches):
+        return eval_accuracy(eval_step, state.params, batches, mesh=mesh)
+
+    facc_before = accuracy(test_batches_f())
     best_h = float("-inf")
-    generator = torch.Generator(device=device).manual_seed(cfg.data.seed)
+    generator = rank_generator(cfg, device, mesh)
     decay_epochs = [b.scrub_decay_epoch]
     for superepoch in range(b.scrub_superepoch):
         for i in range(10):
@@ -176,15 +193,15 @@ def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
                                     generator)
         swa = swa_update(swa, state.params, n_averaged)
         n_averaged += 1
-        facc = eval_accuracy(eval_step, state.params, test_batches_f())
-        racc = eval_accuracy(eval_step, state.params, test_batches_r())
+        facc = accuracy(test_batches_f())
+        racc = accuracy(test_batches_r())
         best_h = max(best_h, h_mean(facc_before, facc, racc, eps=1e-8))
         logger.log({"Test forget Accuracy": facc,
                     "Test remain Accuracy": racc}, step=superepoch)
 
     facc, racc, oacc = final_accuracies(eval_step, state.params,
                                         test_batches_f, test_batches_r,
-                                        test_batches_open)
+                                        test_batches_open, mesh=mesh)
     return {"params": detached(state.params), "swa": swa,
             "teacher": teacher, "n_averaged": n_averaged,
             "forget_acc_before": facc_before, "forget_acc": facc,

@@ -15,11 +15,11 @@ ValueError, as it has no single-step path in the reference either.
 Runs on the GPU unless ``--device cpu`` is given. ``-r`` resumes from a
 port checkpoint or a reference-named ``.pth`` (cli/common.build_params);
 ``--profile_dir`` writes a profiler trace of the run there. ``--dp``
-trains GS-LoRA (and ``--one_stage``) data-parallel over torch.distributed
-ranks, one per card:
+trains GS-LoRA (and ``--one_stage``) and the single-step baselines
+data-parallel over torch.distributed ranks, one per card:
   torchrun --nproc_per_node N -m gslora_tpu_torch.cli.train_forget --dp ...
-each rank loading its rows of every global batch (engine/loop); a
-baseline under more than one rank raises NotImplementedError.
+each rank loading its rows of every global batch (engine/loop,
+:func:`run_single_step_baseline`).
 ``--gemm_impl int8`` raises the model's ValueError at the first training
 step, as in the JAX CLI.
 """
@@ -34,7 +34,6 @@ from gslora_tpu_torch.baselines.regularization import (
     estimate_importance, run_regularization_task)
 from gslora_tpu_torch.cli.common import build_datasets, build_params
 from gslora_tpu_torch.config import build_parser, config_from_args
-from gslora_tpu_torch.data import pipeline
 from gslora_tpu_torch.data.folders import ConcatDataset
 from gslora_tpu_torch.data.splits import (few_shot_subset, make_order_list,
                                           open_single_windows,
@@ -45,7 +44,10 @@ from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.loop import ForgetData, _dtype, \
     resolve_device, run_forget_training
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
-from gslora_tpu_torch.parallel.mesh import check_baseline, make_mesh
+from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                            check_batch_divisible,
+                                            check_placement, make_mesh)
+from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 from gslora_tpu_torch.utils.params import param_summary
 
 # The methods the reference's single-step open script runs besides
@@ -100,7 +102,7 @@ def importance_split(cfg, train_ds, order):
 
 
 def run_single_step_baseline(cfg, train_ds, data: ForgetData, order,
-                             logger=None):
+                             logger=None, mesh=None):
     """The reg-family dispatch of the reference's single-step script
     (train_own_forget_open.py:837-1063; JAX cli/train_forget.py:27-125):
 
@@ -111,7 +113,12 @@ def run_single_step_baseline(cfg, train_ds, data: ForgetData, order,
       importance taken over the FULL ``[0, first - per)`` window split
       (:687-698, the CL first-task window even under --open_cls_num; quirk
       kept), trained on concat(relabeled forget subset, remain subset)
-      (:498-504, :564-573, :1039) under the quadratic penalty."""
+      (:498-504, :564-573, :1039) under the quadratic penalty.
+
+    ``mesh``: an optional parallel/mesh.DataMesh, passed to the runner as
+    JAX passes its mesh: every loader (the remain subset for Retrain, the
+    importance batches, relabeled forget + remain, the tests) gives this
+    rank's rows of the global batches."""
     b = cfg.baseline
     method = b.method
     if method not in SINGLE_STEP_METHODS:
@@ -121,23 +128,26 @@ def run_single_step_baseline(cfg, train_ds, data: ForgetData, order,
             " — train_own_forget_open.py:785,837,1028); run it through "
             "train_forget_cl --num_tasks 1 instead")
     device = resolve_device(cfg.device)
-    pad = device.type != "cpu"  # static batch shapes on the card
+    # static batch shapes on the card and under a mesh
+    pad = mesh is not None or device.type != "cpu"
     bs = cfg.data.batch_size
     test_bs = bs * cfg.data.test_batch_scale
-    BatchLoader = partial(pipeline.BatchLoader,
-                          uint8_transfer=cfg.data.uint8_transfer)
+    check_batch_divisible(mesh, bs)
+
+    def loader(ds, batch_size, **kw):
+        return process_sharded_loader(mesh, ds, batch_size, mask_padding=pad,
+                                      uint8_transfer=cfg.data.uint8_transfer,
+                                      **kw)
 
     def test_loader(ds):
-        return lambda: BatchLoader(ds, test_bs, shuffle=False, prefetch=0,
-                                   mask_padding=pad)
+        return lambda: loader(ds, test_bs, shuffle=False, prefetch=0)
 
     tbo = test_loader(data.test_open) \
         if data.test_open is not None and len(data.test_open) else None
-    common = dict(logger=logger, test_batches_open=tbo)
+    common = dict(logger=logger, test_batches_open=tbo, mesh=mesh)
     if method == "retrain":
         params = build_params(dataclasses.replace(cfg, resume=""))
-        rl = BatchLoader(data.train_remain, bs, seed=cfg.data.seed,
-                         mask_padding=pad)
+        rl = loader(data.train_remain, bs, seed=cfg.data.seed)
         out = run_regularization_task(
             cfg, params, lambda: iter(rl), test_loader(data.test_forget),
             test_loader(data.test_remain), lam=0.0, anchors=[],
@@ -148,18 +158,19 @@ def run_single_step_baseline(cfg, train_ds, data: ForgetData, order,
         # subset
         imp_ds = importance_split(cfg, train_ds, order)
         names, n_cls = unique_classes(imp_ds)
-        print("importance class", names, n_cls)  # :698 print parity
+        if mesh is None or mesh.is_main:
+            print("importance class", names, n_cls)  # :698 print parity
         importance = estimate_importance(
             method, detached(params, device),
-            BatchLoader(imp_ds, bs, shuffle=False, prefetch=0,
-                        mask_padding=pad),
-            cfg.model, cfg.lora, _dtype(cfg))
+            loader(imp_ds, bs, shuffle=False, prefetch=0), cfg.model,
+            cfg.lora, _dtype(cfg), grad_accum=cfg.optim.grad_accum,
+            mesh=mesh)
         lam = {"l2": b.l2_lambda, "ewc": b.ewc_lambda,
                "mas": b.mas_lambda}[method]
         relabeled = random_relabel(data.train_forget, cfg.model.num_class,
                                    seed=cfg.data.seed)
-        tl = BatchLoader(ConcatDataset(relabeled, data.train_remain), bs,
-                         seed=cfg.data.seed, mask_padding=pad)
+        tl = loader(ConcatDataset(relabeled, data.train_remain), bs,
+                    seed=cfg.data.seed)
         out = run_regularization_task(
             cfg, params, lambda: iter(tl), test_loader(data.test_forget),
             test_loader(data.test_remain), lam=lam, anchors=[params],
@@ -176,12 +187,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     baseline = cfg.baseline.method != "gs_lora" and not args.one_stage
-    mesh = None
-    if baseline:
-        # before any process group; the runners check the mesh flags
-        check_baseline(cfg.baseline.method, args.dp)
-    else:
-        mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp)
+    # the parallel flags are checked before any process group is made, by
+    # the baseline runners' guard for a baseline
+    mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp,
+                     check=check_baseline_placement if baseline
+                     else check_placement)
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
     main_rank = mesh is None or mesh.is_main
@@ -201,7 +211,7 @@ def main(argv=None):
     # (train_own_forget_open.py:785), then the reg family
     if baseline:
         report = run_single_step_baseline(cfg, train_ds, data, order,
-                                          logger=logger)
+                                          logger=logger, mesh=mesh)
     else:
         if main_rank:
             print("params:", json.dumps(param_summary(params)))

@@ -29,13 +29,13 @@ old-class eval): ``--retrain``, ``--replay``, ``--l2``, ``--ewc``,
       --open_cls_num 10 --lora_rank 0 -r <pretrained.pth> [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; ``-r`` resumes as in
-cli/common.build_params. ``--dp`` runs GS-LoRA(++) and ``--one_stage``
-data-parallel over torch.distributed ranks, one per card (``torchrun
---nproc_per_node N -m gslora_tpu_torch.cli.train_forget_cl --dp ...``;
-engine/continual); a baseline under more than one rank raises
-NotImplementedError. ``--gemm_impl int8`` raises the model's ValueError
-at the first training step, as in the JAX CLI (int8 is an eval and
-serving path).
+cli/common.build_params. ``--dp`` runs every method data-parallel over
+torch.distributed ranks, one per card (``torchrun --nproc_per_node N -m
+gslora_tpu_torch.cli.train_forget_cl --dp ...``; engine/continual for
+GS-LoRA(++) and ``--one_stage``, :func:`run_baseline_continual` for the
+baselines), each rank loading its rows of every global batch.
+``--gemm_impl int8`` raises the model's ValueError at the first training
+step, as in the JAX CLI (int8 is an eval and serving path).
 ``--profile_dir`` is accepted and ignored, as by the JAX CLI.
 """
 from __future__ import annotations
@@ -43,7 +43,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from functools import partial
 
 import torch
 
@@ -58,7 +57,6 @@ from gslora_tpu_torch.cli.common import (build_datasets,
                                          prepare_imagenet_head)
 from gslora_tpu_torch.config import RunConfig, build_parser, \
     config_from_args
-from gslora_tpu_torch.data import pipeline
 from gslora_tpu_torch.data.folders import ConcatDataset
 from gslora_tpu_torch.data.pipeline import CyclingLoader
 from gslora_tpu_torch.data.splits import (make_order_list, random_relabel,
@@ -71,16 +69,25 @@ from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
 from gslora_tpu_torch.models.vit_imagenet import resume_head
-from gslora_tpu_torch.parallel.mesh import check_baseline, make_mesh
+from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                            check_batch_divisible,
+                                            check_placement, make_mesh)
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 from gslora_tpu_torch.utils.params import param_summary
 
 
 def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
-                           order, logger, workdir):
+                           order, logger, workdir, mesh=None):
     """The task loop of every method but GS-LoRA, on ``cfg.device``
     (JAX ``run_baseline_continual``, cli/train_forget_cl.py:42-234).
-    Returns (per-task results, final parameter tree)."""
+    Returns (per-task results, final parameter tree).
+
+    ``mesh``: an optional parallel/mesh.DataMesh, passed to every task
+    runner as JAX passes its mesh: every loader, train and test, gives
+    this rank's rows of the global batches (the relabeling and the
+    subsets are drawn on the whole dataset first, with the same seeds on
+    every rank), the evals sum their counts over the ranks, and rank 0
+    alone writes the task snapshots."""
     f, b = cfg.forget, cfg.baseline
     method = b.method
     device = resolve_device(cfg.device)
@@ -88,13 +95,24 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
                                compute_dtype=_dtype(cfg))
     bs = cfg.data.batch_size
     test_bs = bs * cfg.data.test_batch_scale
-    pad = device.type != "cpu"  # static batch shapes on the card
-    BatchLoader = partial(pipeline.BatchLoader,
-                          uint8_transfer=cfg.data.uint8_transfer)
+    check_batch_divisible(mesh, bs)
+    # static batch shapes on the card and under a mesh
+    pad = mesh is not None or device.type != "cpu"
+    main_rank = mesh is None or mesh.is_main
+
+    def loader(ds, batch_size, **kw):
+        return process_sharded_loader(mesh, ds, batch_size, mask_padding=pad,
+                                      uint8_transfer=cfg.data.uint8_transfer,
+                                      **kw)
 
     def test_loader(ds):
-        return lambda: BatchLoader(ds, test_bs, shuffle=False, prefetch=0,
-                                   mask_padding=pad)
+        return lambda: loader(ds, test_bs, shuffle=False, prefetch=0)
+
+    def importance(params, ds):
+        return estimate_importance(
+            method, detached(params, device),
+            loader(ds, bs, shuffle=False, prefetch=0), cfg.model, cfg.lora,
+            _dtype(cfg), grad_accum=cfg.optim.grad_accum, mesh=mesh)
 
     results = []
     anchors, importances = [], []
@@ -119,22 +137,17 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
             and len(data.test_open) else None
         relabeled = random_relabel(forget_sub, cfg.model.num_class,
                                    seed=cfg.data.seed + task)
-        fl = BatchLoader(relabeled, bs, seed=cfg.data.seed + task,
-                         mask_padding=pad)
-        rl = BatchLoader(remain_sub, bs, seed=cfg.data.seed + task + 1,
-                         mask_padding=pad)
-        common = dict(logger=logger, test_batches_open=tbo)
+        fl = loader(relabeled, bs, seed=cfg.data.seed + task)
+        rl = loader(remain_sub, bs, seed=cfg.data.seed + task + 1)
+        common = dict(logger=logger, test_batches_open=tbo, mesh=mesh)
 
         if method in ("l2", "ewc", "mas"):
             if task == 0:
                 anchors.append(params)
                 names, n_cls = unique_classes(remain_sub)
-                print("importance class", names, n_cls)  # cl_open.py:707
-                importances.append(estimate_importance(
-                    method, detached(params, device),
-                    BatchLoader(remain_sub, bs, shuffle=False, prefetch=0,
-                                mask_padding=pad),
-                    cfg.model, cfg.lora, _dtype(cfg)))
+                if main_rank:
+                    print("importance class", names, n_cls)  # :707
+                importances.append(importance(params, remain_sub))
             out = run_regularization_task(
                 cfg, params, lambda: iter(fl), tbf, tbr, lam=lam,
                 anchors=anchors, importances=importances, **common)
@@ -143,12 +156,8 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
                 # the next task's importance over its FULL remain split
                 # (cl.py:1637-1692)
                 anchors.append(params)
-                importances.append(estimate_importance(
-                    method, params,
-                    BatchLoader(next_remain(cfg, train_ds, order, task + 1),
-                                bs, shuffle=False, prefetch=0,
-                                mask_padding=pad),
-                    cfg.model, cfg.lora, _dtype(cfg)))
+                importances.append(importance(
+                    params, next_remain(cfg, train_ds, order, task + 1)))
         elif method == "retrain":
             fresh = build_params(dataclasses.replace(cfg, resume=""),
                                  seed=cfg.data.seed + 7 + task)
@@ -157,8 +166,8 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
                 anchors=[], importances=[], **common)
             params = out["params"]
         elif method == "replay":
-            tl = BatchLoader(ConcatDataset(relabeled, remain_sub), bs,
-                             seed=cfg.data.seed + task, mask_padding=pad)
+            tl = loader(ConcatDataset(relabeled, remain_sub), bs,
+                        seed=cfg.data.seed + task)
             out = run_regularization_task(
                 cfg, params, lambda: iter(tl), tbf, tbr, lam=0.0,
                 anchors=[], importances=[], **common)
@@ -170,8 +179,7 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
             params = out["params"]
         elif method == "scrub":
             # SCRUB takes the TRUE labels of the forget set
-            fl_true = BatchLoader(forget_sub, bs, seed=cfg.data.seed + task,
-                                  mask_padding=pad)
+            fl_true = loader(forget_sub, bs, seed=cfg.data.seed + task)
             out = run_scrub_task(
                 cfg, params, lambda: iter(fl_true), lambda: iter(rl), tbf,
                 tbr, teacher=(scrub_teacher if scrub_teacher is not None
@@ -198,13 +206,13 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
         old_acc = None
         if old_te is not None and len(old_te):
             old_acc = eval_accuracy(eval_step, detached(params, device),
-                                    test_loader(old_te)())
+                                    test_loader(old_te)(), mesh=mesh)
         out["old_acc"] = old_acc
         for key in ("params", "swa", "student_low", "deposit_low",
                     "teacher"):
             out.pop(key, None)
         results.append({"task": task, **out})
-        if workdir:
+        if workdir and main_rank:
             save_task_checkpoint(workdir, task, params, extra=results[-1])
     return results, params
 
@@ -240,13 +248,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     gs_lora = cfg.baseline.method == "gs_lora" or args.one_stage
-    mesh = None
-    if gs_lora:
-        # the parallel flags are checked before any process group is made
-        mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp)
-    else:
-        # the baseline runners check the mesh flags themselves
-        check_baseline(cfg.baseline.method, args.dp)
+    # the parallel flags are checked before any process group is made, by
+    # the baseline runners' guard for a baseline
+    mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp,
+                     check=check_placement if gs_lora
+                     else check_baseline_placement)
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
     main_rank = mesh is None or mesh.is_main
@@ -305,7 +311,8 @@ def main(argv=None):
         } for t in out.tasks]
     else:
         report, final_params = run_baseline_continual(
-            cfg, params, train_ds, test_ds, order, logger, cfg.outdir)
+            cfg, params, train_ds, test_ds, order, logger, cfg.outdir,
+            mesh=mesh)
     missing_acc("after", final_params)
 
     if main_rank:

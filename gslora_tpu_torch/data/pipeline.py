@@ -234,7 +234,12 @@ class DevicePrefetcher:
 class CyclingLoader:
     """Endless stream over a BatchLoader: restarts (with a fresh shuffle)
     whenever exhausted — the reference's prefetcher-recreate dance
-    (engine.py:416-421) without the None sentinel."""
+    (engine.py:416-421) without the None sentinel.
+
+    Over a process-sharded loader (parallel/multihost) every rank's
+    loader has the same number of global batches and reshuffles with the
+    same ``seed + epoch``, so every rank restarts at the same global batch
+    and takes its rows of the same next batch."""
 
     def __init__(self, loader: BatchLoader):
         self.loader = loader

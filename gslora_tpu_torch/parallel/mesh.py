@@ -160,16 +160,19 @@ def check_placement(cfg: MeshConfig, mesh: Optional[DataMesh]) -> None:
             f"ported yet: the data axis spans every rank (-1)")
 
 
-def check_baseline_placement(cfg: MeshConfig) -> None:
+def check_baseline_placement(cfg: MeshConfig,
+                             mesh: Optional[DataMesh] = None) -> None:
     """The guards of JAX's baseline runners (e.g. baselines/
-    regularization.py:170-181): pp raises, then ``placement()`` without a
-    mesh (the baselines run in one process here)."""
+    regularization.py:170-181) for a run on ``mesh``: pp raises JAX's
+    ValueError first, then :func:`check_placement` (so tp/sp/fsdp and
+    multi-slice under a world raise NotImplementedError naming the flag,
+    and without a mesh JAX's ValueError)."""
     if cfg.pp:
         raise ValueError(
             "MeshConfig.pp is supported by the GS-LoRA forget and "
             "pretrain engines only; baseline runners support "
             "dp/tp/fsdp")
-    check_placement(cfg, None)
+    check_placement(cfg, mesh)
 
 
 def world_size() -> int:
@@ -181,11 +184,12 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def make_mesh(cfg: MeshConfig, device: str = "cuda",
-              dp: bool = True) -> Optional[DataMesh]:
+def make_mesh(cfg: MeshConfig, device: str = "cuda", dp: bool = True,
+              check=check_placement) -> Optional[DataMesh]:
     """The data mesh of a ``--dp`` run, or None (``--dp`` off, or a world of
-    one: JAX's ``len(jax.devices()) > 1`` rule). The flags are checked
-    (:func:`check_placement`) before any process group is made; then the
+    one: JAX's ``len(jax.devices()) > 1`` rule). The flags are checked by
+    ``check`` (:func:`check_placement`, or :func:`check_baseline_placement`
+    for a baseline) before any process group is made; then the
     default group is initialised from torchrun's environment unless one
     exists (nccl for the card, gloo for ``device='cpu'``). A rank's device
     is ``cuda:<LOCAL_RANK % device_count>``, or the CPU when asked for."""
@@ -194,7 +198,7 @@ def make_mesh(cfg: MeshConfig, device: str = "cuda",
     if world > 1:
         rank = int(os.environ.get("RANK", "0"))
         mesh = DataMesh(rank=rank, world=world, device=torch.device("cpu"))
-    check_placement(cfg, mesh)
+    check(cfg, mesh)
     if mesh is None:
         return None
     import torch.distributed as dist
@@ -212,12 +216,3 @@ def make_mesh(cfg: MeshConfig, device: str = "cuda",
         dev = torch.device("cpu")
     return DataMesh(rank=dist.get_rank(), world=dist.get_world_size(),
                     device=dev)
-
-
-def check_baseline(method: str, dp: bool) -> None:
-    """Baseline methods do not run under a world > 1 yet: raise rather than
-    train unsynchronised replicas."""
-    if dp and world_size() > 1:
-        raise NotImplementedError(
-            f"baseline {method!r} under --dp on {world_size()} ranks is not "
-            f"ported yet (GS-LoRA and --one_stage are)")

@@ -318,14 +318,15 @@ def test_cl_cli_runs_end_to_end_on_cpu(tiny_cl_cli, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dp", "--SCRUB"], "--dp"), (["--dp", "--LIRF"], "--dp"),
+    (["--dp", "--SCRUB", "--fsdp"], "--fsdp"),
+    (["--dp", "--LIRF", "--sp", "--mesh_model", "2"], "--sp"),
     (["--dp", "--one_stage", "--mesh_slices", "2"], "--mesh_slices"),
 ])
 def test_cl_cli_unported_paths_raise(monkeypatch, tiny_cl_cli, tmp_path,
                                      flags, match):
-    """Under a world of 2 (torchrun's WORLD_SIZE), the baselines and
-    multi-slice are not ported yet: they raise before any process group
-    is made."""
+    """Under a world of 2 (torchrun's WORLD_SIZE), fsdp and sp under a
+    baseline, and multi-slice, are not ported yet: they raise before any
+    process group is made."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match=match):
         tiny_cl_cli.main(CLI_ARGS + ["--device", "cpu", "--outdir",

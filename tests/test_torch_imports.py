@@ -80,3 +80,30 @@ def test_shell_mirrors_run_the_port():
         text = path.read_text()
         assert "python -m gslora_tpu_torch.cli." in text, path.name
         assert not jax_package.search(text), path.name
+
+
+def test_dcp_io_is_the_ports_own():
+    """checkpoints/dcp_io.py (the counterpart of the JAX package's
+    orbax_io) is walked by the import check, imports neither JAX, orbax
+    nor the JAX package when imported alone, and names none of them."""
+    code = IMPORT_ALL.replace(
+        "print(len(names), bad)",
+        "print('gslora_tpu_torch.checkpoints.dcp_io' in names)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True"
+    alone = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, gslora_tpu_torch.checkpoints.dcp_io as m\n"
+         "m.AsyncSaver, m.save_dcp, m.load_dcp\n"
+         "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gslora_tpu')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert alone.returncode == 0, alone.stderr
+    assert alone.stdout.strip() == "[]"
+    source = (PORT / "checkpoints" / "dcp_io.py").read_text()
+    assert "torch.distributed.checkpoint" in source
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
+                         r"orbax|gslora_tpu)\b|\bgslora_tpu\.", source,
+                         re.M)

@@ -137,13 +137,31 @@ def test_baseline_runner_guards_match_jax():
         assert errs[0] == errs[1], flags
 
 
-def test_baseline_under_a_world_raises(monkeypatch):
+def test_baseline_placement_under_a_world(monkeypatch):
+    """A baseline runs plain --dp under a world of 2; --fsdp raises
+    NotImplementedError naming the flag, and --pp the ValueError of JAX's
+    baseline runners, through the guard itself and through make_mesh's
+    check before any process group is made."""
+    import gslora_tpu.config as jc
+    from gslora_tpu.baselines.regularization import \
+        run_regularization_task as jax_run
+    with pytest.raises(ValueError) as jerr:
+        jax_run(jc.RunConfig(mesh=jc.MeshConfig(pp=True)), {}, None, None,
+                None, lam=0.0, anchors=[], importances=[])
+    world = tmesh.DataMesh(rank=0, world=2, device=torch.device("cpu"))
+    tmesh.check_baseline_placement(MeshConfig(), world)
+    with pytest.raises(NotImplementedError, match="--fsdp"):
+        tmesh.check_baseline_placement(MeshConfig(fsdp=True), world)
+    for mesh_kw in ({}, {"model": 2}):
+        with pytest.raises(ValueError) as err:
+            tmesh.check_baseline_placement(MeshConfig(pp=True, **mesh_kw),
+                                           world)
+        assert str(err.value) == str(jerr.value)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="--dp"):
-        tmesh.check_baseline("ewc", dp=True)
-    tmesh.check_baseline("ewc", dp=False)  # no --dp: one process
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    tmesh.check_baseline("ewc", dp=True)
+    with pytest.raises(ValueError) as err:
+        tmesh.make_mesh(MeshConfig(pp=True, model=2), "cpu",
+                        check=tmesh.check_baseline_placement)
+    assert str(err.value) == str(jerr.value)
 
 
 def test_dp_on_one_process_makes_no_mesh(monkeypatch):
