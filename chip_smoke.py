@@ -144,7 +144,24 @@ non-zero exit code and without the final result line.
    train state of CUDA tensors (parameters and AdamW moments) through
    AsyncSaver in one process and in both ranks (one gloo group), read
    back equal with a template on the card and without one.
-13. Prints the kernels line, then the result line.
+13. Layout phase (slice 9, the (data, model) mesh): train_forget with
+   --fsdp (2 x 1), with --tp --mesh_model 2 (1 x 2), factored and merged;
+   train_forget_cl --one_stage with prox, --fsdp --mesh_model 2 (2 x 2,
+   K2 on every rank, 2 tasks); train_pretrain --tp --fsdp --mesh_model 2
+   (2 x 2, bs 480), at the flagship width, dropout off, bf16, in ranks of
+   this script (``--layout-rank``) sharing the card through gloo (the
+   all_reduce route of all_gather and reduce_scatter), each against one
+   process of the same flags with --grad_accum D (D the data axis): K1's
+   and K2's counts per rank as derived from the flags, every rank's
+   gathered parameters equal to the bit, the final parameters within
+   LAYOUT_FLOOR_FACTOR times the recipe's noise floor of the one
+   process's (the one process against itself at --grad_accum 2D; to the
+   bit where nothing is split over ``model``), every eval within one test
+   image; prints each
+   rank's bytes of the four block kernels (exact: 36 MiB at D = 2, 24
+   MiB under 2 x 2 tp + fsdp) beside the whole tree's, the route and the
+   walls (ranks sharing one card: the path, not scaling).
+14. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
@@ -219,6 +236,8 @@ from gslora_tpu_torch.ops import attention as A  # noqa: E402
 from gslora_tpu_torch.ops import cuda_build  # noqa: E402
 from gslora_tpu_torch.ops import group_lasso as G  # noqa: E402
 from gslora_tpu_torch.ops import quant as Q  # noqa: E402
+from gslora_tpu_torch.parallel import sharding  # noqa: E402
+from gslora_tpu_torch.parallel.mesh import active_mesh  # noqa: E402
 from gslora_tpu_torch.tools import bench_inference as BI  # noqa: E402
 from gslora_tpu_torch.tools import group_bench as GB  # noqa: E402
 from gslora_tpu_torch.utils.profiling import (device_summary,  # noqa: E402
@@ -2796,6 +2815,387 @@ def dp_phase(card):
             "worst_eval_diff": worst, "launches_per_rank": want,
             "report_rank0": got[0]["report"] if not isinstance(
                 got[0]["report"], list) else None}), flush=True)
+    return launches, refs
+
+
+# ---------------------------------------------------------------------------
+# the (data, model) mesh: ranks sharing the one card (slice 9)
+# ---------------------------------------------------------------------------
+
+TP2 = ["--tp", "--mesh_model", "2"]
+# run -> (CLI module, argv, layout flags, world); each rank runs
+# --grad_accum 1 on the rows of its data index, the one-process reference
+# --grad_accum D (D = world / model), so its micro-batches are the data
+# ranks' rows
+LAYOUT_RUNS = {
+    "forget_fsdp": (train_forget, DP_FORGET_ARGV, ["--fsdp"], 2),
+    "forget_tp": (train_forget, DP_FORGET_ARGV, TP2, 2),
+    "forget_tp_merged": (train_forget, DP_FORGET_ARGV +
+                         ["--lora_apply", "merged"], TP2, 2),
+    "cl_fsdp_model2": (train_forget_cl, DP_CL_ARGV,
+                       ["--fsdp", "--mesh_model", "2"], 4),
+    "pretrain_tp_fsdp": (train_pretrain, DP_PRETRAIN_ARGV,
+                         TP2 + ["--fsdp"], 4),
+}
+LAYOUT_TIMEOUT_S = 600
+BLOCK_KERNELS = ("qkv", "attn_out", "fc1", "fc2")
+# Final parameters of a layout against one process, where a model axis
+# splits a sum. tp sums fc2's product and the LoRA's A2 contraction over
+# the halves of the hidden, a class-sharded head sums the embedding's
+# gradient over the halves of the classes: each a reordered sum whose
+# result is rounded to bf16, perturbing activations and gradients by an
+# ulp of bf16 at some elements, which the recipe's Adam steps and gates
+# carry into the parameters. The scale of that is the recipe's own noise
+# floor, measured in the same run: one process against itself with its
+# batch sums split twice as far (--grad_accum 2D: another order of the
+# same sums, the same bf16 kernels). A layout is held to
+# LAYOUT_FLOOR_FACTOR times that floor, per leaf relative to the leaf's
+# norm (the card's first runs of this phase: 0.97-2.6 times; the CPU
+# tests hold the same layouts to the JAX suite's rtol 1e-4 / atol 1e-5 in
+# fp32). A layout that splits no sum over ``model`` (fsdp alone) gathers
+# whole kernels and is held to the bit.
+LAYOUT_FLOOR_FACTOR = 4.0
+
+
+def layout_shape(name):
+    """(data, model) of LAYOUT_RUNS[name]."""
+    _, _, flags, world = LAYOUT_RUNS[name]
+    model = int(flags[flags.index("--mesh_model") + 1]) \
+        if "--mesh_model" in flags else 1
+    return world // model, model
+
+
+def layout_argv(name, layout, accum=None):
+    """The argv of one rank (``layout``) or of a one-process run, with
+    --grad_accum ``accum`` (by default 1 on a rank, D in one process)."""
+    _, argv, flags, _ = LAYOUT_RUNS[name]
+    if accum is None:
+        accum = 1 if layout else layout_shape(name)[0]
+    return argv + ["--grad_accum", str(accum), "--outdir", ""] + \
+        (["--dp"] + flags if layout else [])
+
+
+def layout_expected(name, layout, accum=None):
+    """K1 and K2 launches of one rank (every rank of a model group runs
+    the attention and the prox on whole tensors) or of a one-process
+    run."""
+    module, _, _, _ = LAYOUT_RUNS[name]
+    argv = layout_argv(name, layout, accum)
+    if module is train_forget:
+        fwd, bwd = expected_launches(argv)
+        return {"attention_fwd": fwd, "attention_bwd": bwd,
+                "group_prox": 0, "group_norms": 0, "group_scale": 0}
+    if module is train_forget_cl:
+        return expected_cl_launches(argv)
+    return expected_pretrain_launches(argv)[0]
+
+
+def is_block_kernel(key):
+    """Whether a flat parameter name is one of the stacked block kernels
+    (qkv, attn_out, fc1, fc2)."""
+    parts = key.split(".")
+    return ".blocks." in key and parts[-1] == "kernel" and \
+        parts[-2] in BLOCK_KERNELS
+
+
+def tensor_bytes(tree):
+    """{name: bytes} of a flat tree of tensors."""
+    return {k: v.numel() * v.element_size() for k, v in tree.items()}
+
+
+def expected_kernel_bytes(name, sizes):
+    """A rank's bytes of the block kernels by the rules, from the whole
+    tree's ``sizes``: fsdp cuts all four by D, tp fc1 and fc2 by M."""
+    _, _, flags, _ = LAYOUT_RUNS[name]
+    data, model = layout_shape(name)
+    out = 0
+    for k, n in sizes.items():
+        if not is_block_kernel(k):
+            continue
+        if "--fsdp" in flags:
+            n //= data
+        if "--tp" in flags and k.split(".")[-2] in ("fc1", "fc2"):
+            n //= model
+        out += n
+    return out
+
+
+def layout_run(name, layout, accum=None):
+    """LAYOUT_RUNS[name] through its CLI in this process, dropout off,
+    as a rank of the mesh (``layout``) or as the one-process reference;
+    launch counts held to layout_expected. Returns the report, the final
+    parameters gathered whole (host fp32, flat), the eval history, the
+    launches, the wall seconds, and on a rank its bytes of parameters and
+    moments and the collective route."""
+    module, _, _, _ = LAYOUT_RUNS[name]
+    argv = layout_argv(name, layout, accum)
+    seen = {"history": []}
+
+    def config(args):
+        cfg = config_from_args(args)
+        cfg.model = dataclasses.replace(cfg.model, dropout=0.0,
+                                        emb_dropout=0.0)
+        return cfg
+
+    def keep(params):
+        seen["shard_bytes"] = tensor_bytes(flatten_tree(params))
+        whole = flatten_tree(sharding.gather_tree(active_mesh(), params))
+        seen["whole_bytes"] = tensor_bytes(whole)
+        return {k: v.detach().float().cpu() for k, v in whole.items()}
+
+    patched = {(module, "config_from_args"): config}
+    if module is train_forget:
+        run = module.run_forget_training
+
+        def spy(*a, **k):
+            res = run(*a, **k)
+            seen.update(params=keep(res.state.params), history=[res.history])
+            return res
+        patched[(module, "run_forget_training")] = spy
+    elif module is train_forget_cl:
+        run_task, run_cl = CONT.run_forget_training, \
+            module.run_continual_forgetting
+
+        def spy_task(*a, **k):
+            res = run_task(*a, **k)
+            # the last task's trained shards are the final parameters
+            keep(res.state.params)
+            return res
+
+        def spy(*a, **k):
+            res = run_cl(*a, **k)
+            seen.update(params={k: v.detach().float().cpu() for k, v in
+                                flatten_tree(res.final_params).items()},
+                        history=[t.result.history for t in res.tasks])
+            return res
+        patched[(CONT, "run_forget_training")] = spy_task
+        patched[(module, "run_continual_forgetting")] = spy
+    saved = {key: getattr(*key) for key in patched}
+    for (mod, attr), v in patched.items():
+        setattr(mod, attr, v)
+    try:
+        if module is train_pretrain:
+            fn = lambda a: module.main(a, return_state=True)  # noqa: E731
+        else:
+            fn = module.main
+        out, launches, wall = run_counted(
+            fn, argv, layout_expected(name, layout, accum), name)
+    finally:
+        for (mod, attr), v in saved.items():
+            setattr(mod, attr, v)
+    if module is train_pretrain:
+        out, state = out
+        seen["params"] = keep(state.params)
+        seen["moment_bytes"] = sum(
+            t.numel() * t.element_size()
+            for key in ("mu", "nu") for t in state.opt_state[key])
+    mesh = active_mesh()
+    if layout:
+        seen["route"] = mesh.route
+    return {"report": out, "launches": launches, "wall_s": wall, **seen}
+
+
+def layout_rank_main(rank, world, port, outdir, *names):
+    """One rank of the layout phase (``chip_smoke.py --layout-rank``):
+    torchrun's environment, a gloo group on cuda:0, each of ``names``
+    through its CLI with --dp and its layout flags; results to outdir."""
+    rank, world = int(rank), int(world)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    try:
+        for name in names:
+            torch.save(layout_run(name, layout=True),
+                       os.path.join(outdir, f"{name}.rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_layout_ranks(outdir, world, names):
+    """``world`` ranks of this script running ``names``, started together;
+    each rank's log under outdir. Raises with a rank's log if one fails or
+    outlives LAYOUT_TIMEOUT_S; no rank outlives this call."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    logs = [open(os.path.join(outdir, f"layout{world}.rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--layout-rank", str(r),
+         str(world), str(port), outdir, *names], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        deadline = time.monotonic() + LAYOUT_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(outdir,
+                                   f"layout{world}.rank{r}.log")) as fh:
+                tail = fh.read()[-4000:]
+            raise AssertionError(f"layout rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{tail}")
+    return [{name: torch.load(os.path.join(outdir, f"{name}.rank{r}.pt"),
+                              weights_only=False) for name in names}
+            for r in range(world)]
+
+
+def layout_accuracy_tolerances(name):
+    """accuracy_tolerances of the DP_RUNS path with the same CLI and flags
+    (one test image of each set)."""
+    module, argv, _, _ = LAYOUT_RUNS[name]
+    for dp_name, (dp_module, dp_argv, _) in DP_RUNS.items():
+        if dp_module is module and dp_argv == argv[:len(dp_argv)]:
+            return accuracy_tolerances(dp_name)
+    raise KeyError(name)
+
+
+def layout_phase(card, refs):
+    """Every LAYOUT_RUNS layout on gloo ranks sharing the card, against
+    one process of the same flags with --grad_accum D (``refs`` holds the
+    dp phase's one-process runs, reused where they ran the same): each
+    rank's K1 and K2 counts as derived, every rank's gathered parameters
+    equal to the bit, the final parameters within LAYOUT_FLOOR_FACTOR
+    times the noise floor of the one process's (to the bit for fsdp
+    alone), every eval within one test image, each rank's block-kernel
+    bytes exactly as the rules cut them.
+    Returns each run's launches per rank."""
+    t_phase = time.perf_counter()
+
+    def one_process(name, accum):
+        """The one-process run of ``name``'s flags at --grad_accum
+        ``accum``: the dp phase's where it ran the same."""
+        module, argv, _, _ = LAYOUT_RUNS[name]
+        for dp, (m, a, dp_accum) in DP_RUNS.items():
+            if m is module and a == argv and DP_WORLD * dp_accum == accum \
+                    and dp in refs:
+                return refs[dp]
+        return layout_run(name, False, accum)
+
+    ref_runs, floors = {}, {}
+    for name in LAYOUT_RUNS:
+        data, model = layout_shape(name)
+        ref_runs[name] = one_process(name, data)
+        if model > 1:
+            # the noise floor of the recipe: the same one process with its
+            # batch sums split twice as far (--grad_accum 2D)
+            floor = one_process(name, 2 * data)["params"]
+            floors[name] = max(rel_err(floor[k], v) for k, v in
+                               ref_runs[name]["params"].items())
+    refs = ref_runs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks = {}
+    for world in sorted({w for *_, w in LAYOUT_RUNS.values()}):
+        names = [n for n, (*_, w) in LAYOUT_RUNS.items() if w == world]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out:
+            for r, res in enumerate(spawn_layout_ranks(out, world, names)):
+                for name in names:
+                    ranks.setdefault(name, []).append(res[name])
+        print(f"layout phase: {world} ranks ran {names} in "
+              f"{time.perf_counter() - t0:.1f} s (start-up included)",
+              flush=True)
+    launches = {}
+    for name, (_, _, flags, world) in LAYOUT_RUNS.items():
+        want = layout_expected(name, True)
+        got, ref = ranks[name], refs[name]
+        for r, run in enumerate(got):
+            if run["launches"] != want:
+                raise AssertionError(f"{name} rank {r} launched "
+                                     f"{run['launches']}; its flags imply "
+                                     f"{want}")
+            diff = [k for k, v in got[0]["params"].items()
+                    if not torch.equal(v, run["params"][k])]
+            if diff:
+                raise AssertionError(f"{name}: rank {r}'s gathered "
+                                     f"parameters differ at {diff[:5]}")
+        data, model = layout_shape(name)
+        exact = model == 1
+        tol = 0.0 if exact else LAYOUT_FLOOR_FACTOR * floors[name]
+        diffs, rels = {}, {}
+        for k, want_t in ref["params"].items():
+            have = got[0]["params"][k]
+            diffs[k] = float((have - want_t).abs().max())
+            rels[k] = rel_err(have, want_t)
+            if exact and not torch.equal(have, want_t) or rels[k] > tol:
+                raise AssertionError(
+                    f"{name}: {k} differs from one process by "
+                    f"{diffs[k]} (relative {rels[k]}); "
+                    f"{'to the bit' if exact else tol} allowed")
+        tols = layout_accuracy_tolerances(name)
+        pairs = [(h, w) for hs, ws in zip(got[0]["history"], ref["history"])
+                 for h, w in zip(hs, ws)]
+        if len(got[0]["history"]) != len(ref["history"]):
+            raise AssertionError(f"{name}: eval histories of other lengths")
+        if not pairs:
+            pairs = [(got[0]["report"], ref["report"])]
+        for h, w in pairs:
+            if any(not math.isfinite(h[k]) for k in tols if h.get(k)
+                   is not None):
+                raise AssertionError(f"{name}: evals {h}")
+        worst = {k: max(abs(h[k] - w[k]) for h, w in pairs
+                        if w.get(k) is not None) for k in tols
+                 if any(w.get(k) is not None for _, w in pairs)}
+        if any(worst[k] > tols[k] + 1e-9 for k in worst):
+            raise AssertionError(f"{name}: evals differ by {worst} (at most "
+                                 f"{tols})")
+        # the whole tree in its parameters' dtype (fp32 at the flagship)
+        whole = {k: b for k, b in got[0]["whole_bytes"].items()}
+        whole_kb = sum(b for k, b in whole.items() if is_block_kernel(k))
+        want_kb = expected_kernel_bytes(name, whole)
+        rank_kb = [sum(b for k, b in run["shard_bytes"].items()
+                       if is_block_kernel(k)) for run in got]
+        if any(b != want_kb for b in rank_kb):
+            raise AssertionError(f"{name}: ranks hold {rank_kb} bytes of "
+                                 f"block kernels; the rules give {want_kb}")
+        for r, run in enumerate(got):
+            # AdamW's two moments follow the shards of what trains (every
+            # parameter in the pretrain)
+            held = sum(run["shard_bytes"].values())
+            if run.get("moment_bytes") not in (None, 2 * held):
+                raise AssertionError(f"{name} rank {r}: moments of "
+                                     f"{run['moment_bytes']} bytes")
+        launches[name] = want
+        print("layout " + json.dumps({
+            "path": name, "mesh": {"data": data, "model": model},
+            "flags": flags, "card": card,
+            "note": f"{world} gloo ranks sharing one card: walls measure "
+                    f"the path, not scaling",
+            "route": sorted({r["route"] for r in got}),
+            "rank_grad_accum": 1, "one_process_grad_accum": data,
+            "rank_wall_s": [r["wall_s"] for r in got],
+            "one_process_wall_s": ref["wall_s"],
+            "max_abs_param_diff": max(diffs.values()),
+            "max_rel_param_diff": max(rels.values()),
+            "noise_floor_rel": floors.get(name),
+            "tolerance": "bit-exact" if exact else
+            f"relative {tol} ({LAYOUT_FLOOR_FACTOR} x the noise floor)",
+            "worst_eval_diff": worst, "launches_per_rank": want,
+            "block_kernel_bytes_per_rank": rank_kb,
+            "block_kernel_mib_per_rank": [b / 2 ** 20 for b in rank_kb],
+            "block_kernel_bytes_whole": whole_kb,
+            "param_bytes_per_rank": [sum(r["shard_bytes"].values())
+                                     for r in got],
+            "param_bytes_whole": sum(whole.values()),
+            "moment_bytes_per_rank": [r.get("moment_bytes") for r in got],
+            "report_rank0": got[0]["report"] if not isinstance(
+                got[0]["report"], list) else None}), flush=True)
+    print(f"layout phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return launches
 
 
@@ -2849,7 +3249,9 @@ def main():
     profiler_phase([("pretrain step bs 480", pre_run, pre_ms, 2)], card)
     del pre_run
     folder_launches = native_phase(card, pre_ms)
-    dp_launches = dp_phase(card)
+    dp_launches, dp_refs = dp_phase(card)
+    layout_launches = layout_phase(card, dp_refs)
+    del dp_refs
     baseline_launches = baseline_phase()
     baseline_bench(card)
     eval_launches = eval_phase(card)
@@ -2868,6 +3270,8 @@ def main():
             "baselines": baseline_launches[name],
             "train_pretrain_folder": folder_launches[name],
             **{path: counts[name] for path, counts in dp_launches.items()},
+            **{f"layout_{path}": counts[name]
+               for path, counts in layout_launches.items()},
             **{path: counts[name] for path, counts in
                eval_launches.items()}}
 
@@ -2882,5 +3286,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(*sys.argv[2:])  # one rank of dp_phase
+    elif sys.argv[1:2] == ["--layout-rank"]:
+        layout_rank_main(*sys.argv[2:])  # one rank of layout_phase
     else:
         main()

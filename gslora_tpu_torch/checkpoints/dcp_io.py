@@ -30,12 +30,20 @@ def _no_dist() -> bool:
     return not (dist.is_available() and dist.is_initialized())
 
 
+def _writer(path: str):
+    """A file-system writer that replaces what ``path`` holds (orbax's
+    ``force=True``), whatever DCP's default for ``overwrite`` is."""
+    from torch.distributed.checkpoint import FileSystemWriter
+    return FileSystemWriter(path, overwrite=True)
+
+
 def save_dcp(path: str, state_dict: Dict[str, Any]) -> None:
     """Write ``state_dict`` to the directory ``path`` (replaced if it
     exists, as orbax's ``force=True``); every rank of a group calls it."""
     import torch.distributed.checkpoint as dcp
-    dcp.save(state_dict, checkpoint_id=os.path.abspath(path),
-             planner=_planner(), no_dist=_no_dist())
+    path = os.path.abspath(path)
+    dcp.save(state_dict, storage_writer=_writer(path), planner=_planner(),
+             no_dist=_no_dist())
 
 
 def load_dcp(path: str, template: Optional[Dict[str, Any]] = None
@@ -104,7 +112,7 @@ class AsyncSaver:
         import torch.distributed.checkpoint as dcp
         self.wait()
         self._pending = dcp.async_save(
-            state_dict, checkpoint_id=os.path.abspath(path),
+            state_dict, storage_writer=_writer(os.path.abspath(path)),
             planner=_planner(), process_group=self._group,
             no_dist=self._group is None)
 

@@ -18,6 +18,7 @@ from typing import Any, List
 import torch
 
 from gslora_tpu_torch.models.convert import flatten_tree, unflatten_tree
+from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.utils.trees import tree_map
 
 
@@ -114,27 +115,57 @@ class BestHCheckpointer:
         return self._saved[-1] if self._saved else None
 
 
-def save_train_state(path: str, state: Any) -> None:
+def _per_leaf(state: Any, opt_state: Any, fn) -> Any:
+    """``opt_state`` with ``fn(tensor, name)`` applied to each tensor of
+    its per-parameter lists (Adam's moments, a trace), which follow the
+    trainable parameters' order."""
+    names = state.trainable_names()
+    return {k: [fn(t, n) for t, n in zip(v, names)]
+            if isinstance(v, list) and len(v) == len(names) else v
+            for k, v in opt_state.items()}
+
+
+def save_train_state(path: str, state: Any, mesh=None) -> None:
     """Full snapshot of a ForgetState or PretrainState (parameters,
     optimizer state, step) for recovery in the middle of a task, finer
     than the reference's per-task granularity (SURVEY §5.3: a crash there
-    loses the task's progress). Tensors are copied to host memory."""
+    loses the task's progress). Tensors are copied to host memory.
+
+    ``mesh`` (parallel/mesh.DataMesh): every rank calls it; the parameters
+    and the optimizer's per-parameter tensors are gathered whole (the
+    names of one process's snapshot) and rank 0 writes."""
+    def whole(t, name):
+        return sharding.gather(mesh, t, sharding.named_specs(
+            mesh, [name], [t])[0]) if sharding.sharded(mesh) else t
+
+    params = flatten_tree(sharding.gather_tree(mesh, state.params))
+    opt_state = _per_leaf(state, state.opt_state, whole)
+    if mesh is not None and not mesh.is_main:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({"params": {k: v.detach().cpu() for k, v in
-                           flatten_tree(state.params).items()},
+    torch.save({"params": {k: v.detach().cpu() for k, v in params.items()},
                 "opt_state": tree_map(
                     lambda x: x.detach().cpu() if isinstance(
-                        x, torch.Tensor) else x, state.opt_state),
+                        x, torch.Tensor) else x, opt_state),
                 "step": state.step}, path)
 
 
-def restore_train_state(path: str, template: Any) -> Any:
+def restore_train_state(path: str, template: Any, mesh=None) -> Any:
     """Load a :func:`save_train_state` snapshot into ``template``, a fresh
     state of the same model, optimizer and trainable scope (the JAX
     package's restore into a template pytree): the parameters are copied
     in place (shapes and dtypes checked), the optimizer's tensors moved to
-    the template's device. Returns the template."""
+    the template's device. Returns the template. Under a sharding
+    ``mesh`` the template holds the rank's shards, and each takes its
+    shard of the whole snapshot (JAX's ``place_like``)."""
     snap = torch.load(path, map_location="cpu", weights_only=True)
+
+    def shard(t, name):
+        if not sharding.sharded(mesh):
+            return t
+        return sharding.take_shard(mesh, t, sharding.leaf_spec(
+            mesh, name.split("."), t.shape))
+
     own = dict(template.model.named_parameters())
     if set(own) != set(snap["params"]):
         diff = sorted(set(own) ^ set(snap["params"]))
@@ -142,7 +173,8 @@ def restore_train_state(path: str, template: Any) -> Any:
                        f"template's: {diff[:5]}")
     with torch.no_grad():
         for name, p in own.items():
-            _copy_into(p, snap["params"][name], f"{path}: {name}")
+            _copy_into(p, shard(snap["params"][name], name),
+                       f"{path}: {name}")
 
     def restored(t, saved):
         # optimizer tensors move to the template's device in their saved
@@ -156,8 +188,9 @@ def restore_train_state(path: str, template: Any) -> Any:
                              f"{tuple(t.shape)}")
         return saved.to(t.device)
 
-    template.opt_state = tree_map(restored, template.opt_state,
-                                  snap["opt_state"])
+    template.opt_state = tree_map(
+        restored, template.opt_state,
+        _per_leaf(template, snap["opt_state"], shard))
     template.step = snap["step"]
     return template
 

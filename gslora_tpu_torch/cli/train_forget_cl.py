@@ -33,7 +33,10 @@ cli/common.build_params. ``--dp`` runs every method data-parallel over
 torch.distributed ranks, one per card (``torchrun --nproc_per_node N -m
 gslora_tpu_torch.cli.train_forget_cl --dp ...``; engine/continual for
 GS-LoRA(++) and ``--one_stage``, :func:`run_baseline_continual` for the
-baselines), each rank loading its rows of every global batch.
+baselines), each rank loading its rows of every global batch. GS-LoRA
+(``--one_stage``) also runs on JAX's ``(data, model)`` mesh:
+``--mesh_model M``, ``--tp``, ``--fsdp`` (parallel/sharding; the prox step
+under ``--tp`` raises JAX's ValueError).
 ``--gemm_impl int8`` raises the model's ValueError at the first training
 step, as in the JAX CLI (int8 is an eval and serving path).
 ``--profile_dir`` is accepted and ignored, as by the JAX CLI.
@@ -69,6 +72,7 @@ from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
 from gslora_tpu_torch.models.vit_imagenet import resume_head
+from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
                                             check_batch_divisible,
                                             check_placement, make_mesh)
@@ -255,6 +259,7 @@ def main(argv=None):
                      else check_baseline_placement)
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
+    sharding.check_layout_support(cfg, mesh)
     main_rank = mesh is None or mesh.is_main
     device = resolve_device(cfg.device)  # no card when asked for: fail first
     train_ds, test_ds = build_datasets(cfg)

@@ -20,7 +20,11 @@ split, saves the best-accuracy checkpoint under ``--outdir`` and runs the
 Each rank loads its rows of every global batch of ``-b``; the loss and its
 gradient are the global batch's (engine/pretrain._accumulated); rank 0
 alone logs, verifies and writes checkpoints. Under one process ``--dp``
-changes nothing, as in JAX on one device.
+changes nothing, as in JAX on one device. ``--mesh_model M``, ``--tp``
+and ``--fsdp`` lay the ranks out as JAX's ``(data, model)`` mesh and
+shard the parameters and their optimizer moments (parallel/sharding):
+  torchrun --nproc_per_node 4 -m gslora_tpu_torch.cli.train_pretrain \
+      --dp --tp --fsdp --mesh_model 2 -b 480 ...
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from gslora_tpu_torch.engine.state import make_optimizer
 from gslora_tpu_torch.metrics.logging import MetricLogger, buffer_val, \
     gen_roc_plot
 from gslora_tpu_torch.models.vit import ViT, vit_apply
+from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import check_batch_divisible, make_mesh
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 from gslora_tpu_torch.utils.params import param_summary
@@ -64,8 +69,13 @@ def main(argv=None, return_state: bool = False):
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
         check_batch_divisible(mesh, cfg.data.batch_size)
+    sharding.check_layout_support(cfg, mesh)
+    if sharding.sharded(mesh) and args.ver_targets:
+        raise NotImplementedError(
+            f"--ver_targets under {sharding.layout_flags(mesh)} is not "
+            f"ported yet: rank 0 alone verifies, with whole parameters")
     main_rank = mesh is None or mesh.is_main
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.data
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
 
@@ -83,6 +93,9 @@ def main(argv=None, return_state: bool = False):
     vit = ViT(params, cfg.model, cfg.lora).to(device)
     if mesh is not None:
         mesh.broadcast_(list(vit.parameters()))  # one set of weights
+        if sharding.sharded(mesh):  # this rank's shards (JAX put_params)
+            vit = ViT(sharding.shard_tree(mesh, vit.tree()), cfg.model,
+                      cfg.lora)
     state = PretrainState.create(vit, opt,
                                  trains=is_lora if lora_only else None)
     step = make_pretrain_step(cfg.model, cfg.lora, opt, compute_dtype=cdt,
@@ -142,10 +155,11 @@ def main(argv=None, return_state: bool = False):
             buffer_val(logger, name, vacc, vstd, xnorm, thr,
                        gen_roc_plot(fpr, tpr), batch=batch)
 
-    # each rank draws its rows' dropout masks from a stream of its own
-    rank = 0 if mesh is None else mesh.rank
+    # each data index draws its rows' dropout masks from a stream of its
+    # own; the ranks of one model group draw the same masks
+    data_index = 0 if mesh is None else mesh.data_index
     generator = torch.Generator(device=device).manual_seed(
-        cfg.data.seed + 7919 * rank)
+        cfg.data.seed + 7919 * data_index)
     best_acc = float("-inf")
     batch = 0
     for epoch in range(cfg.num_epoch):
@@ -167,8 +181,10 @@ def main(argv=None, return_state: bool = False):
                     # (on every rank alike: rank 0 alone writes it)
                     if acc > best_acc and cfg.outdir:
                         best_acc = acc
+                        # every rank: the gather is a collective
+                        whole = sharding.gather_tree(mesh, state.params)
                         if ckpt:
-                            ckpt.maybe_save(acc, state.params, epoch, batch)
+                            ckpt.maybe_save(acc, whole, epoch, batch)
                 batch += 1
                 ep_images += int(x.shape[0]) * world
             if device.type == "cuda":

@@ -297,10 +297,11 @@ class DataConfig:
 class MeshConfig:
     """Device mesh layout of the JAX package (data / model axes, tp, fsdp,
     pp, sp, multi-slice; gslora_tpu/config.py describes each). The port
-    runs the data axis (``--dp``: torch.distributed ranks, one per card,
-    parallel/mesh); tp, fsdp, sp, pp and multi-slice are still to port
-    (to DTensor, FSDP2, torch.distributed.pipelining), and their flags
-    raise rather than pass silently (parallel/mesh.check_placement)."""
+    runs the ``(data, model)`` mesh (``--dp``: torch.distributed ranks,
+    one per card, parallel/mesh) with a model axis, tp and fsdp
+    (parallel/sharding); sp, pp and multi-slice are still to port, and
+    their flags raise rather than pass silently
+    (parallel/mesh.check_placement)."""
 
     data: int = -1  # -1 => all devices (after model/slices)
     model: int = 1

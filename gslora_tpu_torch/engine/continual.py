@@ -7,9 +7,12 @@ state_dict at task end and re-loads + LoRA-reinits at the next task start
 (:523-536, :1696-1714). Here that is the fold ``base <- merged(base,
 lora); lora <- reinit`` with no file round-trip; task snapshots are still
 written. The parameters live on ``cfg.device`` for the whole run. Under a
-data mesh every rank runs the task loop on its rows of each batch; the
-fold draws from one identically seeded generator on every rank, so the
-ranks keep one set of parameters, and rank 0 alone writes the snapshots.
+``(data, model)`` mesh every rank runs the task loop on the rows of its
+data index and on its shards of the parameters (parallel/sharding), the
+boundaries included: the fold adds each shard's part of B@A, the reinit
+draws each whole A from one identically seeded generator and keeps the
+rank's shard, so the ranks keep one set of parameters; rank 0 alone
+writes the snapshots, gathered.
 """
 from __future__ import annotations
 
@@ -32,6 +35,9 @@ from gslora_tpu_torch.engine.loop import ForgetData, ForgetResult, _dtype, \
 from gslora_tpu_torch.engine.prototypes import calculate_prototypes
 from gslora_tpu_torch.lora.core import reinit_lora
 from gslora_tpu_torch.metrics.logging import MetricLogger
+from gslora_tpu_torch.models.convert import flatten_tree
+from gslora_tpu_torch.parallel import sharding
+from gslora_tpu_torch.parallel.mesh import set_active
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 
 PROTO_BATCH = 500  # per-task prototype batch (cl.py:634-644)
@@ -119,7 +125,9 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
 
     ``mesh``: an optional parallel/mesh.DataMesh, passed to every task's
     run_forget_training as JAX passes its mesh (continual.py:98-176); the
-    old-class evals and the prototypes sum their counts over the ranks."""
+    old-class evals and the prototypes sum their counts over the data
+    axis. The whole ``params`` are broadcast from rank 0 and sharded once;
+    ``final_params`` is the whole tree again, on every rank."""
     if boundary not in ("merge_reinit", "keep"):
         raise ValueError(f"boundary must be merge_reinit|keep, "
                          f"got {boundary!r}")
@@ -135,6 +143,10 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
     out = ContinualResult()
     generator = torch.Generator().manual_seed(cfg.data.seed)
     params = detached(params, device)
+    set_active(mesh)
+    if mesh is not None:
+        mesh.broadcast_(list(flatten_tree(params).values()))
+        params = sharding.shard_tree(mesh, params)
 
     def loader(ds, bs):
         return process_sharded_loader(mesh, ds, bs, shuffle=False,
@@ -186,17 +198,18 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
             seed_offset=task * 1000,
             h_eps=1e-8,  # CL H-mean guard (engine_cl.py:279)
             continual=True,  # engine_cl: remain drives, no alpha gate
-            mesh=mesh)
+            mesh=mesh, local=True)
         params = detached(res.state.params)
 
         old_acc = None
         if test_old is not None and len(test_old) > 0:
             old_acc = old_eval(params)
             logger.log({f"Task {task} old Accuracy": old_acc})
-        if workdir and (mesh is None or mesh.is_main):
+        if workdir:
             with torch.no_grad():
-                merged = merged_params(params["base"], params["lora"],
-                                       lora.scaling)
+                merged = sharding.gather_tree(mesh, merged_params(
+                    params["base"], params["lora"], lora.scaling))
+        if workdir and (mesh is None or mesh.is_main):
             save_task_checkpoint(
                 workdir, task, {"base": merged},
                 extra={"task": task, "best_h": res.best_h,
@@ -205,5 +218,5 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
         out.tasks.append(TaskResult(task=task, result=res, old_acc=old_acc,
                                     old_acc_before=old_acc_before))
 
-    out.final_params = params
+    out.final_params = sharding.gather_tree(mesh, params)
     return out

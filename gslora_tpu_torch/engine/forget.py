@@ -24,6 +24,7 @@ from gslora_tpu_torch.losses.prototype import hinged_prototype_losses, \
 from gslora_tpu_torch.models.vit import vit_apply
 from gslora_tpu_torch.ops.group_lasso import fp32_threshold, lora_group_prox
 from gslora_tpu_torch.parallel.multihost import check_local_feed
+from gslora_tpu_torch.parallel.sharding import sync_grads
 from gslora_tpu_torch.utils.trees import PairwiseSum
 
 
@@ -79,6 +80,11 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
     scheme with an extra wrapper. With grad_accum 1 the sums come from the
     same forward that is differentiated (one forward per step); with
     grad_accum > 1 each rank microbatches its own rows in the two passes.
+    On a ``(data, model)`` mesh the sums and the gradients go over the
+    data axis only: the ranks of one model group hold the same rows, and
+    the model's collectives (parallel/sharding) give each of them the
+    whole gradient of its own leaves; fsdp shards come summed out of the
+    backward (``sync_grads``).
     """
     use_proto = fcfg.prototype if use_prototype is None else use_prototype
     if structure_mode not in ("loss", "prox"):
@@ -216,13 +222,13 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
             sums = dict(zip(keys, flat.unbind()))
         return sums
 
-    def accum_grads(state, leaves, xf, yf, xr, yr, protos, sc, generator,
-                    n):
+    def accum_grads(state, names, leaves, xf, yf, xr, yr, protos, sc,
+                    generator, n):
         """Gradients over ``n`` micro-batch pairs of this rank's rows,
         equal to the full-batch gradient (JAX ``_accum_grads``,
         forget.py:177-261)."""
         params = state.params
-        world = 1 if mesh is None else mesh.world
+        world = 1 if mesh is None else mesh.data
         micros = list(zip(*(t.split(t.shape[0] // n)
                             for t in (xf, yf, xr, yr))))
         if n == 1:
@@ -254,8 +260,7 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
                     surrogate(s, g, params, sc, 1.0 / (n * world)),
                     leaves)])
             grads = acc.total()
-        if mesh is not None:
-            mesh.all_reduce_(grads)
+        sync_grads(mesh, names, grads)
         return [gr.to(p.dtype) for gr, p in zip(grads, leaves)], metrics
 
     def step(state: ForgetState, xf, yf, xr, yr, protos,
@@ -267,14 +272,15 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
             check_local_feed(mesh, xf.shape[0])
             check_local_feed(mesh, xr.shape[0])
         leaves = state.trainable_params()
+        names = state.trainable_names()
         if grad_accum > 1 and xf.shape[0] % grad_accum == 0 and \
                 xr.shape[0] % grad_accum == 0:
-            grads, metrics = accum_grads(state, leaves, xf, yf, xr, yr,
-                                         protos, scalars, generator,
+            grads, metrics = accum_grads(state, names, leaves, xf, yf, xr,
+                                         yr, protos, scalars, generator,
                                          grad_accum)
         elif mesh is not None:
-            grads, metrics = accum_grads(state, leaves, xf, yf, xr, yr,
-                                         protos, scalars, generator, 1)
+            grads, metrics = accum_grads(state, names, leaves, xf, yf, xr,
+                                         yr, protos, scalars, generator, 1)
         else:
             # grad_accum == 1, or a ragged tail batch the micro split
             # cannot cut evenly: run it unaccumulated

@@ -8,12 +8,14 @@ train_own_forget.py:722-826).
   at the end, with H-mean-gated checkpointing (engine.py:381-409);
 * per-epoch alpha-warmup/beta-decay and timm cosine LR;
 * EMA of the merged model after ema_epoch (train_own_forget.py:783-826);
-* data parallelism over torch.distributed ranks (``mesh``, a
-  parallel/mesh.DataMesh): each rank loads its rows of every global batch,
-  the step computes the global-batch loss, evaluations sum their counts
-  over the ranks, and rank 0 alone writes checkpoints. The model-axis
-  modes of the JAX mesh (tp, fsdp, pp, sp, multi-slice) are not ported:
-  their flags raise (parallel/mesh.check_placement).
+* the ``(data, model)`` mesh over torch.distributed ranks (``mesh``, a
+  parallel/mesh.DataMesh): each rank loads the rows of its data index of
+  every global batch and holds its shards of the parameters
+  (parallel/sharding: a model axis, tp, fsdp), the step computes the
+  global-batch loss, evaluations sum their counts over the data axis, and
+  rank 0 alone writes checkpoints, of the gathered tree. pp, sp and
+  multi-slice are not ported: their flags raise
+  (parallel/mesh.check_placement).
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ from gslora_tpu_torch.engine.state import ForgetState, make_optimizer
 from gslora_tpu_torch.lora.core import lora_group_norms
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.vit import ViT
+from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import check_batch_divisible, \
-    check_placement
+    check_placement, check_prox_placement, set_active
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 
 
@@ -92,15 +95,19 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
                         seed_offset: int = 0,
                         h_eps: float = 0.0,
                         continual: bool = False,
-                        mesh=None) -> ForgetResult:
+                        mesh=None, local: bool = False) -> ForgetResult:
     """Train ``params`` (a parameter tree, moved to ``cfg.device``) with
     the GS-LoRA recipe of ``cfg``.
 
     ``mesh``: an optional parallel/mesh.DataMesh, as JAX's ``mesh``
-    (loop.py:125-160): parameters are broadcast from rank 0, the train and
-    test batches split over the ranks (padded static global batches), the
-    LoRA gradients are summed over them; every rank ends with the same
-    parameters and the same history. ``cfg.device`` is the rank's device.
+    (loop.py:125-160): the whole parameters are broadcast from rank 0 and
+    each rank keeps its shards (parallel/sharding.shard_tree: JAX's
+    ``put_params``), the train and test batches split over the data axis
+    (padded static global batches), the LoRA gradients are summed over
+    it; the ranks of a data index end with the same shards, every rank
+    with the same history. ``cfg.device`` is the rank's device. ``local``:
+    ``params`` are this rank's shards already (a continual run's next
+    task); ``ForgetResult.state`` holds the rank's shards.
 
     ``continual``: engine_cl semantics for a CL task — the remain loader
     ALWAYS drives the epoch (engine_cl.py:50-60) and the structure loss
@@ -110,12 +117,16 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
     seed = cfg.data.seed + seed_offset
+    set_active(mesh)
+    check_prox_placement(cfg, mesh)
     check_placement(cfg.mesh, mesh)
     check_batch_divisible(mesh, cfg.data.batch_size)
 
     vit = ViT(params, model, lora).to(device)
-    if mesh is not None:
+    if mesh is not None and not local:
         mesh.broadcast_(list(vit.parameters()))  # one set of weights
+        if sharding.sharded(mesh):
+            vit = ViT(sharding.shard_tree(mesh, vit.tree()), model, lora)
     # static batch shapes on the card and under a mesh (label -1
     # sentinels, masked by every loss/accuracy reduction), as the JAX loop
     # pads off the CPU; one-process CPU runs keep the reference's ragged
@@ -191,12 +202,14 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     forget_drives = (not continual and fcfg.few_shot and
                      len(loader_f) > len(loader_r))
 
-    # under a mesh each rank draws its rows' dropout masks from a stream
-    # of its own (rank 0's is the one-process stream)
-    rank = 0 if mesh is None else mesh.rank
-    generator = torch.Generator(device=device).manual_seed(seed +
-                                                           7919 * rank)
-    world = 1 if mesh is None else mesh.world
+    # under a mesh each data index draws its rows' dropout masks from a
+    # stream of its own (data index 0's is the one-process stream); the
+    # ranks of one model group draw the same masks, so their replicated
+    # activations stay equal
+    data_index = 0 if mesh is None else mesh.data_index
+    generator = torch.Generator(device=device).manual_seed(
+        seed + 7919 * data_index)
+    world = 1 if mesh is None else mesh.data
     batch = 0
     best_h = 0.0  # reference highest_H_mean init (train_own_forget.py:548)
     last = {"forget_acc": forget_acc_before, "remain_acc": remain_acc_before,
@@ -218,8 +231,10 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
         logger.log(payload, step=batch)
         if h > best_h:
             best_h = h
-            if ckpt:
-                ckpt.maybe_save(h, state.params, epoch, batch)
+            if workdir:  # every rank: the gather is a collective
+                whole = sharding.gather_tree(mesh, state.params)
+                if ckpt:
+                    ckpt.maybe_save(h, whole, epoch, batch)
         last.update(forget_acc=facc, remain_acc=racc, open_acc=oacc)
         history.append({"epoch": epoch, "batch": batch, **payload})
 

@@ -21,6 +21,7 @@ from gslora_tpu_torch.losses.classification import cross_entropy, \
 from gslora_tpu_torch.models.heads import sface_head
 from gslora_tpu_torch.models.vit import ViT, vit_apply, vit_embed
 from gslora_tpu_torch.parallel.multihost import check_local_feed
+from gslora_tpu_torch.parallel.sharding import fsdp_on, sync_grads
 from gslora_tpu_torch.utils.trees import PairwiseSum
 
 
@@ -51,6 +52,11 @@ class PretrainState:
 
     def trainable_params(self) -> List[torch.nn.Parameter]:
         return [p for p in self.model.parameters() if p.requires_grad]
+
+    def trainable_names(self) -> List[str]:
+        """The dotted names of :meth:`trainable_params`, in its order."""
+        return [n for n, p in self.model.named_parameters()
+                if p.requires_grad]
 
     @property
     def params(self) -> Dict:
@@ -106,6 +112,39 @@ def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32,
     return accum
 
 
+def _accumulated_fsdp(grad_fn: Callable, n: int, names, mesh,
+                      accum_dtype=torch.float32):
+    """:func:`_accumulated` for a mesh with fsdp shards, whose gradients
+    come out of the backward already summed over the data axis
+    (parallel/sharding.gather_from_data): so the global valid count is
+    summed first, and each micro-batch differentiates its masked mean
+    times ``valid / count`` (``grad_fn(x, y, weight)``), its part of the
+    global mean; the micro-gradients add up in ``accum_dtype`` and the
+    other leaves' are summed over ``data`` at the end. The metrics are
+    masked sums over the global count, as there."""
+    def accum(x, y):
+        b = x.shape[0]
+        parts = n if b % n == 0 else 1
+        count = torch.sum((y >= 0).to(accum_dtype)).reshape(1)
+        mesh.all_reduce_([count])
+        denom = torch.clamp(count[0], min=1.0)
+        grad_sums, metric_sums = PairwiseSum(), PairwiseSum()
+        for xm, ym in zip(x.split(b // parts), y.split(b // parts)):
+            valid = torch.sum((ym >= 0).to(accum_dtype))
+            grads, metrics = grad_fn(xm, ym, valid / denom)
+            dtypes = [g.dtype for g in grads]
+            grad_sums.add([g.to(accum_dtype) for g in grads])
+            metric_sums.add([m.detach().to(accum_dtype) * valid
+                             for m in metrics.values()])
+        grads, msums = grad_sums.total(), metric_sums.total()
+        sync_grads(mesh, names, grads)
+        mesh.all_reduce_(msums)
+        return [g.to(dt) for g, dt in zip(grads, dtypes)], \
+            {k: v / denom for k, v in zip(metrics, msums)}
+
+    return accum
+
+
 def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
                        compute_dtype=torch.bfloat16, grad_accum: int = 1,
                        accum_dtype=torch.float32, mesh=None):
@@ -119,7 +158,10 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
 
     ``mesh`` (parallel/mesh.DataMesh): each rank passes its rows of the
     global batch, and the loss is the masked mean over the global batch
-    (``_accumulated``), with or without ``grad_accum``."""
+    (``_accumulated``; ``_accumulated_fsdp`` under fsdp), with or without
+    ``grad_accum``. On a ``(data, model)`` mesh the sums run over the
+    data axis: the model's collectives give each rank of a model group
+    the whole gradient of its own shards."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -141,11 +183,17 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
         leaves = state.trainable_params()
         params = state.params
 
-        def grad_fn(xm, ym):
+        def grad_fn(xm, ym, weight=None):
             loss, metrics = loss_fn(params, xm, ym, generator)
+            if weight is not None:
+                loss = loss * weight
             return torch.autograd.grad(loss, leaves), metrics
 
-        if grad_accum > 1 or mesh is not None:
+        if fsdp_on(mesh):
+            grads, metrics = _accumulated_fsdp(
+                grad_fn, grad_accum, state.trainable_names(), mesh,
+                accum_dtype)(x, y)
+        elif grad_accum > 1 or mesh is not None:
             grads, metrics = _accumulated(grad_fn, grad_accum, accum_dtype,
                                           mesh)(x, y)
         else:

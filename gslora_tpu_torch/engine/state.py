@@ -216,6 +216,11 @@ class ForgetState:
         sub = self.model.base if self.trainable == "base" else self.model.lora
         return list(sub.parameters())
 
+    def trainable_names(self) -> List[str]:
+        """The dotted names of :meth:`trainable_params`, in its order."""
+        return [n for n, p in self.model.named_parameters()
+                if n.startswith(self.trainable + ".")]
+
     @property
     def params(self) -> Dict:
         return self.model.tree()

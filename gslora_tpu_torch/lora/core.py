@@ -18,6 +18,8 @@ from typing import Dict, List
 import torch
 
 from gslora_tpu_torch.config import LoraConfig, ViTConfig
+from gslora_tpu_torch.parallel import sharding
+from gslora_tpu_torch.parallel.mesh import active_mesh
 from gslora_tpu_torch.utils.inits import kaiming_uniform
 
 LoraTree = Dict[str, Dict[str, torch.Tensor]]
@@ -58,18 +60,25 @@ def reinit_lora(generator, lora_tree: LoraTree,
                 a: float = math.sqrt(50)) -> LoraTree:
     """Between continual tasks: A <- kaiming-uniform(a=sqrt(50)) (~=0), B <- 0
     (util/utils.py:428-441). Draws on the CPU generator, then moves each
-    tensor to its original device."""
+    tensor to its original device. A tensor sharded under the active mesh
+    (A2 under tp) is drawn whole and the rank keeps its shard, so the
+    stream is one process's."""
+    mesh = active_mesh()
     out: LoraTree = {}
     for pos, sub in lora_tree.items():
         out[pos] = {}
         for name, arr in sub.items():
             if name.startswith("A"):
+                path = ("lora", pos, name)
+                shape = sharding.whole_shape(mesh, path, arr.shape)
                 # one draw per (layer[, chunk]) matrix of shape (r, fan_in)
-                mats = [kaiming_uniform(generator, tuple(arr.shape[-2:]), a=a,
+                mats = [kaiming_uniform(generator, tuple(shape[-2:]), a=a,
                                         dtype=arr.dtype)
-                        for _ in range(arr[..., 0, 0].numel())]
-                out[pos][name] = torch.stack(mats).reshape(arr.shape).to(
-                    arr.device)
+                        for _ in range(math.prod(shape[:-2]))]
+                whole = torch.stack(mats).reshape(shape)
+                out[pos][name] = sharding.take_shard(
+                    mesh, whole, sharding.leaf_spec(mesh, path, shape)).to(
+                        arr.device)
             else:
                 out[pos][name] = torch.zeros_like(arr)
     return out
@@ -90,18 +99,27 @@ def merge_lora(base_blocks: dict, lora_tree: LoraTree,
     """Pure merge: block params with ``kernel += scaling * (B A)^T``.
 
     Kernels are stored (fan_in, fan_out); the delta per layer is
-    ``A^T @ B^T``, batched over the stacked layer axis. Gradients flow
-    through the fold into A and B."""
+    ``A^T @ B^T``, batched over the stacked layer axis (the FFN's also of
+    one layer's tensors). Gradients flow through the fold into A and B.
+    On the shards of a mesh (parallel/sharding) the tp dims of the FFN
+    factors and kernels agree; an fsdp kernel shard takes its rows or
+    columns of the delta."""
     blocks = dict(base_blocks)
     if not lora_tree:
         return blocks
+    mesh = active_mesh()
+
+    def add(kernel, delta):
+        delta = sharding.fit_shard(mesh, delta, kernel.shape)
+        return kernel + delta.to(kernel.dtype)
+
     if "ffn" in lora_tree:
         f = lora_tree["ffn"]
-        d1 = torch.einsum("lrd,lmr->ldm", f["A1"], f["B1"]) * scaling
-        d2 = torch.einsum("lrm,ldr->lmd", f["A2"], f["B2"]) * scaling
+        d1 = torch.einsum("...rd,...mr->...dm", f["A1"], f["B1"]) * scaling
+        d2 = torch.einsum("...rm,...dr->...md", f["A2"], f["B2"]) * scaling
         fc1, fc2 = dict(blocks["fc1"]), dict(blocks["fc2"])
-        fc1["kernel"] = fc1["kernel"] + d1.to(fc1["kernel"].dtype)
-        fc2["kernel"] = fc2["kernel"] + d2.to(fc2["kernel"].dtype)
+        fc1["kernel"] = add(fc1["kernel"], d1)
+        fc2["kernel"] = add(fc2["kernel"], d2)
         blocks["fc1"], blocks["fc2"] = fc1, fc2
     if "attn" in lora_tree:
         a = lora_tree["attn"]
@@ -118,6 +136,18 @@ def _per_layer_sq(arr: torch.Tensor) -> torch.Tensor:
     """Sum of squares per leading-layer index -> (L,) in fp32."""
     a = arr.float()
     return torch.sum(a.reshape(a.shape[0], -1) ** 2, dim=-1)
+
+
+def _ffn_sq(ffn: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per-layer sums of squares of the FFN factors; under tp (the active
+    mesh's) B1 and A2 hold shards, whose partial sums are summed over
+    ``model`` (g: the gradient of each shard stays its own)."""
+    mesh = active_mesh()
+    sq = {k: _per_layer_sq(v) for k, v in ffn.items()}
+    if sharding.tp_on(mesh):
+        for k in ("B1", "A2"):
+            sq[k] = sharding.reduce_from_model(sq[k], mesh)
+    return sq
 
 
 def group_lasso(lora_tree: LoraTree, group_type: str = "block",
@@ -138,7 +168,7 @@ def group_lasso(lora_tree: LoraTree, group_type: str = "block",
         return torch.sqrt(s + eps)
 
     if group_pos == "FFN":
-        sq = {k: _per_layer_sq(v) for k, v in lora_tree["ffn"].items()}
+        sq = _ffn_sq(lora_tree["ffn"])
         if group_type == "block":
             return torch.sum(root(sq["A1"] + sq["B1"] + sq["A2"] + sq["B2"]))
         if group_type == "lora":
@@ -162,8 +192,12 @@ def lora_group_norms(lora_tree: LoraTree, group_pos: str = "FFN",
     if group_pos == "FFN":
         f = lora_tree["ffn"]
         if ord == 2:
-            sq = sum(_per_layer_sq(f[k]) for k in ("A1", "B1", "A2", "B2"))
+            sq = _ffn_sq(f)
+            sq = sum(sq[k] for k in ("A1", "B1", "A2", "B2"))
             return [float(x) for x in torch.sqrt(sq)]
+        if sharding.tp_on(active_mesh()):
+            raise NotImplementedError("L1 group norms of tp-sharded LoRA "
+                                      "factors are not ported")
         norms = sum(torch.sum(arr.float().abs().reshape(arr.shape[0], -1),
                               dim=-1) for arr in f.values())
         return [float(x) for x in norms]

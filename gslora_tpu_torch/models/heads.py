@@ -4,6 +4,11 @@
 The margin branches (ArcFace th/mm fallback) and the one-hot are
 numerically sensitive in bf16, so every head casts its inputs to fp32.
 Label -1 (the pad sentinel) one-hots to an all-zero row.
+
+On a mesh with a model axis (parallel/sharding) the weight holds this
+rank's rows of the classes: the scores against them are gathered over
+``model`` before any margin, so every head sees the whole (B, C); the
+embedding enters through f, so its gradient sums every rank's classes.
 """
 from __future__ import annotations
 
@@ -11,6 +16,9 @@ import math
 from typing import Dict, Tuple
 
 import torch
+
+from gslora_tpu_torch.parallel import sharding
+from gslora_tpu_torch.parallel.mesh import active_mesh
 
 
 def _l2norm(x, dim=-1, eps=1e-12):
@@ -26,15 +34,28 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (labels[:, None] == classes).float()
 
 
+def _class_scores(emb: torch.Tensor, weight: torch.Tensor,
+                  fn) -> torch.Tensor:
+    """``fn(emb, weight)`` (B, C) in fp32; under a class-sharded head, the
+    rank's columns gathered over ``model``."""
+    mesh = active_mesh()
+    if not sharding.head_split(mesh):
+        return fn(emb.float(), weight.float())
+    emb = sharding.copy_to_model(emb.float(), mesh)
+    return sharding.gather_from_model(fn(emb, weight.float()), mesh)
+
+
 def _cosine(emb: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """cos(theta) between embeddings (B, d) and class weights (C, d)."""
-    return _l2norm(emb.float()) @ _l2norm(weight.float()).t()
+    return _class_scores(emb, weight,
+                         lambda e, w: _l2norm(e) @ _l2norm(w).t())
 
 
 def softmax_head(params: Dict, emb, labels):
     """Plain FC head (vit_face.py:14-69; F.linear(x, W, b))."""
     del labels
-    return emb.float() @ params["weight"].float().t() + params["bias"].float()
+    return _class_scores(emb, params["weight"], lambda e, w: e @ w.t()) + \
+        params["bias"].float()
 
 
 def cosface_head(params: Dict, emb, labels, s: float = 64.0,

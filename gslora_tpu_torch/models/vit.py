@@ -38,6 +38,8 @@ from gslora_tpu_torch.lora.core import init_lora, lora_delta, merge_lora
 from gslora_tpu_torch.models.heads import apply_head
 from gslora_tpu_torch.ops.attention import fused_attention_bhnd
 from gslora_tpu_torch.ops.quant import int8_linear
+from gslora_tpu_torch.parallel import sharding
+from gslora_tpu_torch.parallel.mesh import active_mesh
 from gslora_tpu_torch.utils.inits import (kaiming_uniform, lecun_linear_bias,
                                           xavier_normal, xavier_uniform)
 
@@ -174,12 +176,19 @@ def _proj(x, kernel, model: ViTConfig):
     return x @ kernel.to(x.dtype)
 
 
-def _dropout(x, rate: float, generator, deterministic: bool):
-    """Keep with probability 1-rate and scale by 1/keep (vit.py:170-172)."""
+def _dropout(x, rate: float, generator, deterministic: bool,
+             shards: int = 1, index: int = 0):
+    """Keep with probability 1-rate and scale by 1/keep (vit.py:170-172).
+    ``x`` the ``index``-th of ``shards`` column shards of a tensor (the
+    tp-sharded FFN hidden): the mask is that slice of the whole tensor's
+    draw, so every rank of a model group draws as one process does."""
     if deterministic or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape[:-1] + (x.shape[-1] * shards,)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shards > 1:
+        mask = mask.chunk(shards, dim=-1)[index]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -244,13 +253,35 @@ def _attention_block(x, blk, lora_blk, model: ViTConfig, scaling: float,
     return x + out
 
 
+def _tp_lora(lora_blk, mesh):
+    """The FFN LoRA factors that stay whole under tp (A1, B2) but meet
+    sharded ones (B1, A2) in a product: through f, so that their gradient,
+    partial on each model rank, is summed over ``model``."""
+    if not sharding.tp_on(mesh) or not lora_blk or "ffn" not in lora_blk:
+        return lora_blk
+    f = dict(lora_blk["ffn"])
+    f["A1"] = sharding.copy_to_model(f["A1"], mesh)
+    f["B2"] = sharding.copy_to_model(f["B2"], mesh)
+    return {**lora_blk, "ffn": f}
+
+
 def _ffn_block(x, blk, lora_blk, model: ViTConfig, scaling: float, generator,
                deterministic: bool):
     """Pre-norm LoRA-FFN with residual (vit_face.py:326-338): where the
-    GS-LoRA trainable parameters live."""
+    GS-LoRA trainable parameters live.
+
+    Under tp (the active mesh's, parallel/sharding) fc1 and B1 hold this
+    rank's columns of the hidden, fc2 and A2 its rows: the normed input
+    enters through f, the row-parallel output leaves through g (a SUM over
+    ``model``, in fp32), and fc2's bias is added once, after the sum."""
+    mesh = active_mesh()
+    tp = sharding.tp_on(mesh)
     cdt = x.dtype
     h = _layer_norm(x, blk["ffn_ln"]["scale"], blk["ffn_ln"]["bias"],
                     ln_dtype=model.ln_dtype).to(cdt)
+    if tp:
+        h = sharding.copy_to_model(h, mesh)
+    lora_blk = _tp_lora(lora_blk, mesh)
     u = _proj(h, blk["fc1"]["kernel"], model) + blk["fc1"]["bias"].to(cdt)
     if lora_blk and "ffn" in lora_blk:
         u = u + lora_delta(h, lora_blk["ffn"]["A1"], lora_blk["ffn"]["B1"],
@@ -262,11 +293,19 @@ def _ffn_block(x, blk, lora_blk, model: ViTConfig, scaling: float, generator,
         u = torch.nn.functional.gelu(u)
     else:  # "tanh" — parity-diverging ablation
         u = torch.nn.functional.gelu(u, approximate="tanh")
-    u = _dropout(u, model.dropout, generator, deterministic)
-    y = _proj(u, blk["fc2"]["kernel"], model) + blk["fc2"]["bias"].to(cdt)
+    u = _dropout(u, model.dropout, generator, deterministic,
+                 *((mesh.model, mesh.model_index) if tp else ()))
+    y = _proj(u, blk["fc2"]["kernel"], model)
+    if not tp:
+        y = y + blk["fc2"]["bias"].to(cdt)
     if lora_blk and "ffn" in lora_blk:
         y = y + lora_delta(u, lora_blk["ffn"]["A2"], lora_blk["ffn"]["B2"],
                            scaling)
+    if tp:
+        # the partial products are summed in fp32, so the whole is rounded
+        # to the compute dtype once, as one process's GEMM rounds it
+        y = sharding.reduce_from_model(y.float(), mesh).to(cdt) + \
+            blk["fc2"]["bias"].to(cdt)
     y = _dropout(y, model.dropout, generator, deterministic)
     return x + y
 
@@ -307,7 +346,8 @@ def _rematerialized(fn, x, generator):
 
 def transformer_stack(x, blocks: Params, lora_tree: Params, model: ViTConfig,
                       scaling: float, generator, deterministic: bool,
-                      layer_range: Optional[Tuple[int, int]] = None):
+                      layer_range: Optional[Tuple[int, int]] = None,
+                      fold: bool = False):
     """Apply the stacked transformer blocks, one layer after another.
     ``layer_range=(lo, hi)`` runs only layers [lo, hi) of the stack (the
     LIRF low/up split, vit_face.py:382-446, as a slice of the stacked
@@ -315,14 +355,25 @@ def transformer_stack(x, blocks: Params, lora_tree: Params, model: ViTConfig,
     the model's whole depth. ``model.remat`` checkpoints each layer while
     autograd records (the JAX package's ``jax.checkpoint`` on the scan
     body, vit.py:424): the backward reruns each layer's forward, attention
-    included."""
+    included.
+
+    Under fsdp (the active mesh's) each layer gathers its kernels' shards
+    over ``data`` inside the layer function, so a rematerialized layer
+    gathers again in its recompute and only one layer is ever whole;
+    ``fold`` then merges the layer's LoRA into the gathered kernels (the
+    merged apply mode)."""
     lo, hi = layer_range if layer_range is not None else (0, model.depth)
     remat = model.remat and torch.is_grad_enabled()
+    mesh = active_mesh()
     for i in range(lo, hi):
         blk = _layer(blocks, i)
         lora_blk = _layer(lora_tree, i) if lora_tree else None
 
         def layer(x, blk=blk, lora_blk=lora_blk):
+            blk = sharding.gather_layer(mesh, blk)
+            if fold:
+                blk = merge_lora(blk, _tp_lora(lora_blk, mesh), scaling)
+                lora_blk = None
             x = _attention_block(x, blk, lora_blk, model, scaling,
                                  generator, deterministic)
             return _ffn_block(x, blk, lora_blk, model, scaling, generator,
@@ -358,9 +409,14 @@ def vit_embed(params: Params, images, model: ViTConfig, lora: LoraConfig, *,
                          "train with the default bf16 GEMMs")
     base = params["base"]
     lora_tree = params.get("lora", {})
-    if lora_tree and lora_apply == "merged":
+    # under fsdp the fold waits for each layer's gather (transformer_stack)
+    fold = bool(lora_tree) and lora_apply == "merged" and \
+        sharding.fsdp_on(active_mesh())
+    if lora_tree and lora_apply == "merged" and not fold:
         base = dict(base)
-        base["blocks"] = merge_lora(base["blocks"], lora_tree, lora.scaling)
+        base["blocks"] = merge_lora(base["blocks"],
+                                    _tp_lora(lora_tree, active_mesh()),
+                                    lora.scaling)
         lora_tree = {}
     cdt = compute_dtype
     deterministic = not train
@@ -387,7 +443,7 @@ def vit_embed(params: Params, images, model: ViTConfig, lora: LoraConfig, *,
         x = _dropout(x, model.emb_dropout, generator, deterministic)
 
     x = transformer_stack(x, base["blocks"], lora_tree, model, lora.scaling,
-                          generator, deterministic, layer_range)
+                          generator, deterministic, layer_range, fold=fold)
     if return_tokens:
         return x
     pooled = x.mean(dim=1) if model.pool == "mean" else x[:, 0]

@@ -68,14 +68,16 @@ def host_batch_bounds(mesh, global_batch: int,
                       process_index: Optional[int] = None
                       ) -> Tuple[int, int]:
     """Rows of the global batch that rank ``process_index`` (this rank by
-    default) loads: its block of the ``(data, model=1)`` mesh, one device
-    per rank."""
+    default) loads: the block of its data index on the ``(data, model)``
+    mesh, one device per rank (``devices.reshape(data, model)``, so rank
+    ``r`` is device ``(r // M, r % M)``). The ranks of one model group
+    load the same rows."""
     pid = mesh.rank if process_index is None else process_index
-    owner = np.arange(mesh.world).reshape(mesh.world, 1)
+    owner = np.arange(mesh.world).reshape(mesh.data, mesh.model)
     blocks = process_block_map((DATA_AXIS, MODEL_AXIS), owner).get(pid)
     if blocks is None:
         raise ValueError(f"process {pid} owns no devices in this mesh")
-    return blocks_to_bounds(global_batch, mesh.world, blocks)
+    return blocks_to_bounds(global_batch, mesh.data, blocks)
 
 
 # The global batch sizes of the loaders made by process_sharded_loader:
@@ -95,12 +97,12 @@ def check_local_feed(mesh, rows: int) -> None:
     batch (the guard of JAX ``make_global_batch``)."""
     if mesh is None or not _DECLARED_BATCHES:
         return
-    if not any(b % mesh.world == 0 and b // mesh.world == rows
+    if not any(b % mesh.data == 0 and b // mesh.data == rows
                for b in _DECLARED_BATCHES):
         raise ValueError(
             f"process {mesh.rank}'s feed of {rows} rows matches no declared "
             f"global batch size {sorted(_DECLARED_BATCHES)} at its "
-            f"1/{mesh.world} share — a full-global-batch feed from every "
+            f"1/{mesh.data} share — a full-global-batch feed from every "
             f"rank? Use process_sharded_loader so each rank decodes only "
             f"its row span")
 

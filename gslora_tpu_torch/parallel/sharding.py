@@ -1,0 +1,306 @@
+"""The parameter layout of a ``(data, model)`` mesh and the collectives the
+model runs under it (port of ``param_shardings``, ``replicate`` and
+``place_like``, gslora_tpu/parallel/mesh.py:220-346).
+
+JAX states a layout as a NamedSharding per leaf and lets GSPMD derive the
+collectives. Here every rank builds the whole tree from one seed,
+:func:`shard_tree` keeps the rank's shard of each leaf (the shard JAX's
+NamedSharding gives that device), and the forward calls the collectives
+itself, as autograd functions:
+
+* tp (Megatron): :func:`copy_to_model` (f: identity forward, SUM over
+  ``model`` backward) where a replicated tensor enters the sharded FFN, and
+  :func:`reduce_from_model` (g: SUM over ``model`` forward, identity
+  backward) where the FFN's row-parallel product leaves it;
+* a class-sharded head: :func:`gather_from_model` of its scores (backward:
+  the rank's columns);
+* fsdp: :func:`gather_from_data`, the per-layer all_gather of a kernel's
+  shards, whose backward is a reduce_scatter.
+
+The rules are JAX's: tp shards fc1 (L, d, m) by columns and its bias,
+fc2 (L, m, d) by rows, LoRA B1 (L, m, r) on dim 1 and A2 (L, r, m) on
+dim 2 over ``model``; fsdp the d dim of the qkv, attn_out, fc1 and fc2
+kernels over ``data``; the head weight's class dim goes over ``model``
+whenever that axis is > 1. Optimizer moments follow their parameters.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from gslora_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, DataMesh
+
+Spec = Tuple[Optional[str], ...]
+
+# (path names to match, leaf ndim, sharded dim), gslora_tpu/parallel/
+# mesh.py:220-238
+_TP_RULES = (
+    (("fc1", "kernel"), 3, 2),
+    (("fc1", "bias"), 2, 1),
+    (("fc2", "kernel"), 3, 1),
+    (("ffn", "B1"), 3, 1),
+    (("ffn", "A2"), 3, 2),
+)
+_FSDP_RULES = (
+    (("qkv", "kernel"), 3, 1),
+    (("attn_out", "kernel"), 3, 2),
+    (("fc1", "kernel"), 3, 1),
+    (("fc2", "kernel"), 3, 2),
+)
+
+
+def tp_on(mesh: Optional[DataMesh]) -> bool:
+    return mesh is not None and mesh.tp and mesh.model > 1
+
+
+def fsdp_on(mesh: Optional[DataMesh]) -> bool:
+    return mesh is not None and mesh.fsdp and mesh.data > 1
+
+
+def head_split(mesh: Optional[DataMesh]) -> bool:
+    return mesh is not None and mesh.model > 1
+
+
+def sharded(mesh: Optional[DataMesh]) -> bool:
+    """Whether any leaf is sharded under ``mesh``."""
+    return head_split(mesh) or fsdp_on(mesh)
+
+
+def leaf_spec(mesh: Optional[DataMesh], names: Sequence[str],
+              shape: Sequence[int]) -> Spec:
+    """The mesh axis of each dim of the leaf at path ``names`` (None:
+    whole), as JAX's ``param_shardings`` places it (``shard_head=True``,
+    its default and the only value its callers pass), with its
+    divisibility errors."""
+    spec: List[Optional[str]] = [None] * len(shape)
+    if mesh is None:
+        return tuple(spec)
+    names = list(names)
+    mp, dp = mesh.model, mesh.data
+    if "head" in names and "weight" in names and \
+            len(shape) == 2 and mp > 1:
+        if shape[0] % mp != 0:
+            raise ValueError(
+                f"head weight class dim {shape[0]} not divisible "
+                f"by model axis {mp} — pick a model axis that divides "
+                f"num_class")
+        return (MODEL_AXIS, None)
+    active = []
+    if mesh.tp and mp > 1:
+        active.append(("tp", _TP_RULES, MODEL_AXIS, mp))
+    if mesh.fsdp and dp > 1:
+        active.append(("fsdp", _FSDP_RULES, DATA_AXIS, dp))
+    for mode, rules, axis, size in active:
+        for keys, ndim, dim in rules:
+            if all(k in names for k in keys) and len(shape) == ndim:
+                if shape[dim] % size != 0:
+                    raise ValueError(
+                        f"{mode}=True: {'/'.join(map(str, names))} dim "
+                        f"{dim} size {shape[dim]} not divisible "
+                        f"by {axis} axis {size}")
+                spec[dim] = axis
+    return tuple(spec)
+
+
+def take_shard(mesh: DataMesh, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` under ``spec``."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            t = t.chunk(mesh.size(axis), dim=dim)[mesh.index(axis)]
+    return t
+
+
+def _walk(tree: Dict, fn, path: Tuple[str, ...] = ()) -> Dict:
+    return {k: _walk(v, fn, path + (k,)) if isinstance(v, dict)
+            else fn(path + (k,), v) for k, v in tree.items()}
+
+
+def shard_tree(mesh: Optional[DataMesh], tree: Dict) -> Dict:
+    """This rank's shards of a whole parameter tree (every rank built the
+    same one), contiguous; the tree itself without a sharding mesh."""
+    if not sharded(mesh):
+        return tree
+    return _walk(tree, lambda path, t: take_shard(
+        mesh, t, leaf_spec(mesh, path, t.shape)).contiguous())
+
+
+def whole_shape(mesh: Optional[DataMesh], names: Sequence[str],
+                shape: Sequence[int]) -> Tuple[int, ...]:
+    """The whole shape of a shard of ``shape`` at path ``names`` (the
+    shape itself for a whole one). The rules look at the ndim and the
+    names only, so the shard's shape finds its spec."""
+    spec = _spec_by_names(mesh, names, len(shape))
+    return tuple(n * (1 if a is None else mesh.size(a))
+                 for n, a in zip(shape, spec))
+
+
+def _spec_by_names(mesh, names, ndim) -> Spec:
+    """leaf_spec without the divisibility checks (sizes of 0 divide)."""
+    return leaf_spec(mesh, names, (0,) * ndim)
+
+
+def gather(mesh: DataMesh, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """The whole tensor from every rank's shard of it (no autograd)."""
+    with torch.no_grad():
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                t = mesh.all_gather(t, axis, dim)
+    return t
+
+
+def gather_tree(mesh: Optional[DataMesh], tree: Dict) -> Dict:
+    """The whole tree from this rank's shards, on every rank (a collective:
+    every rank calls it); detached tensors."""
+    if not sharded(mesh):
+        return tree
+    return _walk(tree, lambda path, t: gather(
+        mesh, t.detach(), _spec_by_names(mesh, path, t.ndim)))
+
+
+def named_specs(mesh: Optional[DataMesh],
+                names: Sequence[str], tensors: Sequence[torch.Tensor]
+                ) -> List[Spec]:
+    """The specs of parameters named by dotted paths (``nn.Module``
+    names, ``base.blocks.fc1.kernel``)."""
+    return [_spec_by_names(mesh, n.split("."), t.ndim)
+            for n, t in zip(names, tensors)]
+
+
+def fit_shard(mesh: Optional[DataMesh], t: torch.Tensor,
+              shape: Sequence[int]) -> torch.Tensor:
+    """``t`` cut down to a shard of ``shape`` where a dim is larger: a
+    whole-over-data product (a LoRA fold) added to an fsdp kernel shard."""
+    for dim, n in enumerate(shape):
+        if t.shape[dim] != n:
+            t = t.narrow(dim, mesh.data_index * n, n)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# the collectives of the forward, as autograd functions
+# ---------------------------------------------------------------------------
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        ctx.mesh.all_reduce_([g], axis=MODEL_AXIS)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        out = x.contiguous().clone()
+        mesh.all_reduce_([out], axis=MODEL_AXIS)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return mesh.all_gather(x, MODEL_AXIS, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.model_index * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n), None, None
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.all_gather(x, DATA_AXIS, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, DATA_AXIS, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Megatron's f: ``x`` as is; its gradient summed over ``model``."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Megatron's g: the SUM of ``x`` over ``model``; its gradient as
+    is."""
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, mesh: DataMesh,
+                      dim: int = -1) -> torch.Tensor:
+    """The shards of ``x`` over ``model`` concatenated along ``dim`` (the
+    head's class scores); the gradient of the rank's part is its slice."""
+    return _GatherFromModel.apply(x, mesh, dim % x.ndim)
+
+
+def gather_from_data(x: torch.Tensor, mesh: DataMesh,
+                     dim: int) -> torch.Tensor:
+    """The shards of ``x`` over ``data`` concatenated along ``dim`` (an
+    fsdp kernel, one layer at a time); the gradient is reduce_scattered
+    back, so each rank holds its shard's SUM over the data axis."""
+    return _GatherFromData.apply(x, mesh, dim % x.ndim)
+
+
+def gather_layer(mesh: Optional[DataMesh], blk: Dict) -> Dict:
+    """One layer's block tensors with their fsdp shards gathered (the
+    stacked rules' dims less the layer dim)."""
+    if not fsdp_on(mesh):
+        return blk
+    out = dict(blk)
+    for (name, leaf), _, dim in _FSDP_RULES:
+        sub = dict(out[name])
+        sub[leaf] = gather_from_data(sub[leaf], mesh, dim - 1)
+        out[name] = sub
+    return out
+
+
+def sync_grads(mesh: Optional[DataMesh], names: Sequence[str],
+               grads: Sequence[torch.Tensor]) -> None:
+    """SUM each gradient over the data axis in place, but those of fsdp
+    shards, which the backward of :func:`gather_from_data` already
+    summed."""
+    if mesh is None:
+        return
+    specs = named_specs(mesh, names, grads)
+    mesh.all_reduce_([g for g, s in zip(grads, specs) if DATA_AXIS not in s])
+
+
+def layout_flags(mesh: Optional[DataMesh]) -> str:
+    """The flags that shard under ``mesh``, as a user typed them."""
+    if mesh is None:
+        return ""
+    return " ".join(f for f, on in (
+        ("--tp", tp_on(mesh)), ("--fsdp", fsdp_on(mesh)),
+        (f"--mesh_model {mesh.model}", mesh.model > 1)) if on)
+
+
+def check_layout_support(cfg, mesh: Optional[DataMesh]) -> None:
+    """The sharded layouts run what the tests hold against the JAX
+    package: the face ViT (-n VIT) with FFN LoRA; anything else under them
+    raises NotImplementedError naming its flags."""
+    if not sharded(mesh):
+        return
+    flags = layout_flags(mesh)
+    if cfg.net != "VIT":
+        raise NotImplementedError(
+            f"-n {cfg.net} under {flags} is not ported yet: the (data, "
+            f"model) layouts run the face ViT (-n VIT)")
+    if cfg.lora.rank > 0 and cfg.lora.pos != "FFN":
+        raise NotImplementedError(
+            f"--lora_pos {cfg.lora.pos} under {flags} is not ported yet: "
+            f"the (data, model) layouts run FFN LoRA")

@@ -111,3 +111,36 @@ def test_two_ranks_save_and_load_a_replicated_state(state, tmp_path):
         sizes = {p.name: p.stat().st_size for p in (tmp_path / name).iterdir()
                  if p.suffix == ".distcp"}
         assert sizes["__1_0.distcp"] == 0 < sizes["__0_0.distcp"], sizes
+
+
+@pytest.mark.parametrize("saver", ["sync", "async"])
+def test_a_second_save_to_one_path_replaces_the_first(state, tmp_path,
+                                                      saver):
+    """Two trees saved to one path read back as the second (orbax's
+    ``force=True``): the writer asks DCP to overwrite, whatever its
+    default for ``overwrite`` becomes."""
+    from gslora_tpu_torch.checkpoints import dcp_io
+    live = W.train_state()
+    path = str(tmp_path / "ckpt")
+    assert dcp_io._writer(path).overwrite is True
+    if saver == "sync":
+        save_dcp(path, live)
+        with torch.no_grad():
+            live["params"]["base"]["head"]["weight"].mul_(-2.0)
+        save_dcp(path, live)
+    else:
+        s = AsyncSaver()
+        s.save(path, live)
+        s.wait()
+        with torch.no_grad():
+            live["params"]["base"]["head"]["weight"].mul_(-2.0)
+        s.save(path, live)
+        s.close()
+    back = W.flat_state(load_dcp(path))
+    want = W.flat_state(state)
+    np.testing.assert_array_equal(back["/params/base/head/weight"],
+                                  want["/params/base/head/weight"] *
+                                  np.float32(-2.0))
+    for k, v in want.items():
+        if k != "/params/base/head/weight" and isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(back[k], v, err_msg=k)

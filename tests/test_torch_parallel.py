@@ -94,20 +94,74 @@ def test_refusals_match_jax_placement(mesh_kw, flags):
 
 
 @pytest.mark.parametrize("mesh_kw,flags,name", [
-    ({"data": 4, "model": 2}, {"tp": True}, "--tp"),
+    ({"data": 4, "model": 2}, {"tp": True, "sp": True}, "--sp"),
     ({"data": 4, "model": 2}, {"pp": True}, "--pp"),
     ({"data": 4, "model": 2}, {"sp": True}, "--sp"),
-    ({"data": 8, "model": 1}, {"fsdp": True}, "--fsdp"),
-    ({"data": 4, "model": 2}, {}, "--mesh_model"),
+    ({"data": 2, "model": 2, "slices": 2}, {"tp": True}, "--mesh_slices"),
+    ({"data": 2, "model": 2}, {}, "--mesh_data 2"),
     ({"data": 4, "model": 1}, {}, "--mesh_data 4"),
     ({"data": 4, "model": 1, "slices": 2}, {}, "--mesh_slices"),
-], ids=["tp", "pp", "sp", "fsdp", "model2", "data4", "slices2"])
+], ids=["tp_sp", "pp", "sp", "slices2_tp", "data2_model2", "data4",
+        "slices2"])
 def test_unported_layouts_raise_not_implemented(mesh_kw, flags, name):
-    """What JAX runs but the port does not raises NotImplementedError
-    naming the flag, never a silent replicated run."""
+    """What JAX runs but the port does not (pp, sp, multi-slice, a mesh
+    that leaves devices idle) raises NotImplementedError naming the flag,
+    never a silent replicated run."""
     assert _jax_outcome(mesh_kw, flags) is None
     kind, msg = _port_outcome(mesh_kw, flags)
     assert kind is NotImplementedError and name in msg
+
+
+@pytest.mark.parametrize("mesh_kw,flags", [
+    ({"data": 4, "model": 2}, {"tp": True}),
+    ({"data": 8, "model": 1}, {"fsdp": True}),
+    ({"data": 4, "model": 2}, {}),
+    ({"model": 2}, {"tp": True, "fsdp": True}),
+    ({"data": 1, "model": 8}, {"tp": True}),
+], ids=["tp", "fsdp", "model2", "tp_fsdp", "model8_tp"])
+def test_mesh_layouts_pass_the_guards(mesh_kw, flags):
+    """--mesh_model, --tp, --fsdp and their compositions run on a mesh of
+    the whole world, as JAX's placement() accepts them; a baseline still
+    refuses them."""
+    assert _jax_outcome(mesh_kw, flags) is None
+    assert _port_outcome(mesh_kw, flags) is None
+    world = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="baseline runners"):
+        tmesh.check_baseline_placement(MeshConfig(**mesh_kw, **flags),
+                                       world)
+
+
+def test_prox_under_tp_raises_the_jax_error():
+    """The prox step under tp on a model axis > 1 raises JAX's ValueError
+    (gslora_tpu/engine/loop.py:132-141), word for word, from the forget
+    loop; under fsdp or a model axis alone it runs."""
+    import gslora_tpu.config as jc
+    from gslora_tpu.engine.loop import run_forget_training as jax_run
+    from gslora_tpu.parallel.mesh import make_mesh, placement
+
+    import gslora_tpu_torch.config as tc
+    from gslora_tpu_torch.engine.loop import run_forget_training
+    try:
+        with pytest.raises(ValueError) as jerr:
+            jax_run(jc.RunConfig(mesh=jc.MeshConfig(data=4, model=2,
+                                                    tp=True),
+                                 structure_mode="prox"), {}, None,
+                    mesh=make_mesh(jc.MeshConfig(data=4, model=2)))
+    finally:
+        placement(None)
+    cfg = tc.RunConfig(mesh=MeshConfig(data=4, model=2, tp=True),
+                       structure_mode="prox", device="cpu")
+    mesh = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"),
+                          model=2, tp=True)
+    try:
+        with pytest.raises(ValueError) as terr:
+            run_forget_training(cfg, {}, None, mesh=mesh)
+        assert str(terr.value) == str(jerr.value)
+        for mesh_cfg in (MeshConfig(fsdp=True), MeshConfig(model=2)):
+            tmesh.check_prox_placement(
+                tc.RunConfig(mesh=mesh_cfg, structure_mode="prox"), mesh)
+    finally:
+        tmesh.set_active(None)
 
 
 def test_plain_data_mesh_passes():
@@ -138,8 +192,9 @@ def test_baseline_runner_guards_match_jax():
 
 
 def test_baseline_placement_under_a_world(monkeypatch):
-    """A baseline runs plain --dp under a world of 2; --fsdp raises
-    NotImplementedError naming the flag, and --pp the ValueError of JAX's
+    """A baseline runs plain --dp under a world of 2; --fsdp, --tp and a
+    model axis raise NotImplementedError naming the flag, and --pp the
+    ValueError of JAX's
     baseline runners, through the guard itself and through make_mesh's
     check before any process group is made."""
     import gslora_tpu.config as jc
@@ -152,6 +207,10 @@ def test_baseline_placement_under_a_world(monkeypatch):
     tmesh.check_baseline_placement(MeshConfig(), world)
     with pytest.raises(NotImplementedError, match="--fsdp"):
         tmesh.check_baseline_placement(MeshConfig(fsdp=True), world)
+    with pytest.raises(NotImplementedError, match="--tp"):
+        tmesh.check_baseline_placement(MeshConfig(tp=True, model=2), world)
+    with pytest.raises(NotImplementedError, match="--mesh_model"):
+        tmesh.check_baseline_placement(MeshConfig(model=2), world)
     for mesh_kw in ({}, {"model": 2}):
         with pytest.raises(ValueError) as err:
             tmesh.check_baseline_placement(MeshConfig(pp=True, **mesh_kw),

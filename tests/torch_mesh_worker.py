@@ -1,0 +1,202 @@
+"""One rank of the port's ``(data, model)`` mesh runs for
+tests/test_torch_mesh_*.py.
+
+Run as ``python -m torch_mesh_worker <rank> <world> <port> <dir> <device>
+<scenario>...`` with ``tests/`` and the repo root on PYTHONPATH: it sets
+torchrun's environment, opens a gloo group itself, runs each scenario's
+CLI with ``--dp`` and its layout flags at the tiny model of
+tests/torch_dp_worker.py, from the parameter tree the scenario names
+(``<dir>/<tree>.npz``), and saves what the tests compare to
+``<dir>/<scenario>.rank<r>.pt``: the report, the eval history, the final
+parameters gathered whole, and this rank's own shards. The scenario
+``collectives`` checks the all_reduce route of all_gather and
+reduce_scatter against the native one instead.
+
+This module imports no JAX: a rank starts with PyTorch only."""
+import os
+import sys
+
+import torch
+
+import torch_dp_worker as dpw
+
+TP = ["--tp", "--mesh_model", "2"]
+# scenario -> (CLI, argv without the layout, layout flags, the tree it
+# starts from, model overrides, world)
+SCENARIOS = {
+    # forget (GS-LoRA, prototypes, alpha 5e-4 loss-mode group-Lasso)
+    "forget_tp": ("train_forget", dpw.FORGET, TP, "pretrained", {}, 4),
+    "forget_tp_merged": ("train_forget", dpw.FORGET + ["--lora_apply",
+                                                       "merged"],
+                         TP, "pretrained", {}, 4),
+    "forget_tp_fsdp": ("train_forget", dpw.FORGET, TP + ["--fsdp"],
+                       "pretrained", {}, 4),
+    "forget_model2": ("train_forget", dpw.FORGET + ["--head", "CosFace"],
+                      ["--mesh_model", "2"], "pretrained", {}, 2),
+    "forget_fsdp": ("train_forget", dpw.FORGET, ["--fsdp"], "pretrained",
+                    {}, 2),
+    # GS-LoRA++ (prox, K2's plain version on the CPU) with EMA, 2 tasks
+    "continual_fsdp_model2": ("train_forget_cl", dpw.CONTINUAL,
+                              ["--fsdp", "--mesh_model", "2"], "pretrained",
+                              {}, 4),
+    "pretrain_tp": ("train_pretrain", dpw.PRETRAIN, TP, "init", {}, 4),
+    "pretrain_tp_fsdp": ("train_pretrain", dpw.PRETRAIN + ["--remat"],
+                         TP + ["--fsdp"], "init", {}, 4),
+    # dropout on: the replicated leaves must stay equal across the ranks
+    # of a model group
+    "forget_tp_dropout": ("train_forget", dpw.FORGET + ["-e", "1"], TP,
+                          "pretrained", {"dropout": 0.1}, 4),
+    "pretrain_tp_dropout": ("train_pretrain", dpw.PRETRAIN + ["-e", "1"],
+                            TP, "init", {"dropout": 0.1}, 4),
+}
+
+
+def patch(module, tree, overrides, setattr_=setattr):
+    """tests/torch_dp_worker.patch, with ``overrides`` on the model."""
+    import dataclasses
+    dpw.patch(module, tree, setattr_)
+    config = module.config_from_args
+
+    def with_overrides(args):
+        cfg = config(args)
+        cfg.model = dataclasses.replace(cfg.model, **overrides)
+        return cfg
+
+    setattr_(module, "config_from_args", with_overrides)
+
+
+def run(name, tree, layout=True, setattr_=setattr, device="cpu"):
+    """Scenario ``name``'s CLI from ``tree``: with ``--dp`` and its layout
+    flags (a rank), or without both (the one-process run). Returns the
+    report, the history, the final parameters whole and, on a rank, its
+    shards."""
+    import importlib
+
+    from gslora_tpu_torch.parallel import sharding
+    from gslora_tpu_torch.parallel.mesh import active_mesh
+    cli, argv, flags, _, overrides, _ = SCENARIOS[name]
+    module = importlib.import_module(f"gslora_tpu_torch.cli.{cli}")
+    patch(module, tree, overrides, setattr_)
+    argv = list(argv) + ["--device", device, "--outdir", ""]
+    if layout:
+        argv += ["--dp"] + flags
+    seen = {}
+
+    def whole(params):
+        mesh = active_mesh()
+        seen["shards"] = dpw.numpy_tree(params)
+        return dpw.numpy_tree(sharding.gather_tree(mesh, params))
+
+    if cli == "train_pretrain":
+        report, state = module.main(argv, return_state=True)
+        moments = dict(zip(state.trainable_names(), state.opt_state["mu"]))
+        out = {"report": report, "params": whole(state.params),
+               "shards": seen["shards"], "history": [],
+               "moments": {k: tuple(v.shape) for k, v in moments.items()}}
+        if layout:
+            out["restored"] = recovery(state, name)
+        return out
+    if cli == "train_forget":
+        fn = module.run_forget_training
+
+        def spy(*a, **k):
+            res = fn(*a, **k)
+            seen["params"] = whole(res.state.params)
+            seen["history"] = [res.history]
+            return res
+        setattr_(module, "run_forget_training", spy)
+    else:
+        from gslora_tpu_torch.engine import continual
+        setattr_(continual, "reinit_lora", dpw.torch_reinit)
+        task = continual.run_forget_training
+
+        def spy_task(*a, **k):
+            # the last task's trained shards are the final parameters
+            res = task(*a, **k)
+            seen["shards"] = dpw.numpy_tree(res.state.params)
+            return res
+        setattr_(continual, "run_forget_training", spy_task)
+        fn = module.run_continual_forgetting
+
+        def spy(*a, **k):
+            out = fn(*a, **k)
+            seen["params"] = dpw.numpy_tree(out.final_params)
+            seen["history"] = [t.result.history for t in out.tasks]
+            return out
+        setattr_(module, "run_continual_forgetting", spy)
+    report = module.main(argv)
+    return {"report": report, **seen}
+
+
+def recovery(state, name):
+    """The train state saved under the mesh (gathered, rank 0 writes) and
+    restored into the same state zeroed: the rank's parameter and moment
+    shards come back to the bit."""
+    from gslora_tpu_torch.checkpoints.io import (restore_train_state,
+                                                 save_train_state)
+    from gslora_tpu_torch.parallel.mesh import active_mesh
+    mesh = active_mesh()
+    path = os.path.join(os.getcwd(), f"{name}.state.pt")
+    before = [t.detach().clone() for t in state.trainable_params() +
+              state.opt_state["mu"] + state.opt_state["nu"]]
+    save_train_state(path, state, mesh)
+    mesh.barrier()
+    with torch.no_grad():
+        for t in state.trainable_params() + state.opt_state["mu"]:
+            t.zero_()
+    restore_train_state(path, state, mesh)
+    after = state.trainable_params() + state.opt_state["mu"] + \
+        state.opt_state["nu"]
+    return all(torch.equal(a, b) for a, b in zip(before, after))
+
+
+def collectives(rank, world):
+    """all_gather and reduce_scatter over each axis of a 2 x 2 mesh (or
+    the data axis of 2 ranks), through the native collectives and through
+    the all_reduce route, on tensors whose sums round."""
+    import dataclasses
+
+    from gslora_tpu_torch.config import MeshConfig
+    from gslora_tpu_torch.parallel.mesh import make_mesh
+    model = 2 if world == 4 else 1
+    mesh = make_mesh(MeshConfig(model=model), "cpu")
+    forced = dataclasses.replace(mesh, route="all_reduce")
+    g = torch.Generator().manual_seed(rank)
+    out = {"route": mesh.route}
+    axes = ("data", "model") if model > 1 else ("data",)
+    for axis in axes:
+        for dim in (0, 1, 2):
+            x = torch.randn((4, 6, 8), generator=g) * 1e3
+            for which, m in (("native", mesh), ("all_reduce", forced)):
+                out[f"gather.{axis}.{dim}.{which}"] = m.all_gather(
+                    x, axis, dim)
+                out[f"scatter.{axis}.{dim}.{which}"] = m.reduce_scatter(
+                    x, axis, dim)
+            out[f"input.{axis}.{dim}"] = x
+    return out
+
+
+def main(argv):
+    rank, world, port = (int(a) for a in argv[:3])
+    outdir, device, *names = argv[3:]
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    try:
+        for name in names:
+            if name == "collectives":
+                out = collectives(rank, world)
+            else:
+                tree = dpw.load_tree(os.path.join(
+                    outdir, SCENARIOS[name][3] + ".npz"))
+                out = run(name, tree, device=device)
+            torch.save(out, os.path.join(outdir, f"{name}.rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
