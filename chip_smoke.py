@@ -129,7 +129,8 @@ non-zero exit code and without the final result line.
    steps), train_forget_cl (--one_stage, prox, EMA, 2 tasks) and
    train_pretrain (bs 480, 10 steps; and with --grad_accum 2) with --dp
    at the flagship width, dropout off, in two ranks of this script
-   (``--dp-rank``) sharing the card through gloo, each against one
+   (``--dp-rank``) sharing the card through gloo (and with the one
+   process, whose references run while the ranks do), each against one
    process with twice the --grad_accum (whose micro-batches are the
    ranks' rows): K1's and K2's counts per rank as derived, both ranks'
    parameters equal to the bit, the final parameters within the JAX
@@ -144,8 +145,10 @@ non-zero exit code and without the final result line.
    train state of CUDA tensors (parameters and AdamW moments) through
    AsyncSaver in one process and in both ranks (one gloo group), read
    back equal with a template on the card and without one.
-13. Layout phase (slice 9, the (data, model) mesh): train_forget with
-   --fsdp (2 x 1), with --tp --mesh_model 2 (1 x 2), factored and merged;
+13. Layout phase (slice 9, the (data, model) mesh; every world's ranks
+   start together and run beside the one-process references):
+   train_forget with --fsdp (2 x 1), with --tp --mesh_model 2 (1 x 2),
+   factored and merged (2 of the recipe's 5 epochs);
    train_forget_cl --one_stage with prox, --fsdp --mesh_model 2 (2 x 2,
    K2 on every rank, 2 tasks); train_pretrain --tp --fsdp --mesh_model 2
    (2 x 2, bs 480), at the flagship width, dropout off, bf16, in ranks of
@@ -160,7 +163,17 @@ non-zero exit code and without the final result line.
    image; prints each
    rank's bytes of the four block kernels (exact: 36 MiB at D = 2, 24
    MiB under 2 x 2 tp + fsdp) beside the whole tree's, the route and the
-   walls (ranks sharing one card: the path, not scaling).
+   walls (ranks sharing one card: the path, not scaling). Slice 10 adds
+   sequence and pipeline parallelism to the same phase: train_forget with
+   --sp, --tp --sp and --pp --pp_micro 2 (1 x 2), train_forget_cl with
+   --sp and the prox (K2 on every rank) and with --pp in the loss mode
+   (1 x 2), train_pretrain with --tp --fsdp --sp and with --pp (2 x 2);
+   K1 runs on whole sequences on every sp rank and on each stage's
+   micro-batches under pp, where the counts are per stage (block 0's
+   attention backward is skipped on stage 0 only, where the FFN LoRA
+   alone trains); each rank's block-kernel bytes (72 MiB under sp, 36 MiB
+   a stage under pp) and the peak of the card's memory each rank and the
+   one process allocated.
 14. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
@@ -346,6 +359,14 @@ def path_shapes():
         shapes.update((b * m.heads, m.seq_len, attention_scale(m)) for b in
                       (local, local // accum,
                        local * cfg.data.test_batch_scale))
+    # a rank of the layout phase: its rows of the train and eval batches
+    # (whole sequences under sp), each cut into M micro-batches under pp
+    for name, (_, argv, _, _) in LAYOUT_RUNS.items():
+        cfg = config_from_args(build_parser().parse_args(argv))
+        local, m = cfg.data.batch_size // layout_shape(name)[0], cfg.model
+        micro = (pp_stages(name) or (1, 1))[1]
+        shapes.update((b // micro * m.heads, m.seq_len, attention_scale(m))
+                      for b in (local, local * cfg.data.test_batch_scale))
     shapes.update(eval_surface_shapes())
     return sorted(shapes)
 
@@ -2490,8 +2511,9 @@ def dp_run(name, accum, dp):
     """DP_RUNS[name] through its CLI in this process, dropout off (each
     rank draws its own masks), --grad_accum ``accum``, ``--dp`` if asked;
     launch counts held to dp_expected. Returns the report, the final
-    parameters (host fp32, flat), the eval history, the launches and the
-    wall seconds."""
+    parameters (host fp32, flat), the eval history, the launches, the
+    wall seconds and the peak of the card's memory this process
+    allocated."""
     module, argv, _ = DP_RUNS[name]
     argv = argv + ["--grad_accum", str(accum), "--outdir", ""] + \
         (["--dp"] if dp else [])
@@ -2549,8 +2571,11 @@ def dp_run(name, accum, dp):
             fn = lambda a: module.main(a, return_state=True)  # noqa: E731
         else:
             fn = module.main
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         out, launches, wall = run_counted(fn, argv, dp_expected(name, accum),
                                           name)
+        seen["peak_bytes"] = torch.cuda.max_memory_allocated()
     finally:
         for k, v in saved.items():
             setattr(module, k, v)
@@ -2650,44 +2675,59 @@ def dp_rank_main(rank, world, port, outdir):
         dist.destroy_process_group()
 
 
-def spawn_dp_ranks(outdir):
-    """DP_WORLD ranks of this script, started together; each rank's log
-    under outdir. Raises with a rank's log if one fails or outlives
-    DP_TIMEOUT_S; no rank outlives this call."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                        "MASTER_PORT")}
-    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w")
-            for r in range(DP_WORLD)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-         str(DP_WORLD), str(port), outdir], env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
-    try:
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
+class Ranks:
+    """``world`` ranks of this script (``chip_smoke.py --<role>-rank r
+    world port outdir *extra``), started together, each rank's log under
+    outdir, while the caller works on (the one-process references): the
+    ranks and the caller share the card. ``wait`` raises with a rank's
+    log if one fails or outlives ``timeout`` seconds from the start;
+    ``kill`` stops them; no rank outlives either."""
+
+    def __init__(self, role, world, outdir, extra, timeout):
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        self.role, self.world, self.outdir = role, world, outdir
+        self.paths = [os.path.join(outdir, f"{role}{world}.rank{r}.log")
+                      for r in range(world)]
+        self.logs = [open(path, "w") for path in self.paths]
+        self.deadline = time.monotonic() + timeout
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), f"--{role}-rank",
+             str(r), str(world), str(port), outdir, *extra], env=env,
+            stdout=self.logs[r], stderr=subprocess.STDOUT)
+            for r in range(world)]
+
+    def kill(self):
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for fh in logs:
+        for fh in self.logs:
             fh.close()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(os.path.join(outdir, f"rank{r}.log")) as fh:
-                tail = fh.read()[-4000:]
-            raise AssertionError(f"dp rank {r} exited {p.returncode}:\n"
-                                 f"{tail}")
-    return [{name: torch.load(os.path.join(outdir, f"{name}.rank{r}.pt"),
-                              weights_only=False)
-             for name in list(DP_RUNS) + ["dcp"]}
-            for r in range(DP_WORLD)]
+
+    def wait(self):
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(1.0, self.deadline - time.monotonic()))
+        finally:
+            self.kill()
+        for r, p in enumerate(self.procs):
+            if p.returncode != 0:
+                with open(self.paths[r]) as fh:
+                    tail = fh.read()[-4000:]
+                raise AssertionError(f"{self.role} rank {r} of {self.world} "
+                                     f"exited {p.returncode}:\n{tail}")
+
+    def results(self, names):
+        """Each rank's saved result of each of ``names``."""
+        return [{name: torch.load(os.path.join(
+            self.outdir, f"{name}.rank{r}.pt"), weights_only=False)
+            for name in names} for r in range(self.world)]
 
 
 def accuracy_tolerances(name):
@@ -2743,18 +2783,23 @@ def dp_phase(card):
     the final parameters within DP_RTOL / DP_ATOL of the one process's,
     every eval within accuracy_tolerances. Walls and images/s are of two
     ranks sharing one card: they measure the path, not scaling."""
-    refs = {name: dp_run(name, DP_WORLD * accum, dp=False)
-            for name, (_, _, accum) in DP_RUNS.items()}
-    with tempfile.TemporaryDirectory() as out:
-        dcp_one = dcp_check(os.path.join(out, "dcp"))
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        ranks = spawn_dp_ranks(out)
+        # the ranks run while this process runs the references
+        spawned = Ranks("dp", DP_WORLD, out, [], DP_TIMEOUT_S)
+        try:
+            refs = {name: dp_run(name, DP_WORLD * accum, dp=False)
+                    for name, (_, _, accum) in DP_RUNS.items()}
+            dcp_one = dcp_check(os.path.join(out, "dcp_one"))
+        except BaseException:
+            spawned.kill()
+            raise
+        spawned.wait()
+        ranks = spawned.results(list(DP_RUNS) + ["dcp"])
     ranks_wall = time.perf_counter() - t0
     print(f"dp phase: {DP_WORLD} ranks ran every path in {ranks_wall:.1f} s "
-          f"(start-up included)", flush=True)
+          f"(start-up included, beside the one-process references)",
+          flush=True)
     print("dp dcp " + json.dumps({
         "what": "checkpoints/dcp_io.AsyncSaver of a flagship train state of "
                 "CUDA tensors, read back equal with and without a template",
@@ -2805,14 +2850,16 @@ def dp_phase(card):
         launches[name] = got[0]["launches"]
         print("dp " + json.dumps({
             "path": name, "ranks": DP_WORLD, "card": card,
-            "note": "two gloo ranks sharing one card: walls measure the "
-                    "path, not scaling",
+            "note": "two gloo ranks sharing one card with the one-process "
+                    "references: walls measure the path, not scaling",
             "rank_grad_accum": accum, "one_process_grad_accum":
                 DP_WORLD * accum,
             "rank_wall_s": [r["wall_s"] for r in got],
             "one_process_wall_s": ref["wall_s"],
             "max_abs_param_diff": max(diffs.values()),
             "worst_eval_diff": worst, "launches_per_rank": want,
+            "peak_mib_per_rank": [r["peak_bytes"] / 2 ** 20 for r in got],
+            "one_process_peak_mib": ref["peak_bytes"] / 2 ** 20,
             "report_rank0": got[0]["report"] if not isinstance(
                 got[0]["report"], list) else None}), flush=True)
     return launches, refs
@@ -2823,19 +2870,36 @@ def dp_phase(card):
 # ---------------------------------------------------------------------------
 
 TP2 = ["--tp", "--mesh_model", "2"]
+SP2 = ["--sp", "--mesh_model", "2"]
+PP2 = ["--pp", "--mesh_model", "2"]
 # run -> (CLI module, argv, layout flags, world); each rank runs
 # --grad_accum 1 on the rows of its data index, the one-process reference
 # --grad_accum D (D = world / model), so its micro-batches are the data
 # ranks' rows
+# The slice-9 forget runs take 2 of the recipe's 5 epochs, to keep the
+# script inside its time limit as the phase grew (slice 10's runs keep 5)
+LAYOUT_FORGET_ARGV = DP_FORGET_ARGV + ["-e", "2"]
 LAYOUT_RUNS = {
-    "forget_fsdp": (train_forget, DP_FORGET_ARGV, ["--fsdp"], 2),
-    "forget_tp": (train_forget, DP_FORGET_ARGV, TP2, 2),
-    "forget_tp_merged": (train_forget, DP_FORGET_ARGV +
+    "forget_fsdp": (train_forget, LAYOUT_FORGET_ARGV, ["--fsdp"], 2),
+    "forget_tp": (train_forget, LAYOUT_FORGET_ARGV, TP2, 2),
+    "forget_tp_merged": (train_forget, LAYOUT_FORGET_ARGV +
                          ["--lora_apply", "merged"], TP2, 2),
     "cl_fsdp_model2": (train_forget_cl, DP_CL_ARGV,
                        ["--fsdp", "--mesh_model", "2"], 4),
     "pretrain_tp_fsdp": (train_pretrain, DP_PRETRAIN_ARGV,
                          TP2 + ["--fsdp"], 4),
+    # sequence and pipeline parallelism (slice 10): K1 on whole sequences
+    # on every sp rank, on each stage's micro-batches under pp
+    "forget_sp": (train_forget, DP_FORGET_ARGV, SP2, 2),
+    "forget_tp_sp": (train_forget, DP_FORGET_ARGV, TP2 + ["--sp"], 2),
+    "forget_pp": (train_forget, DP_FORGET_ARGV, PP2 + ["--pp_micro", "2"],
+                  2),
+    "cl_sp_prox": (train_forget_cl, DP_CL_ARGV, SP2, 2),
+    "cl_pp_loss": (train_forget_cl, DP_CL_ARGV + ["--structure_mode",
+                                                  "loss"], PP2, 2),
+    "pretrain_tp_fsdp_sp": (train_pretrain, DP_PRETRAIN_ARGV,
+                            TP2 + ["--fsdp", "--sp"], 4),
+    "pretrain_pp": (train_pretrain, DP_PRETRAIN_ARGV, PP2, 4),
 }
 LAYOUT_TIMEOUT_S = 600
 BLOCK_KERNELS = ("qkv", "attn_out", "fc1", "fc2")
@@ -2875,19 +2939,51 @@ def layout_argv(name, layout, accum=None):
         (["--dp"] + flags if layout else [])
 
 
-def layout_expected(name, layout, accum=None):
+def pp_stages(name):
+    """(S, M) of a --pp run: its stages and micro-batches (--pp_micro, or
+    S when 0); None without --pp."""
+    _, _, flags, _ = LAYOUT_RUNS[name]
+    if "--pp" not in flags:
+        return None
+    stages = layout_shape(name)[1]
+    micro = int(flags[flags.index("--pp_micro") + 1]) \
+        if "--pp_micro" in flags else 0
+    return stages, micro or stages
+
+
+def layout_expected(name, layout, accum=None, stage=0):
     """K1 and K2 launches of one rank (every rank of a model group runs
-    the attention and the prox on whole tensors) or of a one-process
-    run."""
-    module, _, _, _ = LAYOUT_RUNS[name]
+    the attention and the prox on whole tensors: under sp on whole
+    sequences) or of a one-process run. Under pp, of the rank's ``stage``:
+    each forward runs its depth / S layers on M micro-batches, and the
+    backward too, but on stage 0 with an FFN LoRA only, where block 0's
+    attention backward is skipped as in one process."""
+    module, argv0, _, _ = LAYOUT_RUNS[name]
     argv = layout_argv(name, layout, accum)
     if module is train_forget:
         fwd, bwd = expected_launches(argv)
-        return {"attention_fwd": fwd, "attention_bwd": bwd,
+        want = {"attention_fwd": fwd, "attention_bwd": bwd,
                 "group_prox": 0, "group_norms": 0, "group_scale": 0}
-    if module is train_forget_cl:
-        return expected_cl_launches(argv)
-    return expected_pretrain_launches(argv)[0]
+    elif module is train_forget_cl:
+        want = expected_cl_launches(argv)
+    else:
+        want = expected_pretrain_launches(argv)[0]
+    pp = pp_stages(name) if layout else None
+    if pp is None:
+        return want
+    stages, micro = pp
+    depth = config_from_args(build_parser().parse_args(argv0)).model.depth
+    # one process: depth forward launches per forward; depth - 1 backward
+    # launches per training forward with the FFN LoRA, depth when every
+    # parameter trains (the pretrain at lora_rank 0)
+    full = module is train_pretrain
+    per_bwd = depth if full else depth - 1
+    local = depth // stages
+    skip = 0 if full or stage > 0 else 1
+    return {**want,
+            "attention_fwd": want["attention_fwd"] // depth * local * micro,
+            "attention_bwd": want["attention_bwd"] // per_bwd *
+            (local - skip) * micro}
 
 
 def is_block_kernel(key):
@@ -2905,13 +3001,16 @@ def tensor_bytes(tree):
 
 def expected_kernel_bytes(name, sizes):
     """A rank's bytes of the block kernels by the rules, from the whole
-    tree's ``sizes``: fsdp cuts all four by D, tp fc1 and fc2 by M."""
+    tree's ``sizes``: fsdp cuts all four by D, tp fc1 and fc2 by M, pp
+    all four by the stages M; sp none."""
     _, _, flags, _ = LAYOUT_RUNS[name]
     data, model = layout_shape(name)
     out = 0
     for k, n in sizes.items():
         if not is_block_kernel(k):
             continue
+        if "--pp" in flags:
+            n //= model
         if "--fsdp" in flags:
             n //= data
         if "--tp" in flags and k.split(".")[-2] in ("fc1", "fc2"):
@@ -2920,13 +3019,14 @@ def expected_kernel_bytes(name, sizes):
     return out
 
 
-def layout_run(name, layout, accum=None):
+def layout_run(name, layout, accum=None, rank=0):
     """LAYOUT_RUNS[name] through its CLI in this process, dropout off,
-    as a rank of the mesh (``layout``) or as the one-process reference;
-    launch counts held to layout_expected. Returns the report, the final
-    parameters gathered whole (host fp32, flat), the eval history, the
-    launches, the wall seconds, and on a rank its bytes of parameters and
-    moments and the collective route."""
+    as rank ``rank`` of the mesh (``layout``) or as the one-process
+    reference; launch counts held to layout_expected. Returns the report,
+    the final parameters gathered whole (host fp32, flat), the eval
+    history, the launches, the wall seconds, the peak of the card's
+    memory this process allocated, and on a rank its bytes of parameters
+    and moments and the collective route."""
     module, _, _, _ = LAYOUT_RUNS[name]
     argv = layout_argv(name, layout, accum)
     seen = {"history": []}
@@ -2978,8 +3078,12 @@ def layout_run(name, layout, accum=None):
             fn = lambda a: module.main(a, return_state=True)  # noqa: E731
         else:
             fn = module.main
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stage = rank % layout_shape(name)[1]
         out, launches, wall = run_counted(
-            fn, argv, layout_expected(name, layout, accum), name)
+            fn, argv, layout_expected(name, layout, accum, stage), name)
+        seen["peak_bytes"] = torch.cuda.max_memory_allocated()
     finally:
         for (mod, attr), v in saved.items():
             setattr(mod, attr, v)
@@ -3007,50 +3111,10 @@ def layout_rank_main(rank, world, port, outdir, *names):
     dist.init_process_group("gloo", rank=rank, world_size=world)
     try:
         for name in names:
-            torch.save(layout_run(name, layout=True),
+            torch.save(layout_run(name, layout=True, rank=rank),
                        os.path.join(outdir, f"{name}.rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
-
-
-def spawn_layout_ranks(outdir, world, names):
-    """``world`` ranks of this script running ``names``, started together;
-    each rank's log under outdir. Raises with a rank's log if one fails or
-    outlives LAYOUT_TIMEOUT_S; no rank outlives this call."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                        "MASTER_PORT")}
-    logs = [open(os.path.join(outdir, f"layout{world}.rank{r}.log"), "w")
-            for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--layout-rank", str(r),
-         str(world), str(port), outdir, *names], env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(world)]
-    try:
-        deadline = time.monotonic() + LAYOUT_TIMEOUT_S
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for fh in logs:
-            fh.close()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(os.path.join(outdir,
-                                   f"layout{world}.rank{r}.log")) as fh:
-                tail = fh.read()[-4000:]
-            raise AssertionError(f"layout rank {r} of {world} exited "
-                                 f"{p.returncode}:\n{tail}")
-    return [{name: torch.load(os.path.join(outdir, f"{name}.rank{r}.pt"),
-                              weights_only=False) for name in names}
-            for r in range(world)]
 
 
 def layout_accuracy_tolerances(name):
@@ -3074,56 +3138,81 @@ def layout_phase(card, refs):
     bytes exactly as the rules cut them.
     Returns each run's launches per rank."""
     t_phase = time.perf_counter()
+    ran = {}
+    worlds = sorted({w for *_, w in LAYOUT_RUNS.values()})
+    names_of = {w: [n for n, (*_, w2) in LAYOUT_RUNS.items() if w2 == w]
+                for w in worlds}
+    tmp = tempfile.TemporaryDirectory()
+    # every world's ranks run together, while this process runs the
+    # references
+    spawned = {}
+    try:
+        for w in worlds:
+            os.makedirs(os.path.join(tmp.name, str(w)))
+            spawned[w] = Ranks("layout", w, os.path.join(tmp.name, str(w)),
+                               names_of[w], LAYOUT_TIMEOUT_S)
+    except BaseException:
+        for r in spawned.values():
+            r.kill()
+        tmp.cleanup()
+        raise
 
     def one_process(name, accum):
         """The one-process run of ``name``'s flags at --grad_accum
-        ``accum``: the dp phase's where it ran the same."""
+        ``accum``: the dp phase's where it ran the same, else one run per
+        distinct argv."""
         module, argv, _, _ = LAYOUT_RUNS[name]
         for dp, (m, a, dp_accum) in DP_RUNS.items():
             if m is module and a == argv and DP_WORLD * dp_accum == accum \
                     and dp in refs:
                 return refs[dp]
-        return layout_run(name, False, accum)
+        key = (module.__name__, tuple(argv), accum)
+        if key not in ran:
+            ran[key] = layout_run(name, False, accum)
+        return ran[key]
 
     ref_runs, floors = {}, {}
-    for name in LAYOUT_RUNS:
-        data, model = layout_shape(name)
-        ref_runs[name] = one_process(name, data)
-        if model > 1:
-            # the noise floor of the recipe: the same one process with its
-            # batch sums split twice as far (--grad_accum 2D)
-            floor = one_process(name, 2 * data)["params"]
-            floors[name] = max(rel_err(floor[k], v) for k, v in
-                               ref_runs[name]["params"].items())
-    refs = ref_runs
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    ranks = {}
-    for world in sorted({w for *_, w in LAYOUT_RUNS.values()}):
-        names = [n for n, (*_, w) in LAYOUT_RUNS.items() if w == world]
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as out:
-            for r, res in enumerate(spawn_layout_ranks(out, world, names)):
-                for name in names:
+    try:
+        for name in LAYOUT_RUNS:
+            data, model = layout_shape(name)
+            ref_runs[name] = one_process(name, data)
+            if model > 1:
+                # the noise floor of the recipe: the same one process with
+                # its batch sums split twice as far (--grad_accum 2D)
+                floor = one_process(name, 2 * data)["params"]
+                floors[name] = max(rel_err(floor[k], v) for k, v in
+                                   ref_runs[name]["params"].items())
+        refs = ref_runs
+        ranks = {}
+        for w in worlds:
+            spawned[w].wait()
+            for res in spawned[w].results(names_of[w]):
+                for name in names_of[w]:
                     ranks.setdefault(name, []).append(res[name])
-        print(f"layout phase: {world} ranks ran {names} in "
-              f"{time.perf_counter() - t0:.1f} s (start-up included)",
-              flush=True)
+            print(f"layout phase: {w} ranks ran {names_of[w]} in "
+                  f"{time.perf_counter() - t_phase:.1f} s (start-up "
+                  f"included, beside the other world and the one-process "
+                  f"references)", flush=True)
+    finally:
+        for r in spawned.values():
+            r.kill()
+        tmp.cleanup()
     launches = {}
     for name, (_, _, flags, world) in LAYOUT_RUNS.items():
-        want = layout_expected(name, True)
+        data, model = layout_shape(name)
+        wants = [layout_expected(name, True, stage=r % model)
+                 for r in range(world)]
         got, ref = ranks[name], refs[name]
         for r, run in enumerate(got):
-            if run["launches"] != want:
+            if run["launches"] != wants[r]:
                 raise AssertionError(f"{name} rank {r} launched "
                                      f"{run['launches']}; its flags imply "
-                                     f"{want}")
+                                     f"{wants[r]}")
             diff = [k for k, v in got[0]["params"].items()
                     if not torch.equal(v, run["params"][k])]
             if diff:
                 raise AssertionError(f"{name}: rank {r}'s gathered "
                                      f"parameters differ at {diff[:5]}")
-        data, model = layout_shape(name)
         exact = model == 1
         tol = 0.0 if exact else LAYOUT_FLOOR_FACTOR * floors[name]
         diffs, rels = {}, {}
@@ -3169,12 +3258,17 @@ def layout_phase(card, refs):
             if run.get("moment_bytes") not in (None, 2 * held):
                 raise AssertionError(f"{name} rank {r}: moments of "
                                      f"{run['moment_bytes']} bytes")
-        launches[name] = want
+        if pp_stages(name):
+            launches.update({f"{name}_stage{st}": wants[st]
+                             for st in range(model)})
+        else:
+            launches[name] = wants[0]
         print("layout " + json.dumps({
             "path": name, "mesh": {"data": data, "model": model},
             "flags": flags, "card": card,
-            "note": f"{world} gloo ranks sharing one card: walls measure "
-                    f"the path, not scaling",
+            "note": f"{world} gloo ranks sharing one card with the other "
+                    f"world's ranks and the one-process references: walls "
+                    f"measure the path, not scaling",
             "route": sorted({r["route"] for r in got}),
             "rank_grad_accum": 1, "one_process_grad_accum": data,
             "rank_wall_s": [r["wall_s"] for r in got],
@@ -3184,7 +3278,10 @@ def layout_phase(card, refs):
             "noise_floor_rel": floors.get(name),
             "tolerance": "bit-exact" if exact else
             f"relative {tol} ({LAYOUT_FLOOR_FACTOR} x the noise floor)",
-            "worst_eval_diff": worst, "launches_per_rank": want,
+            "worst_eval_diff": worst, "launches_per_rank": wants,
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in got],
+            "peak_mib_per_rank": [r["peak_bytes"] / 2 ** 20 for r in got],
+            "one_process_peak_mib": ref["peak_bytes"] / 2 ** 20,
             "block_kernel_bytes_per_rank": rank_kb,
             "block_kernel_mib_per_rank": [b / 2 ** 20 for b in rank_kb],
             "block_kernel_bytes_whole": whole_kb,

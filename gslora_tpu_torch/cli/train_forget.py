@@ -22,9 +22,13 @@ each rank loading its rows of every global batch (engine/loop,
 :func:`run_single_step_baseline`). GS-LoRA also runs on JAX's
 ``(data, model)`` mesh: ``--mesh_model M`` shards the head's classes over
 ``model``, ``--tp`` the FFN hidden, ``--fsdp`` the block kernels over
-``data`` (parallel/sharding), e.g. on the CPU
+``data`` (parallel/sharding), ``--sp`` the activations' tokens over
+``model``, ``--pp [--pp_micro N]`` the layers in stages over ``model``
+(parallel/pipeline), e.g. on the CPU
   torchrun --nproc_per_node 4 -m gslora_tpu_torch.cli.train_forget \
       --device cpu --dp --tp --fsdp --mesh_model 2 ...
+  torchrun --nproc_per_node 2 -m gslora_tpu_torch.cli.train_forget \
+      --device cpu --dp --pp --mesh_model 2 --pp_micro 2 ...
 ``--gemm_impl int8`` raises the model's ValueError at the first training
 step, as in the JAX CLI.
 """

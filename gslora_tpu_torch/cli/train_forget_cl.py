@@ -35,8 +35,9 @@ gslora_tpu_torch.cli.train_forget_cl --dp ...``; engine/continual for
 GS-LoRA(++) and ``--one_stage``, :func:`run_baseline_continual` for the
 baselines), each rank loading its rows of every global batch. GS-LoRA
 (``--one_stage``) also runs on JAX's ``(data, model)`` mesh:
-``--mesh_model M``, ``--tp``, ``--fsdp`` (parallel/sharding; the prox step
-under ``--tp`` raises JAX's ValueError).
+``--mesh_model M``, ``--tp``, ``--fsdp``, ``--sp`` (parallel/sharding) and
+``--pp [--pp_micro N]`` (parallel/pipeline; the prox step under ``--tp``
+or ``--pp`` raises JAX's ValueError).
 ``--gemm_impl int8`` raises the model's ValueError at the first training
 step, as in the JAX CLI (int8 is an eval and serving path).
 ``--profile_dir`` is accepted and ignored, as by the JAX CLI.

@@ -22,9 +22,11 @@ gradient are the global batch's (engine/pretrain._accumulated); rank 0
 alone logs, verifies and writes checkpoints. Under one process ``--dp``
 changes nothing, as in JAX on one device. ``--mesh_model M``, ``--tp``
 and ``--fsdp`` lay the ranks out as JAX's ``(data, model)`` mesh and
-shard the parameters and their optimizer moments (parallel/sharding):
+shard the parameters and their optimizer moments (parallel/sharding);
+``--sp`` shards the activations' tokens over ``model`` and ``--pp``
+stages the layers over it (parallel/pipeline):
   torchrun --nproc_per_node 4 -m gslora_tpu_torch.cli.train_pretrain \
-      --dp --tp --fsdp --mesh_model 2 -b 480 ...
+      --dp --tp --fsdp --sp --mesh_model 2 -b 480 ...
 """
 from __future__ import annotations
 

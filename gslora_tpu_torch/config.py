@@ -298,9 +298,9 @@ class MeshConfig:
     """Device mesh layout of the JAX package (data / model axes, tp, fsdp,
     pp, sp, multi-slice; gslora_tpu/config.py describes each). The port
     runs the ``(data, model)`` mesh (``--dp``: torch.distributed ranks,
-    one per card, parallel/mesh) with a model axis, tp and fsdp
-    (parallel/sharding); sp, pp and multi-slice are still to port, and
-    their flags raise rather than pass silently
+    one per card, parallel/mesh) with a model axis, tp, fsdp, sp and pp
+    (parallel/sharding, parallel/pipeline); multi-slice is still to port,
+    and its flag raises rather than passes silently
     (parallel/mesh.check_placement)."""
 
     data: int = -1  # -1 => all devices (after model/slices)

@@ -12,7 +12,9 @@ data index and on its shards of the parameters (parallel/sharding), the
 boundaries included: the fold adds each shard's part of B@A, the reinit
 draws each whole A from one identically seeded generator and keeps the
 rank's shard, so the ranks keep one set of parameters; rank 0 alone
-writes the snapshots, gathered.
+writes the snapshots, gathered. Under sp without tp the LoRA stays whole
+on every rank, so the prox (K2) runs on it there; under pp (the loss
+mode only, as in JAX) each stage folds and reinits its own layers.
 """
 from __future__ import annotations
 

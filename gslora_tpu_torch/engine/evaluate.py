@@ -46,7 +46,9 @@ def eval_accuracy(eval_step, params, batches: Iterable[Tuple],
 
     Under a data mesh each rank passes its rows of every batch
     (parallel/multihost.process_sharded_loader) and the integer counts are
-    summed over the ranks, so the accuracy is the one-device one exactly."""
+    summed over the ranks, so the accuracy is the one-device one exactly.
+    Under pp every model rank passes the same rows and runs the
+    pipeline's schedule with the others, in lockstep."""
     device = params_device(params)
     correct = None
     total = 0

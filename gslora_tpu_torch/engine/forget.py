@@ -24,7 +24,7 @@ from gslora_tpu_torch.losses.prototype import hinged_prototype_losses, \
 from gslora_tpu_torch.models.vit import vit_apply
 from gslora_tpu_torch.ops.group_lasso import fp32_threshold, lora_group_prox
 from gslora_tpu_torch.parallel.multihost import check_local_feed
-from gslora_tpu_torch.parallel.sharding import sync_grads
+from gslora_tpu_torch.parallel.sharding import sp_on, sync_grads
 from gslora_tpu_torch.utils.trees import PairwiseSum
 
 
@@ -84,7 +84,12 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
     data axis only: the ranks of one model group hold the same rows, and
     the model's collectives (parallel/sharding) give each of them the
     whole gradient of its own leaves; fsdp shards come summed out of the
-    backward (``sync_grads``).
+    backward (``sync_grads``). Under sp and pp a rank's gradient of a leaf
+    held whole inside the stack (or of the embedding) is its part over
+    ``model`` (its tokens; stage 0's), and ``sync_grads`` sums those over
+    that axis too; under sp the structure term, whose gradient every rank
+    holds whole, is then differentiated on its own and added after the
+    sums, so that it counts once.
     """
     use_proto = fcfg.prototype if use_prototype is None else use_prototype
     if structure_mode not in ("loss", "prox"):
@@ -99,6 +104,9 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     train_base = trainable == "base"
+    # under sp the LoRA's gradients are summed over ``model``: the
+    # structure term joins after the sums
+    late_structure = sp_on(mesh) and not use_prox and not train_base
 
     def forward(params, xf, yf, xr, yr, generator):
         """Dual-stream forward -> (logits_f, emb_f, logits_r, emb_r)."""
@@ -207,7 +215,7 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
         if use_proto:
             out = out + (-sc["w_pro_f"] * gate_p * s["pro_f"]) / nf \
                 + sc["w_pro_r"] * s["pro_r"] / nr
-        if not train_base and not use_prox:
+        if not train_base and not use_prox and not late_structure:
             out = out + sc["alpha"] * group_lasso(
                 params["lora"], fcfg.group_type, fcfg.group_pos) * share
         return out
@@ -261,6 +269,11 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
                     leaves)])
             grads = acc.total()
         sync_grads(mesh, names, grads)
+        if late_structure:
+            grads = [gr + gs.float() for gr, gs in zip(
+                grads, torch.autograd.grad(sc["alpha"] * group_lasso(
+                    params["lora"], fcfg.group_type, fcfg.group_pos),
+                    leaves))]
         return [gr.to(p.dtype) for gr, p in zip(grads, leaves)], metrics
 
     def step(state: ForgetState, xf, yf, xr, yr, protos,

@@ -11,10 +11,13 @@ train_own_forget.py:722-826).
 * the ``(data, model)`` mesh over torch.distributed ranks (``mesh``, a
   parallel/mesh.DataMesh): each rank loads the rows of its data index of
   every global batch and holds its shards of the parameters
-  (parallel/sharding: a model axis, tp, fsdp), the step computes the
-  global-batch loss, evaluations sum their counts over the data axis, and
-  rank 0 alone writes checkpoints, of the gathered tree. pp, sp and
-  multi-slice are not ported: their flags raise
+  (parallel/sharding: a model axis, tp, fsdp, the pipeline stages of
+  pp), the forward shards the tokens under sp and runs the GPipe
+  schedule under pp (``--pp_micro`` micro-batches a rank, every model
+  rank in lockstep, evaluations and prototypes included), the step
+  computes the global-batch loss, evaluations sum their counts over the
+  data axis, and rank 0 alone writes checkpoints, of the gathered tree.
+  Multi-slice is not ported: its flag raises
   (parallel/mesh.check_placement).
 """
 from __future__ import annotations

@@ -21,7 +21,8 @@ from gslora_tpu_torch.losses.classification import cross_entropy, \
 from gslora_tpu_torch.models.heads import sface_head
 from gslora_tpu_torch.models.vit import ViT, vit_apply, vit_embed
 from gslora_tpu_torch.parallel.multihost import check_local_feed
-from gslora_tpu_torch.parallel.sharding import fsdp_on, sync_grads
+from gslora_tpu_torch.parallel.sharding import fsdp_on, sync_grads, \
+    sync_model_grads
 from gslora_tpu_torch.utils.trees import PairwiseSum
 
 
@@ -69,7 +70,7 @@ def is_lora(name: str) -> bool:
 
 
 def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32,
-                 mesh=None):
+                 mesh=None, names=()):
     """Wrap ``grad_fn(x, y) -> (grads, metrics)`` to run over ``n`` equal
     micro-batches, weighted to the exact full-batch masked mean (JAX
     ``_accumulated``, pretrain.py:41-108).
@@ -88,7 +89,10 @@ def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32,
     global batch, and the sums and the count are summed over the ranks (one
     all_reduce over flat buckets: the full-model gradient, 19 M parameters
     at the flagship, goes in 16 MiB buckets) before the division, so the
-    mean is the global batch's, as in the JAX step under a mesh."""
+    mean is the global batch's, as in the JAX step under a mesh. Under sp
+    and pp the gradients that are a rank's part over ``model`` (``names``
+    say which, parallel/sharding.sync_model_grads) are summed over that
+    axis first."""
     def accum(x, y):
         b = x.shape[0]
         parts = n if b % n == 0 else 1
@@ -104,6 +108,7 @@ def _accumulated(grad_fn: Callable, n: int, accum_dtype=torch.float32,
                      [valid.reshape(1)])
         *total, count = sums.total()
         if mesh is not None:
+            sync_model_grads(mesh, names, total[:len(grads)])
             mesh.all_reduce_(total + [count])
         denom = torch.clamp(count[0], min=1.0)
         out = [(t / denom).to(dt) for t, dt in zip(total, dtypes)]
@@ -161,7 +166,9 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
     (``_accumulated``; ``_accumulated_fsdp`` under fsdp), with or without
     ``grad_accum``. On a ``(data, model)`` mesh the sums run over the
     data axis: the model's collectives give each rank of a model group
-    the whole gradient of its own shards."""
+    the whole gradient of its own shards; under sp and pp the gradients
+    that are a rank's part over ``model`` are summed over that axis
+    (parallel/sharding.sync_model_grads)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -195,7 +202,8 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
                 accum_dtype)(x, y)
         elif grad_accum > 1 or mesh is not None:
             grads, metrics = _accumulated(grad_fn, grad_accum, accum_dtype,
-                                          mesh)(x, y)
+                                          mesh, state.trainable_names())(
+                                              x, y)
         else:
             grads, metrics = grad_fn(x, y)
         optimizer.update(leaves, grads, state.opt_state, lr)

@@ -35,7 +35,9 @@ def calculate_prototypes(params, batches, model: ViTConfig, lora: LoraConfig,
     ``mesh``: each rank passed its rows of every batch; the per-class sums
     and counts are summed over the ranks. Not with ``aug_repeat``, whose
     RandAugment draws run in one sequence over the whole set: there every
-    rank passes every row and the table needs no collective."""
+    rank passes every row and the table needs no collective. Under pp
+    every model rank passes the same batches, so the pipeline's schedule
+    runs in lockstep."""
     if mesh is not None and aug_repeat > 0:
         raise ValueError("augmented prototypes take every row on every "
                          "rank: pass mesh=None with unsharded batches")

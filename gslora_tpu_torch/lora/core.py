@@ -19,7 +19,7 @@ import torch
 
 from gslora_tpu_torch.config import LoraConfig, ViTConfig
 from gslora_tpu_torch.parallel import sharding
-from gslora_tpu_torch.parallel.mesh import active_mesh
+from gslora_tpu_torch.parallel.mesh import MODEL_AXIS, active_mesh
 from gslora_tpu_torch.utils.inits import kaiming_uniform
 
 LoraTree = Dict[str, Dict[str, torch.Tensor]]
@@ -170,13 +170,21 @@ def group_lasso(lora_tree: LoraTree, group_type: str = "block",
     if group_pos == "FFN":
         sq = _ffn_sq(lora_tree["ffn"])
         if group_type == "block":
-            return torch.sum(root(sq["A1"] + sq["B1"] + sq["A2"] + sq["B2"]))
-        if group_type == "lora":
-            return torch.sum(root(sq["A1"] + sq["B1"])) + torch.sum(
+            total = torch.sum(root(sq["A1"] + sq["B1"] + sq["A2"] +
+                                   sq["B2"]))
+        elif group_type == "lora":
+            total = torch.sum(root(sq["A1"] + sq["B1"])) + torch.sum(
                 root(sq["A2"] + sq["B2"]))
-        if group_type == "matrix":
-            return sum(torch.sum(root(s)) for s in sq.values())
-        raise ValueError("group_type should be block or lora or matrix")
+        elif group_type == "matrix":
+            total = sum(torch.sum(root(s)) for s in sq.values())
+        else:
+            raise ValueError("group_type should be block or lora or matrix")
+        mesh = active_mesh()
+        if sharding.pp_on(mesh):
+            # each stage holds its layers' groups: the sum over the stages
+            # (g: each stage's gradient stays its layers')
+            total = sharding.reduce_from_model(total, mesh)
+        return total
     if group_pos == "Attention":
         a = lora_tree["attn"]
         return torch.sum(root(_per_layer_sq(a["A"]) + _per_layer_sq(a["B"])))
@@ -189,18 +197,25 @@ def lora_group_norms(lora_tree: LoraTree, group_pos: str = "FFN",
     """Per-block group norms (reference util/cal_norm.py:get_norm_of_lora)."""
     if not lora_tree:
         return []
+    mesh = active_mesh()
+
+    def whole(norms):
+        # under pp each stage holds its layers: the stages' in order
+        if sharding.pp_on(mesh):
+            norms = mesh.all_gather(norms, MODEL_AXIS, 0)
+        return [float(x) for x in norms]
+
     if group_pos == "FFN":
         f = lora_tree["ffn"]
         if ord == 2:
             sq = _ffn_sq(f)
             sq = sum(sq[k] for k in ("A1", "B1", "A2", "B2"))
-            return [float(x) for x in torch.sqrt(sq)]
-        if sharding.tp_on(active_mesh()):
+            return whole(torch.sqrt(sq))
+        if sharding.tp_on(mesh):
             raise NotImplementedError("L1 group norms of tp-sharded LoRA "
                                       "factors are not ported")
-        norms = sum(torch.sum(arr.float().abs().reshape(arr.shape[0], -1),
-                              dim=-1) for arr in f.values())
-        return [float(x) for x in norms]
+        return whole(sum(torch.sum(arr.float().abs().reshape(
+            arr.shape[0], -1), dim=-1) for arr in f.values()))
     a = lora_tree["attn"]
     sq = _per_layer_sq(a["A"]) + _per_layer_sq(a["B"])
     return [float(x) for x in torch.sqrt(sq)]

@@ -22,6 +22,11 @@ device (fp32 scores, as ``jax.nn.dot_product_attention``); "xla" and
 compute dtype before the fp32 softmax. Dropout draws from an explicit
 ``torch.Generator`` with the "uniform" semantics; the TPU RNG variants
 (``bits*``) map to it.
+
+Under the active mesh's sp and pp (parallel/sharding, parallel/pipeline)
+the fused attention stays on both paths, on whole sequences, where JAX
+switches to its einsums (vit.py:236-243,388): a choice of kernel, not of
+result.
 """
 from __future__ import annotations
 
@@ -35,11 +40,13 @@ from torch.utils.checkpoint import checkpoint
 from gslora_tpu_torch.config import (IMAGENET_MEAN, IMAGENET_STD, LoraConfig,
                                      ViTConfig)
 from gslora_tpu_torch.lora.core import init_lora, lora_delta, merge_lora
+from gslora_tpu_torch.models.convert import flatten_tree, unflatten_tree
 from gslora_tpu_torch.models.heads import apply_head
 from gslora_tpu_torch.ops.attention import fused_attention_bhnd
 from gslora_tpu_torch.ops.quant import int8_linear
 from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import active_mesh
+from gslora_tpu_torch.parallel.pipeline import pipeline_stack
 from gslora_tpu_torch.utils.inits import (kaiming_uniform, lecun_linear_bias,
                                           xavier_normal, xavier_uniform)
 
@@ -177,18 +184,24 @@ def _proj(x, kernel, model: ViTConfig):
 
 
 def _dropout(x, rate: float, generator, deterministic: bool,
-             shards: int = 1, index: int = 0):
+             shards: int = 1, index: int = 0, tokens=None):
     """Keep with probability 1-rate and scale by 1/keep (vit.py:170-172).
     ``x`` the ``index``-th of ``shards`` column shards of a tensor (the
-    tp-sharded FFN hidden): the mask is that slice of the whole tensor's
-    draw, so every rank of a model group draws as one process does."""
+    tp-sharded FFN hidden), or the span of ``tokens`` (an sp
+    parallel/sharding.TokenShard) of the whole sequence: the mask is that
+    slice of the whole tensor's draw, so every rank of a model group draws
+    as one process does."""
     if deterministic or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
     shape = x.shape[:-1] + (x.shape[-1] * shards,)
+    if tokens is not None:
+        shape = shape[:1] + (tokens.n,) + shape[2:]
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     if shards > 1:
         mask = mask.chunk(shards, dim=-1)[index]
+    if tokens is not None:
+        mask = tokens.take(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -213,11 +226,18 @@ def patchify(images, model: ViTConfig):
 
 
 def _attention_block(x, blk, lora_blk, model: ViTConfig, scaling: float,
-                     generator, deterministic: bool):
-    """Pre-norm MHA with residual (vit_face.py:341-379)."""
+                     generator, deterministic: bool, tokens=None):
+    """Pre-norm MHA with residual (vit_face.py:341-379). Under sp
+    (``tokens``, the rank's parallel/sharding.TokenShard) ``x`` holds the
+    rank's span of the tokens: the normed span is gathered into whole
+    sequences, the attention runs on them (the fused kernel on whole
+    (B·H, n, d) slices), and the rank keeps its span of the attention's
+    output before the output projection."""
     cdt = x.dtype
     h = _layer_norm(x, blk["attn_ln"]["scale"], blk["attn_ln"]["bias"],
                     ln_dtype=model.ln_dtype).to(cdt)
+    if tokens is not None:
+        h = sharding.gather_tokens(h, tokens)
     qkv = _proj(h, blk["qkv"]["kernel"], model)
     if "bias" in blk["qkv"]:
         qkv = qkv + blk["qkv"]["bias"].to(cdt)
@@ -225,7 +245,7 @@ def _attention_block(x, blk, lora_blk, model: ViTConfig, scaling: float,
         A, B = lora_blk["attn"]["A"], lora_blk["attn"]["B"]
         qkv = qkv + torch.cat([lora_delta(h, A[c], B[c], scaling)
                                for c in range(3)], dim=-1)
-    b, n = x.shape[0], x.shape[1]
+    b, n = h.shape[0], h.shape[1]
     hd = model.dim_head
 
     def heads(t):  # (b, n, h*d) -> (b, h, n, d)
@@ -247,17 +267,23 @@ def _attention_block(x, blk, lora_blk, model: ViTConfig, scaling: float,
         out = fused_attention_bhnd(q, k, v, scale,
                                    plain=model.attn_impl == "dpa")
     out = out.transpose(1, 2).reshape(b, n, -1)
+    if tokens is not None:
+        out = tokens.take(out)
     out = _proj(out, blk["attn_out"]["kernel"], model)
     out = out + blk["attn_out"]["bias"].to(cdt)
-    out = _dropout(out, model.dropout, generator, deterministic)
+    out = _dropout(out, model.dropout, generator, deterministic,
+                   tokens=tokens)
     return x + out
 
 
 def _tp_lora(lora_blk, mesh):
     """The FFN LoRA factors that stay whole under tp (A1, B2) but meet
     sharded ones (B1, A2) in a product: through f, so that their gradient,
-    partial on each model rank, is summed over ``model``."""
-    if not sharding.tp_on(mesh) or not lora_blk or "ffn" not in lora_blk:
+    partial on each model rank, is summed over ``model``. Not under sp,
+    where parallel/sharding.sync_grads sums their gradients, partial over
+    the tokens too, with those of the other leaves held whole."""
+    if not sharding.tp_on(mesh) or sharding.sp_on(mesh) or not lora_blk \
+            or "ffn" not in lora_blk:
         return lora_blk
     f = dict(lora_blk["ffn"])
     f["A1"] = sharding.copy_to_model(f["A1"], mesh)
@@ -266,20 +292,26 @@ def _tp_lora(lora_blk, mesh):
 
 
 def _ffn_block(x, blk, lora_blk, model: ViTConfig, scaling: float, generator,
-               deterministic: bool):
+               deterministic: bool, tokens=None):
     """Pre-norm LoRA-FFN with residual (vit_face.py:326-338): where the
     GS-LoRA trainable parameters live.
 
     Under tp (the active mesh's, parallel/sharding) fc1 and B1 hold this
     rank's columns of the hidden, fc2 and A2 its rows: the normed input
     enters through f, the row-parallel output leaves through g (a SUM over
-    ``model``, in fp32), and fc2's bias is added once, after the sum."""
+    ``model``, in fp32), and fc2's bias is added once, after the sum.
+    Under sp (``tokens``) ``x`` is the rank's span of the tokens: without
+    tp the FFN runs on it; with tp f and g become Megatron-SP's gather of
+    whole sequences and reduce_scatter back to the span."""
     mesh = active_mesh()
     tp = sharding.tp_on(mesh)
     cdt = x.dtype
     h = _layer_norm(x, blk["ffn_ln"]["scale"], blk["ffn_ln"]["bias"],
                     ln_dtype=model.ln_dtype).to(cdt)
-    if tp:
+    whole = None if tp else tokens  # the span the hidden holds, if any
+    if tp and tokens is not None:
+        h = sharding.gather_tokens(h, tokens)
+    elif tp:
         h = sharding.copy_to_model(h, mesh)
     lora_blk = _tp_lora(lora_blk, mesh)
     u = _proj(h, blk["fc1"]["kernel"], model) + blk["fc1"]["bias"].to(cdt)
@@ -294,7 +326,8 @@ def _ffn_block(x, blk, lora_blk, model: ViTConfig, scaling: float, generator,
     else:  # "tanh" — parity-diverging ablation
         u = torch.nn.functional.gelu(u, approximate="tanh")
     u = _dropout(u, model.dropout, generator, deterministic,
-                 *((mesh.model, mesh.model_index) if tp else ()))
+                 *((mesh.model, mesh.model_index) if tp else ()),
+                 tokens=whole)
     y = _proj(u, blk["fc2"]["kernel"], model)
     if not tp:
         y = y + blk["fc2"]["bias"].to(cdt)
@@ -304,9 +337,10 @@ def _ffn_block(x, blk, lora_blk, model: ViTConfig, scaling: float, generator,
     if tp:
         # the partial products are summed in fp32, so the whole is rounded
         # to the compute dtype once, as one process's GEMM rounds it
-        y = sharding.reduce_from_model(y.float(), mesh).to(cdt) + \
-            blk["fc2"]["bias"].to(cdt)
-    y = _dropout(y, model.dropout, generator, deterministic)
+        y = sharding.scatter_tokens(y.float(), tokens) if tokens is not None \
+            else sharding.reduce_from_model(y.float(), mesh)
+        y = y.to(cdt) + blk["fc2"]["bias"].to(cdt)
+    y = _dropout(y, model.dropout, generator, deterministic, tokens=tokens)
     return x + y
 
 
@@ -361,25 +395,60 @@ def transformer_stack(x, blocks: Params, lora_tree: Params, model: ViTConfig,
     over ``data`` inside the layer function, so a rematerialized layer
     gathers again in its recompute and only one layer is ever whole;
     ``fold`` then merges the layer's LoRA into the gathered kernels (the
-    merged apply mode)."""
-    lo, hi = layer_range if layer_range is not None else (0, model.depth)
+    merged apply mode).
+
+    Under sp the stack keeps the rank's span of the tokens between the
+    layers (``x`` comes in whole, replicated over ``model``) and gathers
+    whole sequences at its end (parallel/sharding.gather_tokens). Under pp
+    (JAX's pipeline branch, vit.py:372-405) the whole stack runs as the
+    GPipe schedule over the stages' local layers (parallel/pipeline), each
+    layer rematerialized inside its stage under ``model.remat``; as in
+    JAX only the whole stack pipelines, and a ``layer_range`` (the LIRF
+    split, whose baselines refuse pp) raises here."""
     remat = model.remat and torch.is_grad_enabled()
     mesh = active_mesh()
-    for i in range(lo, hi):
-        blk = _layer(blocks, i)
-        lora_blk = _layer(lora_tree, i) if lora_tree else None
 
-        def layer(x, blk=blk, lora_blk=lora_blk):
-            blk = sharding.gather_layer(mesh, blk)
+    def run(x, blk, lora_blk, tokens=None):
+        def layer(x):
+            b = sharding.gather_layer(mesh, blk)
+            lb = lora_blk
             if fold:
-                blk = merge_lora(blk, _tp_lora(lora_blk, mesh), scaling)
-                lora_blk = None
-            x = _attention_block(x, blk, lora_blk, model, scaling,
-                                 generator, deterministic)
-            return _ffn_block(x, blk, lora_blk, model, scaling, generator,
-                              deterministic)
+                b = merge_lora(b, _tp_lora(lb, mesh), scaling)
+                lb = None
+            x = _attention_block(x, b, lb, model, scaling, generator,
+                                 deterministic, tokens)
+            return _ffn_block(x, b, lb, model, scaling, generator,
+                              deterministic, tokens)
 
-        x = _rematerialized(layer, x, generator) if remat else layer(x)
+        return _rematerialized(layer, x, generator) if remat else layer(x)
+
+    if sharding.pp_on(mesh):
+        if layer_range is not None:
+            raise NotImplementedError(
+                "a layer_range of the stack under --pp is not ported: the "
+                "pipeline runs the whole stack")
+        flat_b, flat_l = flatten_tree(blocks), flatten_tree(lora_tree or {})
+        nb, n_local = len(flat_b), next(iter(flat_b.values())).shape[0]
+
+        def stage(x, leaves):
+            blk_tree = unflatten_tree(dict(zip(flat_b, leaves[:nb])))
+            lora_loc = unflatten_tree(dict(zip(flat_l, leaves[nb:])))
+            for j in range(n_local):
+                x = run(x, _layer(blk_tree, j),
+                        _layer(lora_loc, j) if lora_loc else None)
+            return x
+
+        return pipeline_stack(x, [*flat_b.values(), *flat_l.values()],
+                              stage, mesh)
+    lo, hi = layer_range if layer_range is not None else (0, model.depth)
+    tokens = sharding.token_shard(mesh, x.shape[1])
+    if tokens is not None:
+        x = tokens.take(x)
+    for i in range(lo, hi):
+        x = run(x, _layer(blocks, i),
+                _layer(lora_tree, i) if lora_tree else None, tokens)
+    if tokens is not None:
+        x = sharding.gather_tokens(x, tokens, partial=False)
     return x
 
 

@@ -1,6 +1,6 @@
 """The (data, model) mesh over torch.distributed, and the guards of the
-parallel flags (port of gslora_tpu/parallel/mesh.py without the pipeline,
-sequence and multi-slice modes).
+parallel flags (port of gslora_tpu/parallel/mesh.py without the
+multi-slice mode).
 
 A JAX device of a ``(data, model)`` mesh becomes one process (rank) here,
 launched by ``torchrun``. JAX's mesh is ``devices.reshape(data, model)``,
@@ -9,22 +9,27 @@ ranks of one model group are contiguous, those of one data group strided.
 :class:`DataMesh` names the rank, its two indices and its device, and
 carries the collectives of each group: a SUM ``all_reduce`` over flat
 buckets (over ``data``, where the batch splits), ``all_gather`` and
-``reduce_scatter`` along a tensor dim over either axis, a ``broadcast``
-from rank 0 over the world. What is sharded, and how, is
-parallel/sharding.py's. There is no mesh for one process, as JAX has none
+``reduce_scatter`` along a tensor dim over either axis, the pipeline's
+stage-to-stage ``shift`` over ``model`` (JAX's ``ppermute`` to the next
+or the previous stage), a ``broadcast`` from rank 0 over the world. What
+is sharded, and how, is parallel/sharding.py's; the pipeline schedule is
+parallel/pipeline.py's. There is no mesh for one process, as JAX has none
 on one device (``make_mesh`` returns None).
 
-The route of ``all_gather`` and ``reduce_scatter`` follows the backend and
-the device: NCCL, and gloo on CPU tensors, run the native collectives;
-gloo on CUDA tensors (ranks that share one card) offers only all_reduce
-and broadcast, so there an all_gather is the all_reduce of a zero-filled
-whole buffer holding the rank's shard at its offset, and a reduce_scatter
-the all_reduce of the whole buffer, sliced: adding zeros is exact.
+The route of ``all_gather``, ``reduce_scatter`` and ``shift`` follows the
+backend and the device: NCCL, and gloo on CPU tensors, run the native
+collectives (``isend``/``irecv`` for the shift); gloo on CUDA tensors
+(ranks that share one card) offers only all_reduce and broadcast, so
+there an all_gather is the all_reduce of a zero-filled whole buffer
+holding the rank's shard at its offset, a reduce_scatter the all_reduce
+of the whole buffer, sliced, and a shift the all_reduce of a zero-filled
+buffer of one slot per model rank in which only the senders' slots are
+filled: adding zeros is exact.
 
 :func:`check_placement` holds the parallel flags to what JAX's
 ``placement()`` accepts, in its order and with its messages; those JAX
-would accept but this port does not run yet (pp, sp, multi-slice, a mesh
-smaller than the world) raise NotImplementedError naming the flag.
+would accept but this port does not run yet (multi-slice, a mesh smaller
+than the world) raise NotImplementedError naming the flag.
 """
 from __future__ import annotations
 
@@ -52,7 +57,10 @@ class DataMesh:
 
     ``groups`` are the process groups of the rank's data and model axes
     (None: the default group, or an axis of one rank); ``route`` is how
-    all_gather and reduce_scatter run (module docstring)."""
+    all_gather, reduce_scatter and shift run (module docstring). ``pp``
+    stages the layers over ``model`` in ``pp_micro`` micro-batches (0:
+    the stage count, as JAX's ``set_pipeline``); ``sp`` shards the
+    activations' token dim over ``model``."""
 
     rank: int
     world: int
@@ -61,6 +69,9 @@ class DataMesh:
     tp: bool = False
     fsdp: bool = False
     route: str = "native"
+    pp: bool = False
+    pp_micro: int = 0
+    sp: bool = False
     groups: Dict[str, object] = field(default_factory=dict, compare=False,
                                       repr=False)
 
@@ -148,6 +159,33 @@ class DataMesh:
             out = whole[lo:lo + per]
         return out.movedim(0, dim)
 
+    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """JAX's ``ppermute`` over ``model`` by ``step`` (+1: each stage
+        sends ``t`` to the next, -1: to the previous): the tensor of model
+        index ``i - step``, zeros where there is none. Every model rank
+        calls it with a tensor of one shape."""
+        import torch.distributed as dist
+        n, i = self.model, self.model_index
+        t = t.contiguous()
+        sends, recvs = 0 <= i + step < n, 0 <= i - step < n
+        group = self.group(MODEL_AXIS)
+        if self.route == "native":
+            out = torch.zeros_like(t)
+            first = self.rank - i  # global rank of model index 0
+            ops = ([dist.P2POp(dist.isend, t, first + i + step, group)]
+                   if sends else []) + \
+                ([dist.P2POp(dist.irecv, out, first + i - step, group)]
+                 if recvs else [])
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            return out
+        buf = t.new_zeros((n,) + t.shape)
+        if sends:
+            buf[i] = t
+        dist.all_reduce(buf, group=group)
+        return buf[i - step] if recvs else torch.zeros_like(t)
+
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Overwrite each tensor with rank 0's, in place."""
         import torch.distributed as dist
@@ -228,9 +266,13 @@ def check_placement(cfg: MeshConfig, mesh: Optional[DataMesh]) -> None:
     Without a mesh, tp/fsdp/pp/sp raise JAX's ValueError. With one, what
     JAX refuses (tp/pp/sp on a model axis of 1, fsdp on a data axis of 1,
     sp with pp, a mesh larger than the world) raises its ValueError; what
-    JAX would run but the port does not (pp, sp, multi-slice, a mesh that
-    leaves ranks idle) raises NotImplementedError. ``--mesh_model``,
-    ``--tp`` and ``--fsdp`` run on a mesh of the whole world."""
+    JAX would run but the port does not (multi-slice, a mesh that leaves
+    ranks idle) raises NotImplementedError. ``--mesh_model``,
+    ``--tp``, ``--fsdp``, ``--sp`` and ``--pp`` run on a mesh of the
+    whole world. JAX raises "pp excludes tp/fsdp" in ``param_shardings``
+    (parallel/mesh.py:258-261), here with the other guards; the pp depth
+    divisibility, as there, where the tree is sharded
+    (parallel/sharding.leaf_spec)."""
     if mesh is None:
         if cfg.tp or cfg.fsdp or cfg.pp or cfg.sp:
             raise ValueError(
@@ -258,12 +300,15 @@ def check_placement(cfg: MeshConfig, mesh: Optional[DataMesh]) -> None:
             "sp excludes pp: the pipeline body is a fully manual "
             "shard_map over the model axis, so GSPMD sharding "
             "constraints cannot reference it there")
-    for flag, on in (("--pp", cfg.pp), ("--sp", cfg.sp),
-                     ("--mesh_slices > 1", slices > 1)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: gslora_tpu_torch runs the "
-                f"(data, model) mesh: --dp, --mesh_model, --tp, --fsdp")
+    if cfg.pp and (cfg.tp or cfg.fsdp):
+        raise ValueError("pp excludes tp/fsdp: pipeline stages own the "
+                         "model axis and the pipeline body is a fully "
+                         "manual shard_map")
+    if slices > 1:
+        raise NotImplementedError(
+            "--mesh_slices > 1 is not ported yet: gslora_tpu_torch runs "
+            "the (data, model) mesh: --dp, --mesh_model, --tp, --fsdp, "
+            "--sp, --pp")
     if shape[DATA_AXIS] * shape[MODEL_AXIS] != mesh.world:
         raise NotImplementedError(
             f"--mesh_data {shape[DATA_AXIS]} x --mesh_model "
@@ -286,8 +331,8 @@ def check_baseline_placement(cfg: MeshConfig,
     """The guards of JAX's baseline runners (e.g. baselines/
     regularization.py:170-181) for a run on ``mesh``: pp raises JAX's
     ValueError first, then :func:`check_placement`; under a world the
-    baselines run the data axis only, so a model axis, tp and fsdp raise
-    NotImplementedError naming the flag (without a mesh, JAX's
+    baselines run the data axis only, so tp, fsdp, sp and a model axis
+    raise NotImplementedError naming the flag (without a mesh, JAX's
     ValueError)."""
     if cfg.pp:
         raise ValueError(
@@ -298,11 +343,12 @@ def check_baseline_placement(cfg: MeshConfig,
     if mesh is None:
         return
     for flag, on in (("--tp", cfg.tp), ("--fsdp", cfg.fsdp),
-                     ("--mesh_model > 1", cfg.model > 1)):
+                     ("--sp", cfg.sp), ("--mesh_model > 1", cfg.model > 1)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet for the baseline runners: they "
-                f"run the data axis only (--dp, one rank per device)")
+                f"run the data axis only (--dp, one rank per device; "
+                f"--tp, --fsdp, --sp, --pp and a model axis are refused)")
 
 
 def world_size() -> int:
@@ -335,8 +381,9 @@ def axis_groups(world: int, model: int, rank: int) -> Dict[str, object]:
 
 
 def collective_route(backend: str, device: torch.device) -> str:
-    """How all_gather and reduce_scatter run: gloo on CUDA tensors has
-    neither, so there they go through all_reduce; elsewhere natively."""
+    """How all_gather, reduce_scatter and shift run: gloo on CUDA tensors
+    has none of them, so there they go through all_reduce; elsewhere
+    natively."""
     return "all_reduce" if backend == "gloo" and device.type == "cuda" \
         else "native"
 
@@ -379,11 +426,13 @@ def make_mesh(cfg: MeshConfig, device: str = "cuda", dp: bool = True,
     model = jax_mesh_shape(cfg, world)[MODEL_AXIS]
     route = collective_route(dist.get_backend(), dev)
     mesh = DataMesh(rank=rank, world=world, device=dev, model=model,
-                    tp=cfg.tp, fsdp=cfg.fsdp, route=route,
+                    tp=cfg.tp, fsdp=cfg.fsdp, route=route, pp=cfg.pp,
+                    pp_micro=cfg.pp_micro, sp=cfg.sp,
                     groups=axis_groups(world, model, rank))
     if mesh.is_main:
         print(f"mesh: data {mesh.data} x model {model} (tp={cfg.tp}, "
-              f"fsdp={cfg.fsdp}), {dist.get_backend()} on {dev.type}, "
-              f"collective route {route}", flush=True)
+              f"fsdp={cfg.fsdp}, sp={cfg.sp}, pp={cfg.pp}), "
+              f"{dist.get_backend()} on {dev.type}, collective route "
+              f"{route}", flush=True)
     set_active(mesh)
     return mesh

@@ -15,13 +15,29 @@ itself, as autograd functions:
 * a class-sharded head: :func:`gather_from_model` of its scores (backward:
   the rank's columns);
 * fsdp: :func:`gather_from_data`, the per-layer all_gather of a kernel's
-  shards, whose backward is a reduce_scatter.
+  shards, whose backward is a reduce_scatter;
+* sp (Megatron-SP): the block activations hold the rank's span of the
+  tokens (:func:`token_shard`: GSPMD's padded split, 197 tokens over 2 as
+  99 and 98); :func:`gather_tokens` gathers whole sequences before the
+  attention (and, under tp, before the FFN: Megatron's f), its backward a
+  reduce_scatter, or at the end of the stack, where the whole tokens feed
+  replicated work, its backward the rank's span; :func:`scatter_tokens`
+  is Megatron's g under tp (a SUM over ``model`` that keeps the rank's
+  span; backward an all_gather).
 
 The rules are JAX's: tp shards fc1 (L, d, m) by columns and its bias,
 fc2 (L, m, d) by rows, LoRA B1 (L, m, r) on dim 1 and A2 (L, r, m) on
 dim 2 over ``model``; fsdp the d dim of the qkv, attn_out, fc1 and fc2
-kernels over ``data``; the head weight's class dim goes over ``model``
-whenever that axis is > 1. Optimizer moments follow their parameters.
+kernels over ``data``; pp every stacked (L, ...) leaf of the blocks and
+of the LoRA on its layer dim over ``model`` (the stages); the head
+weight's class dim goes over ``model`` whenever that axis is > 1 and pp
+is off. sp changes no layout. Optimizer moments follow their parameters.
+
+Gradients (:func:`sync_grads`): under sp and pp a rank's gradient of a
+leaf it holds whole inside the stack, or of the embedding, is its part of
+the whole (its tokens; its stage), summed over ``model``; the head and
+the final LayerNorm run replicated on the gathered (sp) or broadcast (pp)
+tokens, so each rank holds their whole gradient already.
 """
 from __future__ import annotations
 
@@ -58,13 +74,21 @@ def fsdp_on(mesh: Optional[DataMesh]) -> bool:
     return mesh is not None and mesh.fsdp and mesh.data > 1
 
 
+def pp_on(mesh: Optional[DataMesh]) -> bool:
+    return mesh is not None and mesh.pp and mesh.model > 1
+
+
+def sp_on(mesh: Optional[DataMesh]) -> bool:
+    return mesh is not None and mesh.sp and mesh.model > 1
+
+
 def head_split(mesh: Optional[DataMesh]) -> bool:
-    return mesh is not None and mesh.model > 1
+    return mesh is not None and mesh.model > 1 and not mesh.pp
 
 
 def sharded(mesh: Optional[DataMesh]) -> bool:
     """Whether any leaf is sharded under ``mesh``."""
-    return head_split(mesh) or fsdp_on(mesh)
+    return head_split(mesh) or fsdp_on(mesh) or pp_on(mesh)
 
 
 def leaf_spec(mesh: Optional[DataMesh], names: Sequence[str],
@@ -78,8 +102,18 @@ def leaf_spec(mesh: Optional[DataMesh], names: Sequence[str],
         return tuple(spec)
     names = list(names)
     mp, dp = mesh.model, mesh.data
+    if mesh.pp and mp > 1 and ("blocks" in names or "ffn" in names or
+                               "attn" in names):
+        # pipeline stages: the stacked layer dim (gslora_tpu/parallel/
+        # mesh.py:272-283)
+        if shape[0] % mp != 0:
+            raise ValueError(
+                f"pp: depth {shape[0]} of "
+                f"{'/'.join(map(str, names))} not divisible by the "
+                f"model axis ({mp} stages)")
+        return (MODEL_AXIS,) + (None,) * (len(shape) - 1)
     if "head" in names and "weight" in names and \
-            len(shape) == 2 and mp > 1:
+            len(shape) == 2 and mp > 1 and not mesh.pp:
         if shape[0] % mp != 0:
             raise ValueError(
                 f"head weight class dim {shape[0]} not divisible "
@@ -256,6 +290,85 @@ def gather_from_data(x: torch.Tensor, mesh: DataMesh,
     return _GatherFromData.apply(x, mesh, dim % x.ndim)
 
 
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard, partial):
+        ctx.shard, ctx.partial = shard, partial
+        return shard.gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return ctx.shard.reduce_scatter(g), None, None
+        return ctx.shard.take(g), None, None
+
+
+class _ScatterTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return shard.reduce_scatter(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.gather(g), None
+
+
+class TokenShard:
+    """The rank's span [lo, hi) of ``n`` tokens over ``model`` under sp:
+    GSPMD's split of a dim the axis does not divide, ceil(n / M) tokens a
+    rank and the short span (or none) last. Gathers and reduce_scatters
+    pad each span to ceil(n / M) rows (no autograd)."""
+
+    def __init__(self, mesh: DataMesh, n: int):
+        self.mesh, self.n = mesh, n
+        self.per = -(-n // mesh.model)
+        self.lo = min(mesh.model_index * self.per, n)
+        self.hi = min(self.lo + self.per, n)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's span of whole tokens (dim 1)."""
+        return x[:, self.lo:self.hi]
+
+    def _padded(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        pad = rows - x.shape[1]
+        if pad == 0:
+            return x
+        return torch.cat([x, x.new_zeros((x.shape[0], pad) +
+                                         x.shape[2:])], dim=1)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        whole = self.mesh.all_gather(self._padded(x, self.per), MODEL_AXIS,
+                                     1)
+        return whole[:, :self.n]
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._padded(x, self.per * self.mesh.model)
+        return self.mesh.reduce_scatter(x, MODEL_AXIS, 1)[
+            :, :self.hi - self.lo]
+
+
+def token_shard(mesh: Optional[DataMesh], n: int) -> Optional[TokenShard]:
+    """The rank's span of ``n`` tokens under sp, else None."""
+    return TokenShard(mesh, n) if sp_on(mesh) else None
+
+
+def gather_tokens(x: torch.Tensor, shard: TokenShard,
+                  partial: bool = True) -> torch.Tensor:
+    """Whole sequences from each rank's span (dim 1). ``partial``: the
+    rank's work on them gives only its part of their gradient (the
+    attention, whose output the rank keeps its span of; the tp FFN's
+    column shard), so the backward is a reduce_scatter; else (the stack's
+    output, feeding replicated work) the rank's span of the gradient."""
+    return _GatherTokens.apply(x, shard, partial)
+
+
+def scatter_tokens(x: torch.Tensor, shard: TokenShard) -> torch.Tensor:
+    """Megatron-SP's g: the SUM over ``model`` of whole-token partial
+    products, the rank's span of it; the gradient is gathered whole."""
+    return _ScatterTokens.apply(x, shard)
+
+
 def gather_layer(mesh: Optional[DataMesh], blk: Dict) -> Dict:
     """One layer's block tensors with their fsdp shards gathered (the
     stacked rules' dims less the layer dim)."""
@@ -269,13 +382,36 @@ def gather_layer(mesh: Optional[DataMesh], blk: Dict) -> Dict:
     return out
 
 
+def model_partial(mesh: Optional[DataMesh], names: Sequence[str],
+                  spec: Spec) -> bool:
+    """Whether a rank's gradient of the leaf at ``names`` is its part of
+    the whole, to be summed over ``model``: under sp or pp, every leaf not
+    sharded over ``model`` but the head's and the final LayerNorm's."""
+    return (sp_on(mesh) or pp_on(mesh)) and MODEL_AXIS not in spec and \
+        "head" not in names and "head_ln" not in names
+
+
+def sync_model_grads(mesh: Optional[DataMesh], names: Sequence[str],
+                     grads: Sequence[torch.Tensor]) -> None:
+    """SUM over ``model``, in place, the gradients :func:`model_partial`
+    names."""
+    if not (sp_on(mesh) or pp_on(mesh)):
+        return
+    specs = named_specs(mesh, names, grads)
+    mesh.all_reduce_([g for g, s, n in zip(grads, specs, names)
+                      if model_partial(mesh, n.split("."), s)],
+                     axis=MODEL_AXIS)
+
+
 def sync_grads(mesh: Optional[DataMesh], names: Sequence[str],
                grads: Sequence[torch.Tensor]) -> None:
     """SUM each gradient over the data axis in place, but those of fsdp
     shards, which the backward of :func:`gather_from_data` already
-    summed."""
+    summed; first those that are a rank's part over ``model`` (sp, pp)
+    over that axis."""
     if mesh is None:
         return
+    sync_model_grads(mesh, names, grads)
     specs = named_specs(mesh, names, grads)
     mesh.all_reduce_([g for g, s in zip(grads, specs) if DATA_AXIS not in s])
 
@@ -286,13 +422,15 @@ def layout_flags(mesh: Optional[DataMesh]) -> str:
         return ""
     return " ".join(f for f, on in (
         ("--tp", tp_on(mesh)), ("--fsdp", fsdp_on(mesh)),
+        ("--sp", sp_on(mesh)), ("--pp", pp_on(mesh)),
         (f"--mesh_model {mesh.model}", mesh.model > 1)) if on)
 
 
 def check_layout_support(cfg, mesh: Optional[DataMesh]) -> None:
     """The sharded layouts run what the tests hold against the JAX
     package: the face ViT (-n VIT) with FFN LoRA; anything else under them
-    raises NotImplementedError naming its flags."""
+    (tp, fsdp, sp, pp, a model axis) raises NotImplementedError naming its
+    flags."""
     if not sharded(mesh):
         return
     flags = layout_flags(mesh)

@@ -48,7 +48,8 @@ def test_no_source_names_jax_or_the_jax_package():
 def test_native_io_and_parallel_are_the_ports_own():
     """The port builds its native libraries from its own csrc/*.cpp and
     never loads the JAX package's library; the parallel modules (the mesh,
-    the feeding, the sharding) are imported by the walk above."""
+    the feeding, the pipeline, the sharding) are imported by the walk
+    above."""
     out = subprocess.run(
         [sys.executable, "-c", IMPORT_ALL.replace(
             "print(len(names), bad)",
@@ -60,6 +61,7 @@ def test_native_io_and_parallel_are_the_ports_own():
         "gslora_tpu_torch.native", "gslora_tpu_torch.parallel",
         "gslora_tpu_torch.parallel.mesh",
         "gslora_tpu_torch.parallel.multihost",
+        "gslora_tpu_torch.parallel.pipeline",
         "gslora_tpu_torch.parallel.sharding"]))
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cpp")) == \
         ["imagedec.cpp", "recordio.cpp"]

@@ -94,19 +94,20 @@ def test_refusals_match_jax_placement(mesh_kw, flags):
 
 
 @pytest.mark.parametrize("mesh_kw,flags,name", [
-    ({"data": 4, "model": 2}, {"tp": True, "sp": True}, "--sp"),
-    ({"data": 4, "model": 2}, {"pp": True}, "--pp"),
-    ({"data": 4, "model": 2}, {"sp": True}, "--sp"),
+    ({"data": 1, "model": 2, "slices": 2}, {"pp": True}, "--mesh_slices"),
+    ({"data": 1, "model": 2, "slices": 2}, {"tp": True, "sp": True},
+     "--mesh_slices"),
+    ({"data": 1, "model": 2}, {"sp": True}, "--mesh_data 1"),
     ({"data": 2, "model": 2, "slices": 2}, {"tp": True}, "--mesh_slices"),
     ({"data": 2, "model": 2}, {}, "--mesh_data 2"),
     ({"data": 4, "model": 1}, {}, "--mesh_data 4"),
     ({"data": 4, "model": 1, "slices": 2}, {}, "--mesh_slices"),
-], ids=["tp_sp", "pp", "sp", "slices2_tp", "data2_model2", "data4",
-        "slices2"])
+], ids=["slices2_pp", "slices2_tp_sp", "data1_model2_sp", "slices2_tp",
+        "data2_model2", "data4", "slices2"])
 def test_unported_layouts_raise_not_implemented(mesh_kw, flags, name):
-    """What JAX runs but the port does not (pp, sp, multi-slice, a mesh
-    that leaves devices idle) raises NotImplementedError naming the flag,
-    never a silent replicated run."""
+    """What JAX runs but the port does not (multi-slice, a mesh that
+    leaves devices idle), with or without sp and pp, raises
+    NotImplementedError naming the flag, never a silent replicated run."""
     assert _jax_outcome(mesh_kw, flags) is None
     kind, msg = _port_outcome(mesh_kw, flags)
     assert kind is NotImplementedError and name in msg
@@ -118,15 +119,22 @@ def test_unported_layouts_raise_not_implemented(mesh_kw, flags, name):
     ({"data": 4, "model": 2}, {}),
     ({"model": 2}, {"tp": True, "fsdp": True}),
     ({"data": 1, "model": 8}, {"tp": True}),
-], ids=["tp", "fsdp", "model2", "tp_fsdp", "model8_tp"])
+    ({"data": 4, "model": 2}, {"sp": True}),
+    ({"model": 2}, {"tp": True, "fsdp": True, "sp": True}),
+    ({"data": 4, "model": 2}, {"pp": True, "pp_micro": 4}),
+    ({"data": 1, "model": 8}, {"pp": True}),
+], ids=["tp", "fsdp", "model2", "tp_fsdp", "model8_tp", "sp",
+        "tp_fsdp_sp", "pp", "model8_pp"])
 def test_mesh_layouts_pass_the_guards(mesh_kw, flags):
-    """--mesh_model, --tp, --fsdp and their compositions run on a mesh of
-    the whole world, as JAX's placement() accepts them; a baseline still
-    refuses them."""
+    """--mesh_model, --tp, --fsdp, --sp, --pp and their compositions run
+    on a mesh of the whole world, as JAX's placement() accepts them; a
+    baseline still refuses them (pp with JAX's own ValueError)."""
     assert _jax_outcome(mesh_kw, flags) is None
     assert _port_outcome(mesh_kw, flags) is None
     world = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="baseline runners"):
+    error, match = (ValueError, "pp is supported") if flags.get("pp") \
+        else (NotImplementedError, "baseline runners")
+    with pytest.raises(error, match=match):
         tmesh.check_baseline_placement(MeshConfig(**mesh_kw, **flags),
                                        world)
 

@@ -284,14 +284,14 @@ def test_cli_pretrain_then_lora_only_resume_on_cpu(tiny_pretrain, tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--dp", "--tp", "--sp", "--mesh_model", "2"], NotImplementedError,
-     "--sp"),
+    (["--dp", "--mesh_slices", "2"], NotImplementedError,
+     "--mesh_slices"),
     (["--device", "cuda"], RuntimeError, "no CUDA GPU"),
 ])
 def test_cli_refuses_what_it_cannot_run(monkeypatch, tiny_pretrain,
                                         tmp_path, flags, error, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setenv("WORLD_SIZE", "2")  # sp is not ported under dp
+    monkeypatch.setenv("WORLD_SIZE", "2")  # multi-slice is not ported
     args = [a for a in CLI if a not in ("--device", "cpu")]
     with pytest.raises(error, match=match):
         tiny_pretrain.main(args + ["-e", "1", "--outdir", str(tmp_path)] +

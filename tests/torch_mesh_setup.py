@@ -67,7 +67,7 @@ def start_ranks(outdir, names, world, device="cpu"):
     return finish
 
 
-def init_tree():
+def init_tree(depth=2):
     """One parameter tree for both packages (numpy leaves, drawn by the JAX
     package's init), its LoRA B factors nonzero."""
     import jax
@@ -75,7 +75,7 @@ def init_tree():
     import gslora_tpu.config as jc
     from gslora_tpu.models.vit import init_vit_params
     p = jax.tree.map(np.asarray, init_vit_params(
-        jax.random.key(0), jc.ViTConfig(**dpw.MODEL),
+        jax.random.key(0), jc.ViTConfig(**{**dpw.MODEL, "depth": depth}),
         jc.LoraConfig(rank=4)))
     rng = np.random.RandomState(1)
     for name in ("B1", "B2"):
@@ -167,17 +167,22 @@ def jax_run(cli, argv, tree, monkeypatch):
     return {"report": report, **seen}
 
 
-def references(names, trees, monkeypatch):
+def references(names, trees, monkeypatch, outdir=None):
     """The port's one-process run and the JAX one-device run of each
-    scenario, one of each per distinct (CLI, argv, tree)."""
+    scenario, one of each per distinct (CLI, argv, tree); a scenario of
+    torch_mesh_worker.WRITES writes its files to ``<outdir>/<name>.one``."""
     one, jax_ref, done = {}, {}, {}
     for name in names:
         cli, argv, _, tree_name, overrides, _ = mw.SCENARIOS[name]
         key = (cli, tuple(argv), tree_name, tuple(sorted(overrides.items())))
+        if name in mw.WRITES:
+            key += (name,)
         if key not in done:
             tree = trees[tree_name]
             port = mw.run(name, tree, layout=False,
-                          setattr_=monkeypatch.setattr)
+                          setattr_=monkeypatch.setattr,
+                          outdir=str(Path(outdir) / f"{name}.one")
+                          if name in mw.WRITES else "")
             ref = jax_run(cli, argv, tree, monkeypatch) \
                 if not overrides else None
             done[key] = (port, ref)
@@ -218,12 +223,16 @@ def assert_reports(got, want):
                 assert g[k] == v, (k, g[k], v)
 
 
-def expected_spec(name, ndim, data, model, tp, fsdp):
+def expected_spec(name, ndim, data, model, tp, fsdp, pp=False):
     """The mesh axis of each dim of the leaf ``name`` on a ``data`` x
     ``model`` mesh, by the JAX rules written out (gslora_tpu/parallel/
     mesh.py:220-304)."""
     parts = name.split(".")
     spec = [None] * ndim
+    if pp and model > 1:
+        if "blocks" in parts or "ffn" in parts:
+            spec[0] = "model"
+        return spec
     if "head" in parts and parts[-1] == "weight" and model > 1:
         spec[0] = "model"
         return spec
@@ -240,12 +249,12 @@ def expected_spec(name, ndim, data, model, tp, fsdp):
     return spec
 
 
-def expected_shard(whole, name, rank, data, model, tp, fsdp):
+def expected_shard(whole, name, rank, data, model, tp, fsdp, pp=False):
     """Rank ``rank``'s slice of the whole leaf (rank r sits at data index
     r // model, model index r % model)."""
     t = torch.from_numpy(whole)
     for dim, axis in enumerate(expected_spec(name, t.ndim, data, model, tp,
-                                             fsdp)):
+                                             fsdp, pp)):
         if axis is not None:
             n, i = (model, rank % model) if axis == "model" \
                 else (data, rank // model)
@@ -254,9 +263,10 @@ def expected_shard(whole, name, rank, data, model, tp, fsdp):
 
 
 def layout_of(name):
-    """(data, model, tp, fsdp) of a scenario."""
+    """(data, model, tp, fsdp, pp) of a scenario."""
     flags = mw.SCENARIOS[name][2]
     world = mw.SCENARIOS[name][5]
     model = int(flags[flags.index("--mesh_model") + 1]) \
         if "--mesh_model" in flags else 1
-    return world // model, model, "--tp" in flags, "--fsdp" in flags
+    return world // model, model, "--tp" in flags, "--fsdp" in flags, \
+        "--pp" in flags

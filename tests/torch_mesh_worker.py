@@ -9,8 +9,10 @@ tests/torch_dp_worker.py, from the parameter tree the scenario names
 (``<dir>/<tree>.npz``), and saves what the tests compare to
 ``<dir>/<scenario>.rank<r>.pt``: the report, the eval history, the final
 parameters gathered whole, and this rank's own shards. The scenario
-``collectives`` checks the all_reduce route of all_gather and
-reduce_scatter against the native one instead.
+``collectives`` checks the all_reduce route of all_gather,
+reduce_scatter and the pipeline's shift against the native one instead,
+and ``pp_remat`` takes the pipeline's gradients with and without
+rematerialization.
 
 This module imports no JAX: a rank starts with PyTorch only."""
 import os
@@ -21,6 +23,8 @@ import torch
 import torch_dp_worker as dpw
 
 TP = ["--tp", "--mesh_model", "2"]
+SP = ["--sp", "--mesh_model", "2"]
+PP = ["--pp", "--mesh_model", "2"]
 # scenario -> (CLI, argv without the layout, layout flags, the tree it
 # starts from, model overrides, world)
 SCENARIOS = {
@@ -48,7 +52,30 @@ SCENARIOS = {
                           "pretrained", {"dropout": 0.1}, 4),
     "pretrain_tp_dropout": ("train_pretrain", dpw.PRETRAIN + ["-e", "1"],
                             TP, "init", {"dropout": 0.1}, 4),
+    # sequence parallelism: the 5 tokens (16 px / patch 8 + CLS) split 3
+    # and 2 over the model axis
+    "forget_sp": ("train_forget", dpw.FORGET, SP, "pretrained", {}, 2),
+    "forget_tp_sp": ("train_forget", dpw.FORGET, TP + ["--sp"],
+                     "pretrained", {}, 4),
+    "continual_sp": ("train_forget_cl", dpw.CONTINUAL, SP, "pretrained", {},
+                     2),
+    "pretrain_tp_fsdp_sp": ("train_pretrain", dpw.PRETRAIN,
+                            TP + ["--fsdp", "--sp"], "init", {}, 4),
+    # GPipe: depth 2 over 2 stages in 2 micro-batches, depth 4 on 2 x 2
+    "forget_pp": ("train_forget", dpw.FORGET, PP + ["--pp_micro", "2"],
+                  "pretrained", {}, 2),
+    "forget_pp_depth4": ("train_forget", dpw.FORGET + ["--vit_depth", "4"],
+                         PP + ["--pp_micro", "2"], "init4", {}, 4),
+    "forget_pp_dropout": ("train_forget", dpw.FORGET + ["-e", "1"], PP,
+                          "pretrained",
+                          {"dropout": 0.1, "emb_dropout": 0.1}, 2),
+    "continual_pp": ("train_forget_cl", dpw.CONTINUAL + [
+        "--structure_mode", "loss"], PP, "pretrained", {}, 2),
+    "pretrain_pp": ("train_pretrain", dpw.PRETRAIN, PP, "init", {}, 4),
 }
+# scenarios whose rank 0 (and one process) write their files to
+# ``<dir>/<scenario>.out`` (``.one`` for the one-process run)
+WRITES = ("pretrain_pp",)
 
 
 def patch(module, tree, overrides, setattr_=setattr):
@@ -65,11 +92,32 @@ def patch(module, tree, overrides, setattr_=setattr):
     setattr_(module, "config_from_args", with_overrides)
 
 
-def run(name, tree, layout=True, setattr_=setattr, device="cpu"):
+def mesh_reinit(generator, tree):
+    """tests/torch_dp_worker.torch_reinit drawn at the whole shapes, the
+    rank keeping its shards (the stages' layers under pp), as the port's
+    own reinit_lora draws."""
+    from gslora_tpu_torch.parallel import sharding
+    from gslora_tpu_torch.parallel.mesh import active_mesh
+    mesh = active_mesh()
+
+    def path(pos, k):
+        return ("lora", pos, k)
+
+    whole = {pos: {k: torch.zeros(sharding.whole_shape(
+        mesh, path(pos, k), v.shape)) for k, v in sub.items()}
+        for pos, sub in tree.items()}
+    drawn = dpw.torch_reinit(generator, whole)
+    return {pos: {k: sharding.take_shard(mesh, t, sharding.leaf_spec(
+        mesh, path(pos, k), t.shape)).contiguous().to(tree[pos][k].device)
+        for k, t in sub.items()} for pos, sub in drawn.items()}
+
+
+def run(name, tree, layout=True, setattr_=setattr, device="cpu",
+        outdir=""):
     """Scenario ``name``'s CLI from ``tree``: with ``--dp`` and its layout
-    flags (a rank), or without both (the one-process run). Returns the
-    report, the history, the final parameters whole and, on a rank, its
-    shards."""
+    flags (a rank), or without both (the one-process run), writing its
+    files to ``outdir`` when given. Returns the report, the history, the
+    final parameters whole and, on a rank, its shards."""
     import importlib
 
     from gslora_tpu_torch.parallel import sharding
@@ -77,7 +125,7 @@ def run(name, tree, layout=True, setattr_=setattr, device="cpu"):
     cli, argv, flags, _, overrides, _ = SCENARIOS[name]
     module = importlib.import_module(f"gslora_tpu_torch.cli.{cli}")
     patch(module, tree, overrides, setattr_)
-    argv = list(argv) + ["--device", device, "--outdir", ""]
+    argv = list(argv) + ["--device", device, "--outdir", outdir]
     if layout:
         argv += ["--dp"] + flags
     seen = {}
@@ -107,7 +155,7 @@ def run(name, tree, layout=True, setattr_=setattr, device="cpu"):
         setattr_(module, "run_forget_training", spy)
     else:
         from gslora_tpu_torch.engine import continual
-        setattr_(continual, "reinit_lora", dpw.torch_reinit)
+        setattr_(continual, "reinit_lora", mesh_reinit)
         task = continual.run_forget_training
 
         def spy_task(*a, **k):
@@ -153,7 +201,8 @@ def recovery(state, name):
 def collectives(rank, world):
     """all_gather and reduce_scatter over each axis of a 2 x 2 mesh (or
     the data axis of 2 ranks), through the native collectives and through
-    the all_reduce route, on tensors whose sums round."""
+    the all_reduce route, on tensors whose sums round; the shift over
+    ``model`` (a 1 x 2 mesh of 2 ranks) each way by both routes."""
     import dataclasses
 
     from gslora_tpu_torch.config import MeshConfig
@@ -163,6 +212,15 @@ def collectives(rank, world):
     forced = dataclasses.replace(mesh, route="all_reduce")
     g = torch.Generator().manual_seed(rank)
     out = {"route": mesh.route}
+    if world == 2:
+        pipe = dataclasses.replace(mesh, model=2)
+        x = torch.randn((3, 5, 7), generator=g) * 1e3
+        out["shift.input"] = x
+        for step in (1, -1):
+            for which, m in (("native", pipe), ("all_reduce", dataclasses.
+                                                replace(pipe,
+                                                        route="all_reduce"))):
+                out[f"shift.{step}.{which}"] = m.shift(x, step)
     axes = ("data", "model") if model > 1 else ("data",)
     for axis in axes:
         for dim in (0, 1, 2):
@@ -173,6 +231,37 @@ def collectives(rank, world):
                 out[f"scatter.{axis}.{dim}.{which}"] = m.reduce_scatter(
                     x, axis, dim)
             out[f"input.{axis}.{dim}"] = x
+    return out
+
+
+def pp_remat(rank, world):
+    """The gradient of sum(emb^2) over the LoRA through the pipeline
+    (depth 4 over 2 stages, 2 micro-batches, eval mode), without and with
+    ``remat``, gathered whole (JAX's tests/test_mesh_loop.py:424-466)."""
+    import dataclasses
+
+    from gslora_tpu_torch.config import LoraConfig, MeshConfig, ViTConfig
+    from gslora_tpu_torch.models.vit import ViT, init_vit_params, vit_apply
+    from gslora_tpu_torch.parallel import sharding
+    from gslora_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(MeshConfig(model=2, pp=True, pp_micro=2), "cpu")
+    model = ViTConfig(**{**dpw.MODEL, "depth": 4})
+    lora = LoraConfig(rank=4)
+    params = init_vit_params(torch.Generator().manual_seed(0), model, lora)
+    x = torch.rand((8, 3, 16, 16), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for remat in (False, True):
+        m = dataclasses.replace(model, remat=remat)
+        vit = ViT(sharding.shard_tree(mesh, params), m, lora)
+        names = [n for n, _ in vit.lora.named_parameters()]
+        leaves = list(vit.lora.parameters())
+        emb = vit_apply(vit.tree(), x, None, m, lora,
+                        compute_dtype=torch.float32)
+        grads = torch.autograd.grad(torch.sum(emb ** 2), leaves)
+        out[f"remat={remat}"] = {
+            n: sharding.gather(mesh, gr, sharding.named_specs(
+                mesh, ["lora." + n], [gr])[0]).numpy()
+            for n, gr in zip(names, grads)}
     return out
 
 
@@ -189,10 +278,13 @@ def main(argv):
         for name in names:
             if name == "collectives":
                 out = collectives(rank, world)
+            elif name == "pp_remat":
+                out = pp_remat(rank, world)
             else:
                 tree = dpw.load_tree(os.path.join(
                     outdir, SCENARIOS[name][3] + ".npz"))
-                out = run(name, tree, device=device)
+                out = run(name, tree, device=device, outdir=os.path.join(
+                    outdir, f"{name}.out") if name in WRITES else "")
             torch.save(out, os.path.join(outdir, f"{name}.rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
