@@ -173,7 +173,18 @@ non-zero exit code and without the final result line.
    attention backward is skipped on stage 0 only, where the FFN LoRA
    alone trains); each rank's block-kernel bytes (72 MiB under sp, 36 MiB
    a stage under pp) and the peak of the card's memory each rank and the
-   one process allocated.
+   one process allocated. Slice 11 adds the whole JAX mesh, in worlds of
+   8 and 4 started beside the others: train_forget with --mesh_slices 2
+   --mesh_data 2 (2 x 2 x 1, against plain --dp on the same 4 ranks to
+   the bit), with --mesh_slices 2 --tp --fsdp --sp --mesh_model 2
+   (2 x 2 x 2 on 8 ranks), train_forget_cl with --mesh_slices 2 --fsdp
+   and the prox (2 x 2 x 1, K2 on every rank, against plain --dp on 4
+   ranks to the bit), train_pretrain with --mesh_slices 2 --pp
+   --mesh_model 2 (2 x 1 x 2), each against one process with --grad_accum
+   S·D; and train_forget with --mesh_data 2 on a world of 4, whose ranks
+   2 and 3 are idle (no launch, no byte on the card, exit 0), against the
+   data-parallel phase's one process to the bit, after one save and load
+   of checkpoints/dcp_io over the used ranks' group.
 14. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
@@ -216,8 +227,8 @@ from gslora_tpu_torch.cli.common import (build_datasets,  # noqa: E402
                                          build_missing_dataset,
                                          build_params)
 from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
-                                     OptimConfig, ViTConfig, build_parser,
-                                     config_from_args)
+                                     MeshConfig, OptimConfig, ViTConfig,
+                                     build_parser, config_from_args)
 from gslora_tpu_torch import native  # noqa: E402
 from gslora_tpu_torch.data.folders import (ImageFolderDataset,  # noqa: E402
                                            SubsetDataset)
@@ -250,7 +261,8 @@ from gslora_tpu_torch.ops import cuda_build  # noqa: E402
 from gslora_tpu_torch.ops import group_lasso as G  # noqa: E402
 from gslora_tpu_torch.ops import quant as Q  # noqa: E402
 from gslora_tpu_torch.parallel import sharding  # noqa: E402
-from gslora_tpu_torch.parallel.mesh import active_mesh  # noqa: E402
+from gslora_tpu_torch.parallel.mesh import (active_mesh,  # noqa: E402
+                                            make_mesh)
 from gslora_tpu_torch.tools import bench_inference as BI  # noqa: E402
 from gslora_tpu_torch.tools import group_bench as GB  # noqa: E402
 from gslora_tpu_torch.utils.profiling import (device_summary,  # noqa: E402
@@ -360,13 +372,18 @@ def path_shapes():
                       (local, local // accum,
                        local * cfg.data.test_batch_scale))
     # a rank of the layout phase: its rows of the train and eval batches
-    # (whole sequences under sp), each cut into M micro-batches under pp
+    # (whole sequences under sp), each cut into M micro-batches under pp;
+    # the one-process references' micro-batches (--grad_accum S·D and
+    # 2·S·D)
     for name, (_, argv, _, _) in LAYOUT_RUNS.items():
         cfg = config_from_args(build_parser().parse_args(argv))
-        local, m = cfg.data.batch_size // layout_shape(name)[0], cfg.model
+        bs, m, ways = cfg.data.batch_size, cfg.model, layout_ways(name)
+        local = bs // ways
         micro = (pp_stages(name) or (1, 1))[1]
         shapes.update((b // micro * m.heads, m.seq_len, attention_scale(m))
                       for b in (local, local * cfg.data.test_batch_scale))
+        shapes.update((bs // a * m.heads, m.seq_len, attention_scale(m))
+                      for a in (ways, 2 * ways))
     shapes.update(eval_surface_shapes())
     return sorted(shapes)
 
@@ -2608,14 +2625,15 @@ def dcp_leaves(tree, prefix=""):
     return {prefix: tree}
 
 
-def dcp_check(path):
+def dcp_check(path, mesh=None):
     """checkpoints/dcp_io on the card: dcp_state through AsyncSaver (every
-    rank of a group calls it with the same path), read back with a
-    template of zeros on the card and without one; raises unless both
-    equal the state. Returns the seconds of save() and of the wait, of a
-    first save (DCP's imports and set-up included) and a second."""
+    rank of a group calls it with the same path; of ``mesh``'s ranks,
+    over their group, when given), read back with a template of zeros on
+    the card and without one; raises unless both equal the state. Returns
+    the seconds of save() and of the wait, of a first save (DCP's imports
+    and set-up included) and a second."""
     state = dcp_state()
-    saver = AsyncSaver()
+    saver = AsyncSaver(mesh)
     times = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -2637,8 +2655,8 @@ def dcp_check(path):
     want = dcp_leaves(state)
     template = zeros(state)
     for what, back in (("a template on the card",
-                        load_dcp(path, template)),
-                       ("its metadata", load_dcp(path))):
+                        load_dcp(path, template, mesh=mesh)),
+                       ("its metadata", load_dcp(path, mesh=mesh))):
         got = dcp_leaves(back)
         if set(got) != set(want) or not all(
                 torch.equal(got[k].to(DEV), b) if torch.is_tensor(b)
@@ -2872,12 +2890,15 @@ def dp_phase(card):
 TP2 = ["--tp", "--mesh_model", "2"]
 SP2 = ["--sp", "--mesh_model", "2"]
 PP2 = ["--pp", "--mesh_model", "2"]
+DCN2 = ["--mesh_slices", "2"]
 # run -> (CLI module, argv, layout flags, world); each rank runs
 # --grad_accum 1 on the rows of its data index, the one-process reference
 # --grad_accum D (D = world / model), so its micro-batches are the data
 # ranks' rows
-# The slice-9 forget runs take 2 of the recipe's 5 epochs, to keep the
-# script inside its time limit as the phase grew (slice 10's runs keep 5)
+# The forget runs take 2 of the recipe's 5 epochs, to keep the script
+# inside its time limit as the phase grew (slice 9's from slice 10 on,
+# slice 10's from slice 11 on); forget_subworld keeps 5, to reuse the dp
+# phase's one process
 LAYOUT_FORGET_ARGV = DP_FORGET_ARGV + ["-e", "2"]
 LAYOUT_RUNS = {
     "forget_fsdp": (train_forget, LAYOUT_FORGET_ARGV, ["--fsdp"], 2),
@@ -2890,17 +2911,48 @@ LAYOUT_RUNS = {
                          TP2 + ["--fsdp"], 4),
     # sequence and pipeline parallelism (slice 10): K1 on whole sequences
     # on every sp rank, on each stage's micro-batches under pp
-    "forget_sp": (train_forget, DP_FORGET_ARGV, SP2, 2),
-    "forget_tp_sp": (train_forget, DP_FORGET_ARGV, TP2 + ["--sp"], 2),
-    "forget_pp": (train_forget, DP_FORGET_ARGV, PP2 + ["--pp_micro", "2"],
-                  2),
+    "forget_sp": (train_forget, LAYOUT_FORGET_ARGV, SP2, 2),
+    "forget_tp_sp": (train_forget, LAYOUT_FORGET_ARGV, TP2 + ["--sp"], 2),
+    "forget_pp": (train_forget, LAYOUT_FORGET_ARGV,
+                  PP2 + ["--pp_micro", "2"], 2),
     "cl_sp_prox": (train_forget_cl, DP_CL_ARGV, SP2, 2),
     "cl_pp_loss": (train_forget_cl, DP_CL_ARGV + ["--structure_mode",
                                                   "loss"], PP2, 2),
     "pretrain_tp_fsdp_sp": (train_pretrain, DP_PRETRAIN_ARGV,
                             TP2 + ["--fsdp", "--sp"], 4),
     "pretrain_pp": (train_pretrain, DP_PRETRAIN_ARGV, PP2, 4),
+    # the whole JAX mesh (slice 11): the outer dcn axis under dp, tp +
+    # fsdp + sp, fsdp with the prox, pp; plain --dp on the same world of 4
+    # (forget_dp4, cl_dp4: the batch order of the M = 1 runs), and a mesh
+    # smaller than the world (ranks 2 and 3 idle)
+    "forget_dcn_dp": (train_forget, LAYOUT_FORGET_ARGV,
+                      DCN2 + ["--mesh_data", "2"], 4),
+    "forget_dp4": (train_forget, LAYOUT_FORGET_ARGV, [], 4),
+    "forget_dcn_tp_fsdp_sp": (train_forget, LAYOUT_FORGET_ARGV,
+                              DCN2 + TP2 + ["--fsdp", "--sp"], 8),
+    "cl_dcn_fsdp_prox": (train_forget_cl, DP_CL_ARGV, DCN2 + ["--fsdp"], 4),
+    "cl_dp4": (train_forget_cl, DP_CL_ARGV, [], 4),
+    "pretrain_dcn_pp": (train_pretrain, DP_PRETRAIN_ARGV, DCN2 + PP2, 4),
+    "forget_subworld": (train_forget, DP_FORGET_ARGV, ["--mesh_data", "2"],
+                        4),
 }
+# the ranks each run is spawned in, by name (others: the world's size;
+# the pretrains share one spawn, so that no two run at once on the
+# card); every spawn starts at once, the runs of one in turn
+LAYOUT_SPAWN = {**{name: "2b" for name in ("forget_sp", "forget_tp_sp",
+                                           "forget_pp", "cl_sp_prox",
+                                           "cl_pp_loss")},
+                **{name: "4b" for name in ("cl_fsdp_model2", "forget_dcn_dp",
+                                           "forget_dp4", "cl_dcn_fsdp_prox",
+                                           "cl_dp4")},
+                "forget_dcn_tp_fsdp_sp": "8", "forget_subworld": "sub4"}
+# a run held to the bit against plain --dp on the same world (the same
+# rows and the same sum over the same ranks); against one process, whose
+# fp32 sum of four micro-batches runs in another order than the ranks'
+# all_reduce (gloo's ring, not a pairwise tree), within
+# LAYOUT_FLOOR_FACTOR times the noise floor
+LAYOUT_PARTNER = {"forget_dcn_dp": "forget_dp4",
+                  "cl_dcn_fsdp_prox": "cl_dp4"}
 LAYOUT_TIMEOUT_S = 600
 BLOCK_KERNELS = ("qkv", "attn_out", "fc1", "fc2")
 # Final parameters of a layout against one process, where a model axis
@@ -2917,24 +2969,45 @@ BLOCK_KERNELS = ("qkv", "attn_out", "fc1", "fc2")
 # norm (the card's first runs of this phase: 0.97-2.6 times; the CPU
 # tests hold the same layouts to the JAX suite's rtol 1e-4 / atol 1e-5 in
 # fp32). A layout that splits no sum over ``model`` (fsdp alone) gathers
-# whole kernels and is held to the bit.
+# whole kernels and is held to the bit on two data-parallel ways, whose
+# all_reduce adds a pair as the one process does; on more (dcn x data =
+# 4), where gloo adds the ranks' gradients in its own order, to the
+# floor, and to the bit against plain --dp on the same ranks
+# (LAYOUT_PARTNER).
 LAYOUT_FLOOR_FACTOR = 4.0
 
 
 def layout_shape(name):
-    """(data, model) of LAYOUT_RUNS[name]."""
+    """(slices, data, model) of LAYOUT_RUNS[name]: JAX's make_mesh over
+    its world (data -1: what slices and model leave)."""
     _, _, flags, world = LAYOUT_RUNS[name]
-    model = int(flags[flags.index("--mesh_model") + 1]) \
-        if "--mesh_model" in flags else 1
-    return world // model, model
+
+    def flag(key, default):
+        return int(flags[flags.index(key) + 1]) if key in flags \
+            else default
+    slices, model = flag("--mesh_slices", 1), flag("--mesh_model", 1)
+    return slices, flag("--mesh_data", world // (slices * model)), model
+
+
+def layout_ways(name):
+    """The data-parallel ways (dcn x data) of LAYOUT_RUNS[name]."""
+    slices, data, _ = layout_shape(name)
+    return slices * data
+
+
+def layout_used(name):
+    """The ranks LAYOUT_RUNS[name]'s mesh uses; the others are idle."""
+    slices, data, model = layout_shape(name)
+    return slices * data * model
 
 
 def layout_argv(name, layout, accum=None):
     """The argv of one rank (``layout``) or of a one-process run, with
-    --grad_accum ``accum`` (by default 1 on a rank, D in one process)."""
+    --grad_accum ``accum`` (by default 1 on a rank, S·D in one
+    process)."""
     _, argv, flags, _ = LAYOUT_RUNS[name]
     if accum is None:
-        accum = 1 if layout else layout_shape(name)[0]
+        accum = 1 if layout else layout_ways(name)
     return argv + ["--grad_accum", str(accum), "--outdir", ""] + \
         (["--dp"] + flags if layout else [])
 
@@ -2945,19 +3018,23 @@ def pp_stages(name):
     _, _, flags, _ = LAYOUT_RUNS[name]
     if "--pp" not in flags:
         return None
-    stages = layout_shape(name)[1]
+    stages = layout_shape(name)[2]
     micro = int(flags[flags.index("--pp_micro") + 1]) \
         if "--pp_micro" in flags else 0
     return stages, micro or stages
 
 
-def layout_expected(name, layout, accum=None, stage=0):
+def layout_expected(name, layout, accum=None, stage=0, idle=False):
     """K1 and K2 launches of one rank (every rank of a model group runs
     the attention and the prox on whole tensors: under sp on whole
     sequences) or of a one-process run. Under pp, of the rank's ``stage``:
     each forward runs its depth / S layers on M micro-batches, and the
     backward too, but on stage 0 with an FFN LoRA only, where block 0's
-    attention backward is skipped as in one process."""
+    attention backward is skipped as in one process. An ``idle`` rank
+    launches nothing."""
+    if idle:
+        return {k: 0 for k in ("attention_fwd", "attention_bwd",
+                               "group_prox", "group_norms", "group_scale")}
     module, argv0, _, _ = LAYOUT_RUNS[name]
     argv = layout_argv(name, layout, accum)
     if module is train_forget:
@@ -3001,10 +3078,11 @@ def tensor_bytes(tree):
 
 def expected_kernel_bytes(name, sizes):
     """A rank's bytes of the block kernels by the rules, from the whole
-    tree's ``sizes``: fsdp cuts all four by D, tp fc1 and fc2 by M, pp
-    all four by the stages M; sp none."""
+    tree's ``sizes``: fsdp cuts all four by D (the data axis of a slice,
+    never by dcn x data), tp fc1 and fc2 by M, pp all four by the stages
+    M; sp none."""
     _, _, flags, _ = LAYOUT_RUNS[name]
-    data, model = layout_shape(name)
+    _, data, model = layout_shape(name)
     out = 0
     for k, n in sizes.items():
         if not is_block_kernel(k):
@@ -3026,10 +3104,12 @@ def layout_run(name, layout, accum=None, rank=0):
     the final parameters gathered whole (host fp32, flat), the eval
     history, the launches, the wall seconds, the peak of the card's
     memory this process allocated, and on a rank its bytes of parameters
-    and moments and the collective route."""
+    and moments and the collective route. A rank past the mesh (idle)
+    returns its launches (none), wall and peak memory (none) only."""
     module, _, _, _ = LAYOUT_RUNS[name]
     argv = layout_argv(name, layout, accum)
-    seen = {"history": []}
+    idle = layout and rank >= layout_used(name)
+    seen = {"history": [], "idle": idle}
 
     def config(args):
         cfg = config_from_args(args)
@@ -3080,13 +3160,18 @@ def layout_run(name, layout, accum=None, rank=0):
             fn = module.main
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        stage = rank % layout_shape(name)[1]
+        stage = rank % layout_shape(name)[2]
         out, launches, wall = run_counted(
-            fn, argv, layout_expected(name, layout, accum, stage), name)
+            fn, argv, layout_expected(name, layout, accum, stage, idle),
+            name)
         seen["peak_bytes"] = torch.cuda.max_memory_allocated()
     finally:
         for (mod, attr), v in saved.items():
             setattr(mod, attr, v)
+    if idle:
+        report = out[0] if module is train_pretrain else out
+        return {"report": report, "launches": launches, "wall_s": wall,
+                **seen}
     if module is train_pretrain:
         out, state = out
         seen["params"] = keep(state.params)
@@ -3099,10 +3184,18 @@ def layout_run(name, layout, accum=None, rank=0):
     return {"report": out, "launches": launches, "wall_s": wall, **seen}
 
 
+SUBWORLD_DCP = MeshConfig(data=2)  # the sub-world mesh of the DCP check
+
+
 def layout_rank_main(rank, world, port, outdir, *names):
     """One rank of the layout phase (``chip_smoke.py --layout-rank``):
     torchrun's environment, a gloo group on cuda:0, each of ``names``
-    through its CLI with --dp and its layout flags; results to outdir."""
+    through its CLI with --dp and its layout flags (the card's cache
+    emptied between them); results to outdir. Where ``names`` hold a run
+    on a mesh smaller than the world, the used ranks of SUBWORLD_DCP
+    first save and load a train state through checkpoints/dcp_io over
+    their group (``dcp_subworld``), while the idle ones go on to the
+    runs."""
     rank, world = int(rank), int(world)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
@@ -3110,9 +3203,15 @@ def layout_rank_main(rank, world, port, outdir, *names):
     import torch.distributed as dist
     dist.init_process_group("gloo", rank=rank, world_size=world)
     try:
+        if any(layout_used(n) < world for n in names):
+            mesh = make_mesh(SUBWORLD_DCP, "cuda")
+            torch.save(None if mesh.idle else dcp_check(
+                os.path.join(outdir, "dcp_subworld"), mesh),
+                os.path.join(outdir, f"dcp_subworld.rank{rank}.pt"))
         for name in names:
             torch.save(layout_run(name, layout=True, rank=rank),
                        os.path.join(outdir, f"{name}.rank{rank}.pt"))
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -3129,28 +3228,32 @@ def layout_accuracy_tolerances(name):
 
 def layout_phase(card, refs):
     """Every LAYOUT_RUNS layout on gloo ranks sharing the card, against
-    one process of the same flags with --grad_accum D (``refs`` holds the
-    dp phase's one-process runs, reused where they ran the same): each
-    rank's K1 and K2 counts as derived, every rank's gathered parameters
-    equal to the bit, the final parameters within LAYOUT_FLOOR_FACTOR
-    times the noise floor of the one process's (to the bit for fsdp
-    alone), every eval within one test image, each rank's block-kernel
-    bytes exactly as the rules cut them.
-    Returns each run's launches per rank."""
+    one process of the same flags with --grad_accum S·D (``refs`` holds
+    the dp phase's one-process runs, reused where they ran the same):
+    each rank's K1 and K2 counts as derived, every used rank's gathered
+    parameters equal to the bit, the final parameters within
+    LAYOUT_FLOOR_FACTOR times the noise floor of the one process's (to
+    the bit without a model axis on two data-parallel ways; with more, to
+    the bit against the LAYOUT_PARTNER run), every eval within one test
+    image, each used rank's block-kernel
+    bytes exactly as the rules cut them; an idle rank launched nothing
+    and held no byte of the card. Returns each run's launches per rank."""
     t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # earlier phases' blocks: the ranks need them
     ran = {}
-    worlds = sorted({w for *_, w in LAYOUT_RUNS.values()})
-    names_of = {w: [n for n, (*_, w2) in LAYOUT_RUNS.items() if w2 == w]
-                for w in worlds}
+    spawns = {}
+    for name, (*_, w) in LAYOUT_RUNS.items():
+        spawns.setdefault(LAYOUT_SPAWN.get(name, str(w)), (w, []))[1].append(
+            name)
     tmp = tempfile.TemporaryDirectory()
-    # every world's ranks run together, while this process runs the
+    # every spawn's ranks run together, while this process runs the
     # references
     spawned = {}
     try:
-        for w in worlds:
-            os.makedirs(os.path.join(tmp.name, str(w)))
-            spawned[w] = Ranks("layout", w, os.path.join(tmp.name, str(w)),
-                               names_of[w], LAYOUT_TIMEOUT_S)
+        for tag, (w, names) in spawns.items():
+            os.makedirs(os.path.join(tmp.name, tag))
+            spawned[tag] = Ranks("layout", w, os.path.join(tmp.name, tag),
+                                 names, LAYOUT_TIMEOUT_S)
     except BaseException:
         for r in spawned.values():
             r.kill()
@@ -3169,51 +3272,81 @@ def layout_phase(card, refs):
         key = (module.__name__, tuple(argv), accum)
         if key not in ran:
             ran[key] = layout_run(name, False, accum)
+            torch.cuda.empty_cache()  # the card is shared with the ranks
         return ran[key]
 
-    ref_runs, floors = {}, {}
+    ref_runs, floors, dcp = {}, {}, {}
     try:
         for name in LAYOUT_RUNS:
-            data, model = layout_shape(name)
-            ref_runs[name] = one_process(name, data)
-            if model > 1:
+            model, ways = layout_shape(name)[2], layout_ways(name)
+            ref_runs[name] = one_process(name, ways)
+            if model > 1 or ways > 2:
                 # the noise floor of the recipe: the same one process with
-                # its batch sums split twice as far (--grad_accum 2D)
-                floor = one_process(name, 2 * data)["params"]
+                # its batch sums split twice as far (--grad_accum 2·S·D)
+                floor = one_process(name, 2 * ways)["params"]
                 floors[name] = max(rel_err(floor[k], v) for k, v in
                                    ref_runs[name]["params"].items())
         refs = ref_runs
         ranks = {}
-        for w in worlds:
-            spawned[w].wait()
-            for res in spawned[w].results(names_of[w]):
-                for name in names_of[w]:
+        for tag, (w, names) in spawns.items():
+            spawned[tag].wait()
+            for res in spawned[tag].results(names):
+                for name in names:
                     ranks.setdefault(name, []).append(res[name])
-            print(f"layout phase: {w} ranks ran {names_of[w]} in "
+            path = os.path.join(tmp.name, tag, "dcp_subworld.rank{}.pt")
+            if os.path.exists(path.format(0)):
+                dcp[tag] = [torch.load(path.format(r), weights_only=False)
+                            for r in range(w)]
+            print(f"layout phase: {w} ranks ({tag}) ran {names} in "
                   f"{time.perf_counter() - t_phase:.1f} s (start-up "
-                  f"included, beside the other world and the one-process "
-                  f"references)", flush=True)
+                  f"included, beside the other spawns and the "
+                  f"one-process references)", flush=True)
     finally:
         for r in spawned.values():
             r.kill()
         tmp.cleanup()
+    for tag, got in dcp.items():
+        used = sum(1 for r in got if r is not None)
+        if used != SUBWORLD_DCP.data or any(r is not None for r in
+                                            got[used:]):
+            raise AssertionError(f"dcp on the sub-world mesh: the ranks "
+                                 f"returned {got}")
+        print("layout dcp " + json.dumps({
+            "what": "checkpoints/dcp_io.AsyncSaver of a flagship train "
+                    "state over the used ranks' group of a mesh smaller "
+                    "than the world, read back equal with and without a "
+                    "template", "card": card, "mesh": {"data":
+                                                       SUBWORLD_DCP.data},
+            "world": len(got), "ranks": got[:used]}), flush=True)
     launches = {}
     for name, (_, _, flags, world) in LAYOUT_RUNS.items():
-        data, model = layout_shape(name)
-        wants = [layout_expected(name, True, stage=r % model)
-                 for r in range(world)]
-        got, ref = ranks[name], refs[name]
-        for r, run in enumerate(got):
+        slices, data, model = layout_shape(name)
+        ways, used = layout_ways(name), layout_used(name)
+        wants = [layout_expected(name, True, stage=r % model,
+                                 idle=r >= used) for r in range(world)]
+        got, ref = ranks[name][:used], refs[name]
+        idle = ranks[name][used:]
+        for r, run in enumerate(ranks[name]):
             if run["launches"] != wants[r]:
                 raise AssertionError(f"{name} rank {r} launched "
                                      f"{run['launches']}; its flags imply "
                                      f"{wants[r]}")
+        for r, run in enumerate(idle, used):
+            if not run["idle"] or run["report"] is not None or \
+                    run["peak_bytes"] != 0:
+                raise AssertionError(
+                    f"{name} rank {r} is past the mesh of {used} ranks but "
+                    f"ran: report {run['report']}, peak {run['peak_bytes']}"
+                    f" bytes")
+        for r, run in enumerate(got):
             diff = [k for k, v in got[0]["params"].items()
                     if not torch.equal(v, run["params"][k])]
             if diff:
                 raise AssertionError(f"{name}: rank {r}'s gathered "
                                      f"parameters differ at {diff[:5]}")
-        exact = model == 1
+        # two ways sum as the one process's pairs do; more add in gloo's
+        # order, another than the one process's tree
+        exact = model == 1 and ways <= 2
         tol = 0.0 if exact else LAYOUT_FLOOR_FACTOR * floors[name]
         diffs, rels = {}, {}
         for k, want_t in ref["params"].items():
@@ -3225,6 +3358,17 @@ def layout_phase(card, refs):
                     f"{name}: {k} differs from one process by "
                     f"{diffs[k]} (relative {rels[k]}); "
                     f"{'to the bit' if exact else tol} allowed")
+        bit_one = all(torch.equal(got[0]["params"][k], v)
+                      for k, v in ref["params"].items())
+        partner = LAYOUT_PARTNER.get(name)
+        if partner:
+            other = ranks[partner][0]
+            same = [k for k, v in other["params"].items()
+                    if not torch.equal(v, got[0]["params"][k])]
+            if same or got[0]["history"] != other["history"]:
+                raise AssertionError(f"{name}: differs from {partner} (plain"
+                                     f" --dp on the same ranks) at "
+                                     f"{same[:5]}")
         tols = layout_accuracy_tolerances(name)
         pairs = [(h, w) for hs, ws in zip(got[0]["history"], ref["history"])
                  for h, w in zip(hs, ws)]
@@ -3264,23 +3408,29 @@ def layout_phase(card, refs):
         else:
             launches[name] = wants[0]
         print("layout " + json.dumps({
-            "path": name, "mesh": {"data": data, "model": model},
+            "path": name, "mesh": {"dcn": slices, "data": data,
+                                   "model": model},
+            "world": world, "idle_ranks": list(range(used, world)),
             "flags": flags, "card": card,
             "note": f"{world} gloo ranks sharing one card with the other "
-                    f"world's ranks and the one-process references: walls "
+                    f"spawns' ranks and the one-process references: walls "
                     f"measure the path, not scaling",
             "route": sorted({r["route"] for r in got}),
-            "rank_grad_accum": 1, "one_process_grad_accum": data,
+            "rank_grad_accum": 1, "one_process_grad_accum": ways,
             "rank_wall_s": [r["wall_s"] for r in got],
+            "idle_rank_wall_s": [r["wall_s"] for r in idle],
             "one_process_wall_s": ref["wall_s"],
             "max_abs_param_diff": max(diffs.values()),
             "max_rel_param_diff": max(rels.values()),
+            "bit_equal_to_one_process": bit_one,
+            "bit_equal_to": partner,
             "noise_floor_rel": floors.get(name),
             "tolerance": "bit-exact" if exact else
             f"relative {tol} ({LAYOUT_FLOOR_FACTOR} x the noise floor)",
             "worst_eval_diff": worst, "launches_per_rank": wants,
             "peak_bytes_per_rank": [r["peak_bytes"] for r in got],
             "peak_mib_per_rank": [r["peak_bytes"] / 2 ** 20 for r in got],
+            "idle_peak_bytes": [r["peak_bytes"] for r in idle],
             "one_process_peak_mib": ref["peak_bytes"] / 2 ** 20,
             "block_kernel_bytes_per_rank": rank_kb,
             "block_kernel_mib_per_rank": [b / 2 ** 20 for b in rank_kb],

@@ -27,8 +27,8 @@ def valid_count(labels: torch.Tensor) -> torch.Tensor:
 def global_counts(mesh, *labels: torch.Tensor) -> List[torch.Tensor]:
     """The valid rows of each stream's global batch, clamped to at least 1
     (the masked means' denominators): this rank's counts, summed over the
-    ranks under a mesh (one all_reduce of a small fp32 vector). Every
-    rank passes its rows (``check_local_feed``)."""
+    batch axis under a mesh (one all_reduce of a small fp32 vector).
+    Every rank passes its rows (``check_local_feed``)."""
     for y in labels:
         check_local_feed(mesh, y.shape[0])
     counts = torch.stack([valid_count(y) for y in labels])
@@ -47,12 +47,12 @@ def broadcast_trees(mesh, *trees) -> None:
 
 
 def rank_generator(cfg, device: torch.device, mesh) -> torch.Generator:
-    """The dropout stream of a runner: under a mesh each rank draws its
-    rows' masks from a stream of its own (seed + 7919·rank; rank 0's is
-    the one-process stream), as engine/loop does."""
-    rank = 0 if mesh is None else mesh.rank
+    """The dropout stream of a runner: under a mesh each batch block draws
+    its rows' masks from a stream of its own (seed + 7919·block; block
+    0's is the one-process stream), as engine/loop does."""
+    block = 0 if mesh is None else mesh.block
     return torch.Generator(device=device).manual_seed(cfg.data.seed +
-                                                      7919 * rank)
+                                                      7919 * block)
 
 
 def final_accuracies(eval_step, params, test_batches_f: Callable,

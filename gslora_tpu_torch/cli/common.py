@@ -21,6 +21,18 @@ from gslora_tpu_torch.models.vit_imagenet import (from_torchvision_state_dict,
                                                   modify_head)
 
 
+def idle_rank(mesh) -> bool:
+    """Whether this rank sits past the mesh (JAX's devices past
+    ``S·D·M``): it made the process groups with the others in
+    ``make_mesh`` and now leaves, after one line; it builds no model,
+    loads no data and writes nothing."""
+    if mesh is None or not mesh.idle:
+        return False
+    print(f"rank {mesh.rank} idle: the mesh uses {mesh.size()} of "
+          f"{mesh.world} ranks", flush=True)
+    return True
+
+
 def build_datasets(cfg: RunConfig) -> Tuple[Dataset, Dataset]:
     """(train, test) datasets per cfg.data (reference config.py DATA_ROOT
     layout: <root>/train, <root>/test class folders)."""

@@ -24,11 +24,16 @@ each rank loading its rows of every global batch (engine/loop,
 ``model``, ``--tp`` the FFN hidden, ``--fsdp`` the block kernels over
 ``data`` (parallel/sharding), ``--sp`` the activations' tokens over
 ``model``, ``--pp [--pp_micro N]`` the layers in stages over ``model``
-(parallel/pipeline), e.g. on the CPU
+(parallel/pipeline), and ``--mesh_slices S`` the outer dcn data axis
+over all of them (the baselines too); a mesh smaller than the world
+(``--mesh_data``, ``--mesh_model``) leaves the other ranks idle, e.g. on
+the CPU
   torchrun --nproc_per_node 4 -m gslora_tpu_torch.cli.train_forget \
       --device cpu --dp --tp --fsdp --mesh_model 2 ...
   torchrun --nproc_per_node 2 -m gslora_tpu_torch.cli.train_forget \
       --device cpu --dp --pp --mesh_model 2 --pp_micro 2 ...
+  torchrun --nproc_per_node 8 -m gslora_tpu_torch.cli.train_forget \
+      --device cpu --dp --mesh_slices 2 --tp --fsdp --sp --mesh_model 2 ...
 ``--gemm_impl int8`` raises the model's ValueError at the first training
 step, as in the JAX CLI.
 """
@@ -41,7 +46,8 @@ from functools import partial
 
 from gslora_tpu_torch.baselines.regularization import (
     estimate_importance, run_regularization_task)
-from gslora_tpu_torch.cli.common import build_datasets, build_params
+from gslora_tpu_torch.cli.common import build_datasets, build_params, \
+    idle_rank
 from gslora_tpu_torch.config import build_parser, config_from_args
 from gslora_tpu_torch.data.folders import ConcatDataset
 from gslora_tpu_torch.data.splits import (few_shot_subset, make_order_list,
@@ -202,6 +208,8 @@ def main(argv=None):
     mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp,
                      check=check_baseline_placement if baseline
                      else check_placement)
+    if idle_rank(mesh):
+        return None
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
     sharding.check_layout_support(cfg, mesh)

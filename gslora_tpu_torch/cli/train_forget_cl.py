@@ -33,11 +33,14 @@ cli/common.build_params. ``--dp`` runs every method data-parallel over
 torch.distributed ranks, one per card (``torchrun --nproc_per_node N -m
 gslora_tpu_torch.cli.train_forget_cl --dp ...``; engine/continual for
 GS-LoRA(++) and ``--one_stage``, :func:`run_baseline_continual` for the
-baselines), each rank loading its rows of every global batch. GS-LoRA
-(``--one_stage``) also runs on JAX's ``(data, model)`` mesh:
-``--mesh_model M``, ``--tp``, ``--fsdp``, ``--sp`` (parallel/sharding) and
-``--pp [--pp_micro N]`` (parallel/pipeline; the prox step under ``--tp``
-or ``--pp`` raises JAX's ValueError).
+baselines), each rank loading its rows of every global batch; every
+method takes ``--mesh_slices S`` (the outer dcn data axis) and
+``--mesh_data D`` meshes smaller than the world, whose other ranks leave
+at once (``rank r idle``). GS-LoRA (``--one_stage``) also runs on JAX's
+whole ``(dcn, data, model)`` mesh: ``--mesh_model M``, ``--tp``,
+``--fsdp``, ``--sp`` (parallel/sharding) and ``--pp [--pp_micro N]``
+(parallel/pipeline; the prox step under ``--tp`` or ``--pp`` raises JAX's
+ValueError).
 ``--gemm_impl int8`` raises the model's ValueError at the first training
 step, as in the JAX CLI (int8 is an eval and serving path).
 ``--profile_dir`` is accepted and ignored, as by the JAX CLI.
@@ -58,7 +61,7 @@ from gslora_tpu_torch.baselines.scrub import run_scrub_task
 from gslora_tpu_torch.checkpoints.io import save_task_checkpoint
 from gslora_tpu_torch.cli.common import (build_datasets,
                                          build_missing_dataset, build_params,
-                                         prepare_imagenet_head)
+                                         idle_rank, prepare_imagenet_head)
 from gslora_tpu_torch.config import RunConfig, build_parser, \
     config_from_args
 from gslora_tpu_torch.data.folders import ConcatDataset
@@ -258,6 +261,8 @@ def main(argv=None):
     mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp,
                      check=check_placement if gs_lora
                      else check_baseline_placement)
+    if idle_rank(mesh):
+        return None
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
     sharding.check_layout_support(cfg, mesh)

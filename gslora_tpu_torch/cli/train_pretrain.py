@@ -24,9 +24,11 @@ changes nothing, as in JAX on one device. ``--mesh_model M``, ``--tp``
 and ``--fsdp`` lay the ranks out as JAX's ``(data, model)`` mesh and
 shard the parameters and their optimizer moments (parallel/sharding);
 ``--sp`` shards the activations' tokens over ``model`` and ``--pp``
-stages the layers over it (parallel/pipeline):
-  torchrun --nproc_per_node 4 -m gslora_tpu_torch.cli.train_pretrain \
-      --dp --tp --fsdp --sp --mesh_model 2 -b 480 ...
+stages the layers over it (parallel/pipeline); ``--mesh_slices S`` adds
+the outer dcn data axis (fsdp shards within a slice, the batch over dcn x
+data), and a mesh smaller than the world leaves the other ranks idle:
+  torchrun --nproc_per_node 8 -m gslora_tpu_torch.cli.train_pretrain \
+      --dp --mesh_slices 2 --tp --fsdp --sp --mesh_model 2 -b 480 ...
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import numpy as np
 import torch
 
 from gslora_tpu_torch.checkpoints.io import BestHCheckpointer
-from gslora_tpu_torch.cli.common import build_datasets, build_params
+from gslora_tpu_torch.cli.common import build_datasets, build_params, \
+    idle_rank
 from gslora_tpu_torch.config import build_parser, config_from_args
 from gslora_tpu_torch.data.pipeline import DevicePrefetcher
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
@@ -53,7 +56,8 @@ from gslora_tpu_torch.metrics.logging import MetricLogger, buffer_val, \
     gen_roc_plot
 from gslora_tpu_torch.models.vit import ViT, vit_apply
 from gslora_tpu_torch.parallel import sharding
-from gslora_tpu_torch.parallel.mesh import check_batch_divisible, make_mesh
+from gslora_tpu_torch.parallel.mesh import check_batch_divisible, \
+    data_parallel_size, make_mesh
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 from gslora_tpu_torch.utils.params import param_summary
 
@@ -68,6 +72,8 @@ def main(argv=None, return_state: bool = False):
     # the parallel flags are checked (JAX placement()) before any process
     # group is made
     mesh = make_mesh(cfg.mesh, cfg.device, dp=args.dp)
+    if idle_rank(mesh):
+        return (None, None) if return_state else None
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
         check_batch_divisible(mesh, cfg.data.batch_size)
@@ -77,7 +83,7 @@ def main(argv=None, return_state: bool = False):
             f"--ver_targets under {sharding.layout_flags(mesh)} is not "
             f"ported yet: rank 0 alone verifies, with whole parameters")
     main_rank = mesh is None or mesh.is_main
-    world = 1 if mesh is None else mesh.data
+    world = data_parallel_size(mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
 
@@ -157,11 +163,11 @@ def main(argv=None, return_state: bool = False):
             buffer_val(logger, name, vacc, vstd, xnorm, thr,
                        gen_roc_plot(fpr, tpr), batch=batch)
 
-    # each data index draws its rows' dropout masks from a stream of its
+    # each batch block draws its rows' dropout masks from a stream of its
     # own; the ranks of one model group draw the same masks
-    data_index = 0 if mesh is None else mesh.data_index
+    block = 0 if mesh is None else mesh.block
     generator = torch.Generator(device=device).manual_seed(
-        cfg.data.seed + 7919 * data_index)
+        cfg.data.seed + 7919 * block)
     best_acc = float("-inf")
     batch = 0
     for epoch in range(cfg.num_epoch):

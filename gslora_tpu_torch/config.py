@@ -297,11 +297,10 @@ class DataConfig:
 class MeshConfig:
     """Device mesh layout of the JAX package (data / model axes, tp, fsdp,
     pp, sp, multi-slice; gslora_tpu/config.py describes each). The port
-    runs the ``(data, model)`` mesh (``--dp``: torch.distributed ranks,
-    one per card, parallel/mesh) with a model axis, tp, fsdp, sp and pp
-    (parallel/sharding, parallel/pipeline); multi-slice is still to port,
-    and its flag raises rather than passes silently
-    (parallel/mesh.check_placement)."""
+    runs the whole ``(dcn, data, model)`` mesh (``--dp``: torch.distributed
+    ranks, one per card, parallel/mesh) with a model axis, tp, fsdp, sp
+    and pp (parallel/sharding, parallel/pipeline), and a mesh smaller
+    than the world, whose other ranks sit idle."""
 
     data: int = -1  # -1 => all devices (after model/slices)
     model: int = 1

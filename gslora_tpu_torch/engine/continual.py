@@ -7,8 +7,8 @@ state_dict at task end and re-loads + LoRA-reinits at the next task start
 (:523-536, :1696-1714). Here that is the fold ``base <- merged(base,
 lora); lora <- reinit`` with no file round-trip; task snapshots are still
 written. The parameters live on ``cfg.device`` for the whole run. Under a
-``(data, model)`` mesh every rank runs the task loop on the rows of its
-data index and on its shards of the parameters (parallel/sharding), the
+``(dcn, data, model)`` mesh every rank runs the task loop on the rows of
+its batch block and on its shards of the parameters (parallel/sharding), the
 boundaries included: the fold adds each shard's part of B@A, the reinit
 draws each whole A from one identically seeded generator and keeps the
 rank's shard, so the ranks keep one set of parameters; rank 0 alone
@@ -39,7 +39,7 @@ from gslora_tpu_torch.lora.core import reinit_lora
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.convert import flatten_tree
 from gslora_tpu_torch.parallel import sharding
-from gslora_tpu_torch.parallel.mesh import set_active
+from gslora_tpu_torch.parallel.mesh import data_parallel_size, set_active
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 
 PROTO_BATCH = 500  # per-task prototype batch (cl.py:634-644)
@@ -127,9 +127,10 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
 
     ``mesh``: an optional parallel/mesh.DataMesh, passed to every task's
     run_forget_training as JAX passes its mesh (continual.py:98-176); the
-    old-class evals and the prototypes sum their counts over the data
-    axis. The whole ``params`` are broadcast from rank 0 and sharded once;
-    ``final_params`` is the whole tree again, on every rank."""
+    old-class evals and the prototypes sum their counts over the batch
+    axis (dcn x data). The whole ``params`` are broadcast from rank 0 and
+    sharded once; ``final_params`` is the whole tree again, on every
+    rank."""
     if boundary not in ("merge_reinit", "keep"):
         raise ValueError(f"boundary must be merge_reinit|keep, "
                          f"got {boundary!r}")
@@ -182,9 +183,12 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
         protos = None
         if f.prototype:
             # prototypes from the CURRENT backbone over the task subsets
-            # (cl.py:634-644)
-            pb = list(loader(data.train_forget, PROTO_BATCH)) + \
-                list(loader(data.train_remain, PROTO_BATCH))
+            # (cl.py:634-644), in batches the data-parallel ways divide
+            # (each row's embedding is its own, so the batch is free)
+            ways = data_parallel_size(mesh)
+            pbs = -(-PROTO_BATCH // ways) * ways
+            pb = list(loader(data.train_forget, pbs)) + \
+                list(loader(data.train_remain, pbs))
             protos = calculate_prototypes(params, pb, model, lora,
                                           model.num_class, compute_dtype=cdt,
                                           mesh=mesh)

@@ -23,6 +23,7 @@ from gslora_tpu_torch.losses.prototype import hinged_prototype_losses, \
     prototype_loss
 from gslora_tpu_torch.models.vit import vit_apply
 from gslora_tpu_torch.ops.group_lasso import fp32_threshold, lora_group_prox
+from gslora_tpu_torch.parallel.mesh import data_parallel_size
 from gslora_tpu_torch.parallel.multihost import check_local_feed
 from gslora_tpu_torch.parallel.sharding import sp_on, sync_grads
 from gslora_tpu_torch.utils.trees import PairwiseSum
@@ -80,11 +81,12 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
     scheme with an extra wrapper. With grad_accum 1 the sums come from the
     same forward that is differentiated (one forward per step); with
     grad_accum > 1 each rank microbatches its own rows in the two passes.
-    On a ``(data, model)`` mesh the sums and the gradients go over the
-    data axis only: the ranks of one model group hold the same rows, and
-    the model's collectives (parallel/sharding) give each of them the
-    whole gradient of its own leaves; fsdp shards come summed out of the
-    backward (``sync_grads``). Under sp and pp a rank's gradient of a leaf
+    On a ``(dcn, data, model)`` mesh the sums and the gradients go over
+    the batch axis (dcn x data) only: the ranks of one model group hold
+    the same rows, and the model's collectives (parallel/sharding) give
+    each of them the whole gradient of its own leaves; fsdp shards come
+    summed over ``data`` out of the backward, and ``sync_grads`` sums them
+    over ``dcn``. Under sp and pp a rank's gradient of a leaf
     held whole inside the stack (or of the embedding) is its part over
     ``model`` (its tokens; stage 0's), and ``sync_grads`` sums those over
     that axis too; under sp the structure term, whose gradient every rank
@@ -236,7 +238,7 @@ def make_forget_step(model: ViTConfig, lora: LoraConfig, fcfg: ForgetConfig,
         equal to the full-batch gradient (JAX ``_accum_grads``,
         forget.py:177-261)."""
         params = state.params
-        world = 1 if mesh is None else mesh.data
+        world = data_parallel_size(mesh)
         micros = list(zip(*(t.split(t.shape[0] // n)
                             for t in (xf, yf, xr, yr))))
         if n == 1:

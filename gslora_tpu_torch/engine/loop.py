@@ -8,17 +8,16 @@ train_own_forget.py:722-826).
   at the end, with H-mean-gated checkpointing (engine.py:381-409);
 * per-epoch alpha-warmup/beta-decay and timm cosine LR;
 * EMA of the merged model after ema_epoch (train_own_forget.py:783-826);
-* the ``(data, model)`` mesh over torch.distributed ranks (``mesh``, a
-  parallel/mesh.DataMesh): each rank loads the rows of its data index of
-  every global batch and holds its shards of the parameters
-  (parallel/sharding: a model axis, tp, fsdp, the pipeline stages of
-  pp), the forward shards the tokens under sp and runs the GPipe
-  schedule under pp (``--pp_micro`` micro-batches a rank, every model
-  rank in lockstep, evaluations and prototypes included), the step
-  computes the global-batch loss, evaluations sum their counts over the
-  data axis, and rank 0 alone writes checkpoints, of the gathered tree.
-  Multi-slice is not ported: its flag raises
-  (parallel/mesh.check_placement).
+* the ``(dcn, data, model)`` mesh over torch.distributed ranks
+  (``mesh``, a parallel/mesh.DataMesh): each rank loads the rows of its
+  batch block (``dcn·D + data``) of every global batch and holds its
+  shards of the parameters (parallel/sharding: a model axis, tp, fsdp,
+  the pipeline stages of pp), the forward shards the tokens under sp and
+  runs the GPipe schedule under pp (``--pp_micro`` micro-batches a rank,
+  every model rank in lockstep, evaluations and prototypes included),
+  the step computes the global-batch loss, evaluations sum their counts
+  over the batch axis (dcn x data), and rank 0 alone writes
+  checkpoints, of the gathered tree.
 """
 from __future__ import annotations
 
@@ -44,7 +43,7 @@ from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.vit import ViT
 from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import check_batch_divisible, \
-    check_placement, check_prox_placement, set_active
+    check_placement, check_prox_placement, data_parallel_size, set_active
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 
 
@@ -105,10 +104,10 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     ``mesh``: an optional parallel/mesh.DataMesh, as JAX's ``mesh``
     (loop.py:125-160): the whole parameters are broadcast from rank 0 and
     each rank keeps its shards (parallel/sharding.shard_tree: JAX's
-    ``put_params``), the train and test batches split over the data axis
-    (padded static global batches), the LoRA gradients are summed over
-    it; the ranks of a data index end with the same shards, every rank
-    with the same history. ``cfg.device`` is the rank's device. ``local``:
+    ``put_params``), the train and test batches split over the batch
+    axis, dcn x data (padded static global batches), the LoRA gradients
+    are summed over it; the ranks of a model group end with the same
+    shards, every rank with the same history. ``cfg.device`` is the rank's device. ``local``:
     ``params`` are this rank's shards already (a continual run's next
     task); ``ForgetResult.state`` holds the rank's shards.
 
@@ -205,14 +204,14 @@ def run_forget_training(cfg: RunConfig, params, data: ForgetData,
     forget_drives = (not continual and fcfg.few_shot and
                      len(loader_f) > len(loader_r))
 
-    # under a mesh each data index draws its rows' dropout masks from a
-    # stream of its own (data index 0's is the one-process stream); the
-    # ranks of one model group draw the same masks, so their replicated
+    # under a mesh each batch block draws its rows' dropout masks from a
+    # stream of its own (block 0's is the one-process stream); the ranks
+    # of one model group draw the same masks, so their replicated
     # activations stay equal
-    data_index = 0 if mesh is None else mesh.data_index
+    block = 0 if mesh is None else mesh.block
     generator = torch.Generator(device=device).manual_seed(
-        seed + 7919 * data_index)
-    world = 1 if mesh is None else mesh.data
+        seed + 7919 * block)
+    world = data_parallel_size(mesh)
     batch = 0
     best_h = 0.0  # reference highest_H_mean init (train_own_forget.py:548)
     last = {"forget_acc": forget_acc_before, "remain_acc": remain_acc_before,

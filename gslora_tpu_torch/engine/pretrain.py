@@ -122,11 +122,13 @@ def _accumulated_fsdp(grad_fn: Callable, n: int, names, mesh,
     """:func:`_accumulated` for a mesh with fsdp shards, whose gradients
     come out of the backward already summed over the data axis
     (parallel/sharding.gather_from_data): so the global valid count is
-    summed first, and each micro-batch differentiates its masked mean
-    times ``valid / count`` (``grad_fn(x, y, weight)``), its part of the
-    global mean; the micro-gradients add up in ``accum_dtype`` and the
-    other leaves' are summed over ``data`` at the end. The metrics are
-    masked sums over the global count, as there."""
+    summed first (over the batch axis, dcn x data), and each micro-batch
+    differentiates its masked mean times ``valid / count``
+    (``grad_fn(x, y, weight)``), its part of the global mean; the
+    micro-gradients add up in ``accum_dtype``, then the shards' cross
+    ``dcn`` and the other leaves' are summed over the batch axis
+    (``sync_grads``). The metrics are masked sums over the global count,
+    as there."""
     def accum(x, y):
         b = x.shape[0]
         parts = n if b % n == 0 else 1
@@ -164,10 +166,12 @@ def make_pretrain_step(model: ViTConfig, lora: LoraConfig, optimizer,
     ``mesh`` (parallel/mesh.DataMesh): each rank passes its rows of the
     global batch, and the loss is the masked mean over the global batch
     (``_accumulated``; ``_accumulated_fsdp`` under fsdp), with or without
-    ``grad_accum``. On a ``(data, model)`` mesh the sums run over the
-    data axis: the model's collectives give each rank of a model group
-    the whole gradient of its own shards; under sp and pp the gradients
-    that are a rank's part over ``model`` are summed over that axis
+    ``grad_accum``. On a ``(dcn, data, model)`` mesh the sums run over
+    the batch axis (dcn x data): the model's collectives give each rank
+    of a model group the whole gradient of its own shards; fsdp's come
+    summed over ``data`` (within the slice) out of the backward and cross
+    ``dcn`` in ``sync_grads``; under sp and pp the gradients that are a
+    rank's part over ``model`` are summed over that axis
     (parallel/sharding.sync_model_grads)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")

@@ -1,20 +1,29 @@
-"""The (data, model) mesh over torch.distributed, and the guards of the
-parallel flags (port of gslora_tpu/parallel/mesh.py without the
-multi-slice mode).
+"""The ``(dcn, data, model)`` mesh over torch.distributed, and the guards
+of the parallel flags (port of gslora_tpu/parallel/mesh.py).
 
-A JAX device of a ``(data, model)`` mesh becomes one process (rank) here,
-launched by ``torchrun``. JAX's mesh is ``devices.reshape(data, model)``,
-so rank ``r`` sits at data index ``r // M`` and model index ``r % M``: the
-ranks of one model group are contiguous, those of one data group strided.
-:class:`DataMesh` names the rank, its two indices and its device, and
+A JAX device of a mesh becomes one process (rank) here, launched by
+``torchrun``. JAX's mesh is ``devices[:S·D·M].reshape(S, D, M)`` (without
+``--mesh_slices``, ``reshape(D, M)``), so rank ``r`` sits at dcn index
+``r // (D·M)``, data index ``(r // M) % D`` and model index ``r % M``: the
+ranks of one model group are contiguous, those of one data group strided
+within a slice. Ranks from ``S·D·M`` on are idle, as JAX leaves the
+devices past the mesh unused. The batch splits over ``dcn × data`` (the
+batch axis: the ranks of one model index), in blocks ``dcn·D + data``;
+tp, sp and pp stay on ``model`` and fsdp's shards on ``data``, both
+within a slice, so only the batch sums cross ``dcn`` (on GPUs the node
+axis: the fsdp and model collectives stay inside a node).
+
+:class:`DataMesh` names the rank, its indices and its device, and
 carries the collectives of each group: a SUM ``all_reduce`` over flat
-buckets (over ``data``, where the batch splits), ``all_gather`` and
-``reduce_scatter`` along a tensor dim over either axis, the pipeline's
+buckets (over the batch axis by default), ``all_gather`` and
+``reduce_scatter`` along a tensor dim over an axis, the pipeline's
 stage-to-stage ``shift`` over ``model`` (JAX's ``ppermute`` to the next
-or the previous stage), a ``broadcast`` from rank 0 over the world. What
-is sharded, and how, is parallel/sharding.py's; the pipeline schedule is
-parallel/pipeline.py's. There is no mesh for one process, as JAX has none
-on one device (``make_mesh`` returns None).
+or the previous stage), and a ``broadcast`` from rank 0 and a barrier
+over the ranks the mesh uses. No collective runs on the default group
+once the groups are made, unless the mesh spans the world: the idle
+ranks leave. What is sharded, and how, is parallel/sharding.py's; the
+pipeline schedule is parallel/pipeline.py's. There is no mesh for one
+process, as JAX has none on one device (``make_mesh`` returns None).
 
 The route of ``all_gather``, ``reduce_scatter`` and ``shift`` follows the
 backend and the device: NCCL, and gloo on CPU tensors, run the native
@@ -27,9 +36,7 @@ buffer of one slot per model rank in which only the senders' slots are
 filled: adding zeros is exact.
 
 :func:`check_placement` holds the parallel flags to what JAX's
-``placement()`` accepts, in its order and with its messages; those JAX
-would accept but this port does not run yet (multi-slice, a mesh smaller
-than the world) raise NotImplementedError naming the flag.
+``placement()`` accepts, in its order and with its messages.
 """
 from __future__ import annotations
 
@@ -44,19 +51,27 @@ from gslora_tpu_torch.config import MeshConfig
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DCN_AXIS = "dcn"
+# the batch axis, dcn x data: the ranks of one model index
+BATCH_AXIS = "batch"
+# the group of the ranks the mesh uses (all but the idle ones)
+MESH_GROUP = "mesh"
 BUCKET_ELEMENTS = 1 << 22  # 16 MiB of fp32 per all_reduce
 ROUTES = ("native", "all_reduce")
 
 
 @dataclass(frozen=True)
 class DataMesh:
-    """One rank of a ``(data, model)`` world of ``world = D·M`` ranks: it
-    loads ``1/D`` of each global batch (the rows of its data index,
-    parallel/multihost) and holds its shards of the parameters
-    (parallel/sharding). ``model = 1`` is plain data parallelism.
+    """One rank of a ``(dcn, data, model)`` mesh of ``S·D·M`` ranks out of
+    a launched ``world``: it loads ``1/(S·D)`` of each global batch (the
+    rows of its block, parallel/multihost) and holds its shards of the
+    parameters (parallel/sharding). ``model = 1`` and ``slices = 1`` is
+    plain data parallelism; ``data = 0`` takes the world's ranks that
+    ``slices`` and ``model`` leave (JAX's ``--mesh_data -1``). A rank past
+    the mesh is :attr:`idle`.
 
-    ``groups`` are the process groups of the rank's data and model axes
-    (None: the default group, or an axis of one rank); ``route`` is how
+    ``groups`` are the process groups of the rank's axes and of the
+    mesh's ranks (absent: the axis or the mesh spans the world, which the
+    default group serves, or holds one rank); ``route`` is how
     all_gather, reduce_scatter and shift run (module docstring). ``pp``
     stages the layers over ``model`` in ``pp_micro`` micro-batches (0:
     the stage count, as JAX's ``set_pipeline``); ``sp`` shards the
@@ -74,35 +89,56 @@ class DataMesh:
     sp: bool = False
     groups: Dict[str, object] = field(default_factory=dict, compare=False,
                                       repr=False)
+    slices: int = 1
+    data: int = 0
+
+    def __post_init__(self):
+        if self.data <= 0:
+            object.__setattr__(self, "data",
+                               self.world // (self.slices * self.model))
 
     @property
-    def data(self) -> int:
-        return self.world // self.model
+    def dcn_index(self) -> int:
+        return self.rank // (self.data * self.model)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.model
+        return (self.rank // self.model) % self.data
 
     @property
     def model_index(self) -> int:
         return self.rank % self.model
 
     @property
+    def block(self) -> int:
+        """The rank's batch block, ``dcn·D + data`` of ``S·D``."""
+        return self.dcn_index * self.data + self.data_index
+
+    @property
+    def idle(self) -> bool:
+        """A rank past the mesh: JAX's devices past ``S·D·M``."""
+        return self.rank >= self.size()
+
+    @property
     def is_main(self) -> bool:
         return self.rank == 0
 
-    def size(self, axis: str) -> int:
-        return self.data if axis == DATA_AXIS else self.model
+    def size(self, axis: Optional[str] = None) -> int:
+        """The ranks of ``axis``; without one, the ranks the mesh uses."""
+        return {DATA_AXIS: self.data, MODEL_AXIS: self.model,
+                DCN_AXIS: self.slices, BATCH_AXIS: self.slices * self.data,
+                None: self.slices * self.data * self.model}[axis]
 
     def index(self, axis: str) -> int:
-        return self.data_index if axis == DATA_AXIS else self.model_index
+        return {DATA_AXIS: self.data_index, MODEL_AXIS: self.model_index,
+                DCN_AXIS: self.dcn_index, BATCH_AXIS: self.block}[axis]
 
     def group(self, axis: str):
         return self.groups.get(axis)
 
     def all_reduce_(self, tensors: Sequence[torch.Tensor],
-                    axis: str = DATA_AXIS) -> None:
-        """SUM each tensor over the ranks of ``axis`` (the data axis by
+                    axis: str = BATCH_AXIS) -> None:
+        """SUM each tensor over the ranks of ``axis`` (the batch axis by
         default: the ranks that split the batch), in place: the tensors of
         one dtype go through flat buckets of at most
         ``BUCKET_ELEMENTS``."""
@@ -187,24 +223,32 @@ class DataMesh:
         return buf[i - step] if recvs else torch.zeros_like(t)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Overwrite each tensor with rank 0's, in place."""
+        """Overwrite each tensor with rank 0's, in place, over the mesh's
+        ranks."""
         import torch.distributed as dist
+        if self.size() == 1:
+            return
         with torch.no_grad():
             for t in tensors:
-                dist.broadcast(t.data, src=0)
+                dist.broadcast(t.data, src=0, group=self.group(MESH_GROUP))
 
-    def sum(self, values: Sequence[float]) -> List[float]:
-        """SUM host numbers over the data axis (fp64 on the rank's
-        device): the ranks of one model group hold the same rows."""
+    def sum(self, values: Sequence[float],
+            axis: str = BATCH_AXIS) -> List[float]:
+        """SUM host numbers over ``axis`` (fp64 on the rank's device; the
+        batch axis by default: the ranks of one model group hold the same
+        rows)."""
         t = torch.tensor([float(v) for v in values], dtype=torch.float64,
                          device=self.device)
-        self.all_reduce_([t])
+        self.all_reduce_([t], axis=axis)
         return t.tolist()
 
     def barrier(self) -> None:
-        """Wait for every rank (an all_reduce of one number)."""
+        """Wait for every rank of the mesh (an all_reduce of one
+        number)."""
         import torch.distributed as dist
-        dist.all_reduce(torch.zeros(1, device=self.device))
+        if self.size() > 1:
+            dist.all_reduce(torch.zeros(1, device=self.device),
+                            group=self.group(MESH_GROUP))
 
 
 def _all_reduce_flat(bucket: List[torch.Tensor], group=None) -> None:
@@ -233,8 +277,9 @@ def active_mesh() -> Optional[DataMesh]:
 
 
 def data_parallel_size(mesh: Optional[DataMesh]) -> int:
-    """The data-parallel ways — what batch sizes must divide."""
-    return 1 if mesh is None else mesh.data
+    """Total data-parallel ways (dcn x data) — what batch sizes must
+    divide."""
+    return 1 if mesh is None else mesh.size(BATCH_AXIS)
 
 
 def check_batch_divisible(mesh: Optional[DataMesh], batch_size: int) -> None:
@@ -260,16 +305,13 @@ def jax_mesh_shape(cfg: MeshConfig, world: int) -> Dict[str, int]:
 
 def check_placement(cfg: MeshConfig, mesh: Optional[DataMesh]) -> None:
     """The guards of JAX ``placement()`` (parallel/mesh.py:370-391) for a
-    run on ``mesh`` (None: one process, JAX's one-device case), then the
-    flags this port does not run yet.
+    run on ``mesh`` (None: one process, JAX's one-device case).
 
     Without a mesh, tp/fsdp/pp/sp raise JAX's ValueError. With one, what
-    JAX refuses (tp/pp/sp on a model axis of 1, fsdp on a data axis of 1,
-    sp with pp, a mesh larger than the world) raises its ValueError; what
-    JAX would run but the port does not (multi-slice, a mesh that leaves
-    ranks idle) raises NotImplementedError. ``--mesh_model``,
-    ``--tp``, ``--fsdp``, ``--sp`` and ``--pp`` run on a mesh of the
-    whole world. JAX raises "pp excludes tp/fsdp" in ``param_shardings``
+    JAX refuses (a mesh larger than the world, tp/pp/sp on a model axis of
+    1, fsdp on a data axis of 1, sp with pp) raises its ValueError; every
+    other layout runs, ``--mesh_slices`` and a mesh that leaves ranks idle
+    included. JAX raises "pp excludes tp/fsdp" in ``param_shardings``
     (parallel/mesh.py:258-261), here with the other guards; the pp depth
     divisibility, as there, where the tree is sharded
     (parallel/sharding.leaf_spec)."""
@@ -304,16 +346,6 @@ def check_placement(cfg: MeshConfig, mesh: Optional[DataMesh]) -> None:
         raise ValueError("pp excludes tp/fsdp: pipeline stages own the "
                          "model axis and the pipeline body is a fully "
                          "manual shard_map")
-    if slices > 1:
-        raise NotImplementedError(
-            "--mesh_slices > 1 is not ported yet: gslora_tpu_torch runs "
-            "the (data, model) mesh: --dp, --mesh_model, --tp, --fsdp, "
-            "--sp, --pp")
-    if shape[DATA_AXIS] * shape[MODEL_AXIS] != mesh.world:
-        raise NotImplementedError(
-            f"--mesh_data {shape[DATA_AXIS]} x --mesh_model "
-            f"{shape[MODEL_AXIS]} on a world of {mesh.world} is not ported "
-            f"yet: the mesh spans every rank (JAX leaves the others idle)")
 
 
 def check_prox_placement(cfg, mesh: Optional[DataMesh]) -> None:
@@ -331,8 +363,9 @@ def check_baseline_placement(cfg: MeshConfig,
     """The guards of JAX's baseline runners (e.g. baselines/
     regularization.py:170-181) for a run on ``mesh``: pp raises JAX's
     ValueError first, then :func:`check_placement`; under a world the
-    baselines run the data axis only, so tp, fsdp, sp and a model axis
-    raise NotImplementedError naming the flag (without a mesh, JAX's
+    baselines run the data axes only (``--mesh_slices`` and a mesh that
+    leaves ranks idle included), so tp, fsdp, sp and a model axis raise
+    NotImplementedError naming the flag (without a mesh, JAX's
     ValueError)."""
     if cfg.pp:
         raise ValueError(
@@ -347,8 +380,9 @@ def check_baseline_placement(cfg: MeshConfig,
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet for the baseline runners: they "
-                f"run the data axis only (--dp, one rank per device; "
-                f"--tp, --fsdp, --sp, --pp and a model axis are refused)")
+                f"run the data axes only (--dp, --mesh_data, "
+                f"--mesh_slices; --tp, --fsdp, --sp, --pp and a model axis "
+                f"are refused)")
 
 
 def world_size() -> int:
@@ -360,23 +394,46 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def axis_groups(world: int, model: int, rank: int) -> Dict[str, object]:
-    """The process groups of ``rank``'s data and model axes. Every rank
-    makes every group, in one order (``dist.new_group`` is collective);
-    an axis that spans the world uses the default group (None) and one of
-    a single rank none at all."""
+def axis_ranks(slices: int, data: int,
+               model: int) -> Dict[str, List[List[int]]]:
+    """The ranks of every group of an ``S x D x M`` mesh, by axis (and
+    :data:`MESH_GROUP`), each group in rank order: rank ``r`` sits at
+    ``(r // (D·M), (r // M) % D, r % M)``."""
+    grid = [[[(s * data + j) * model + k for k in range(model)]
+             for j in range(data)] for s in range(slices)]
+    return {
+        MODEL_AXIS: [grid[s][j] for s in range(slices)
+                     for j in range(data)],
+        DATA_AXIS: [[grid[s][j][k] for j in range(data)]
+                    for s in range(slices) for k in range(model)],
+        DCN_AXIS: [[grid[s][j][k] for s in range(slices)]
+                   for j in range(data) for k in range(model)],
+        BATCH_AXIS: [[grid[s][j][k] for s in range(slices)
+                      for j in range(data)] for k in range(model)],
+        MESH_GROUP: [list(range(slices * data * model))],
+    }
+
+
+def axis_groups(world: int, rank: int, slices: int, data: int,
+                model: int) -> Dict[str, object]:
+    """The process groups of ``rank``'s axes and of the mesh's ranks.
+    Every rank of the world makes every group, in one order, idle ranks
+    too (``dist.new_group`` is collective); axes of the same ranks (the
+    batch axis and ``data`` on one slice) share one group. A group of one
+    rank is not made (its collectives are no-ops); one of the whole world
+    is the default group, so a mesh that leaves ranks idle runs on groups
+    of its own alone."""
     import torch.distributed as dist
-    data = world // model
     groups: Dict[str, object] = {}
-    if model > 1 and data > 1:
-        for j in range(data):
-            g = dist.new_group(list(range(j * model, (j + 1) * model)))
-            if rank // model == j:
-                groups[MODEL_AXIS] = g
-        for k in range(model):
-            g = dist.new_group(list(range(k, world, model)))
-            if rank % model == k:
-                groups[DATA_AXIS] = g
+    made: Dict[tuple, object] = {}
+    for name, lists in axis_ranks(slices, data, model).items():
+        for ranks in lists:
+            if len(ranks) == 1 or len(ranks) == world:
+                continue
+            if tuple(ranks) not in made:
+                made[tuple(ranks)] = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = made[tuple(ranks)]
     return groups
 
 
@@ -390,16 +447,17 @@ def collective_route(backend: str, device: torch.device) -> str:
 
 def make_mesh(cfg: MeshConfig, device: str = "cuda", dp: bool = True,
               check=check_placement) -> Optional[DataMesh]:
-    """The ``(data, model)`` mesh of a ``--dp`` run, or None (``--dp`` off,
-    or a world of one: JAX's ``len(jax.devices()) > 1`` rule). The flags
-    are checked by ``check`` (:func:`check_placement`, or
+    """The ``(dcn, data, model)`` mesh of a ``--dp`` run, or None (``--dp``
+    off, or a world of one: JAX's ``len(jax.devices()) > 1`` rule). The
+    flags are checked by ``check`` (:func:`check_placement`, or
     :func:`check_baseline_placement` for a baseline) before any process
     group is made; then the default group is initialised from torchrun's
     environment unless one exists (nccl for the card, gloo for
-    ``device='cpu'``) and the axis groups are made. A rank's device is
-    ``cuda:<LOCAL_RANK % device_count>``, or the CPU when asked for. The
-    mesh becomes the active one (:func:`active_mesh`), which the model's
-    forward shards over."""
+    ``device='cpu'``) and the groups are made, by every rank. A rank's
+    device is ``cuda:<LOCAL_RANK % device_count>``, or the CPU when asked
+    for. The mesh becomes the active one (:func:`active_mesh`), which the
+    model's forward shards over; on an :attr:`DataMesh.idle` rank none
+    is, and the caller leaves."""
     world = world_size() if dp else 1
     mesh = None
     if world > 1:
@@ -423,16 +481,23 @@ def make_mesh(cfg: MeshConfig, device: str = "cuda", dp: bool = True,
     else:
         dev = torch.device("cpu")
     rank, world = dist.get_rank(), dist.get_world_size()
-    model = jax_mesh_shape(cfg, world)[MODEL_AXIS]
+    shape = jax_mesh_shape(cfg, world)
+    slices, data, model = (shape.get(DCN_AXIS, 1), shape[DATA_AXIS],
+                           shape[MODEL_AXIS])
     route = collective_route(dist.get_backend(), dev)
     mesh = DataMesh(rank=rank, world=world, device=dev, model=model,
                     tp=cfg.tp, fsdp=cfg.fsdp, route=route, pp=cfg.pp,
-                    pp_micro=cfg.pp_micro, sp=cfg.sp,
-                    groups=axis_groups(world, model, rank))
+                    pp_micro=cfg.pp_micro, sp=cfg.sp, slices=slices,
+                    data=data,
+                    groups=axis_groups(world, rank, slices, data, model))
     if mesh.is_main:
-        print(f"mesh: data {mesh.data} x model {model} (tp={cfg.tp}, "
-              f"fsdp={cfg.fsdp}, sp={cfg.sp}, pp={cfg.pp}), "
-              f"{dist.get_backend()} on {dev.type}, collective route "
-              f"{route}", flush=True)
-    set_active(mesh)
+        used = mesh.size()
+        idle = "" if used == world else ", idle ranks " + ", ".join(
+            str(r) for r in range(used, world))
+        print(f"mesh: dcn {slices} x data {data} x model {model} (tp="
+              f"{cfg.tp}, fsdp={cfg.fsdp}, sp={cfg.sp}, pp={cfg.pp}), "
+              f"{used} of {world} ranks{idle}, {dist.get_backend()} on "
+              f"{dev.type}, collective route {route}", flush=True)
+    if not mesh.idle:
+        set_active(mesh)
     return mesh

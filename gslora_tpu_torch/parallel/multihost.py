@@ -4,11 +4,12 @@ counterpart, as each rank's tensors are its own).
 
 The batch dim of a global batch splits over the flattened (dcn, data) mesh
 axes in row-major order: the device at mesh position ``(dcn_i, data_j,
-model_k)`` owns batch block ``dcn_i·data + data_j``, and block ``b`` holds
-rows ``[b·B/n, (b+1)·B/n)``. Here one rank drives one device of a one-axis
-``data`` mesh, so rank ``r`` of ``W`` loads rows ``[r·B/W, (r+1)·B/W)``
-through ``BatchLoader(local_bounds=...)``; every rank's loader takes the
-same seed, so the global shuffle order is the same on all of them.
+model_k)`` owns batch block ``dcn_i·data + data_j``, and block ``b`` of
+``n = dcn·data`` holds rows ``[b·B/n, (b+1)·B/n)``. Here one rank drives
+one device, so rank ``r`` loads its block's rows through
+``BatchLoader(local_bounds=...)``; a rank past the mesh (idle) owns none.
+Every rank's loader takes the same seed, so the global shuffle order is
+the same on all of them.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gslora_tpu_torch.parallel.mesh import DATA_AXIS, DCN_AXIS, MODEL_AXIS
+from gslora_tpu_torch.parallel.mesh import (BATCH_AXIS, DATA_AXIS,
+                                            DCN_AXIS, MODEL_AXIS)
 
 
 def device_blocks(axis_names: Sequence[str],
@@ -64,20 +66,28 @@ def blocks_to_bounds(global_batch: int, n_blocks: int,
     return bs[0] * per, (bs[-1] + 1) * per
 
 
+def rank_owners(mesh) -> np.ndarray:
+    """The mesh's device array of ranks: ``arange(S·D·M)`` reshaped to
+    ``(S, D, M)`` (JAX's ``devices[:S·D·M].reshape``), one device per
+    rank."""
+    return np.arange(mesh.size()).reshape(mesh.slices, mesh.data,
+                                          mesh.model)
+
+
 def host_batch_bounds(mesh, global_batch: int,
                       process_index: Optional[int] = None
                       ) -> Tuple[int, int]:
     """Rows of the global batch that rank ``process_index`` (this rank by
-    default) loads: the block of its data index on the ``(data, model)``
-    mesh, one device per rank (``devices.reshape(data, model)``, so rank
-    ``r`` is device ``(r // M, r % M)``). The ranks of one model group
-    load the same rows."""
+    default) loads: its block ``dcn·D + data`` of the ``S·D`` blocks
+    (:func:`device_blocks` over the mesh of :func:`rank_owners`). The
+    ranks of one model group load the same rows; an idle rank owns no
+    devices and raises."""
     pid = mesh.rank if process_index is None else process_index
-    owner = np.arange(mesh.world).reshape(mesh.data, mesh.model)
-    blocks = process_block_map((DATA_AXIS, MODEL_AXIS), owner).get(pid)
+    blocks = process_block_map((DCN_AXIS, DATA_AXIS, MODEL_AXIS),
+                               rank_owners(mesh)).get(pid)
     if blocks is None:
         raise ValueError(f"process {pid} owns no devices in this mesh")
-    return blocks_to_bounds(global_batch, mesh.data, blocks)
+    return blocks_to_bounds(global_batch, mesh.size(BATCH_AXIS), blocks)
 
 
 # The global batch sizes of the loaders made by process_sharded_loader:
@@ -97,12 +107,13 @@ def check_local_feed(mesh, rows: int) -> None:
     batch (the guard of JAX ``make_global_batch``)."""
     if mesh is None or not _DECLARED_BATCHES:
         return
-    if not any(b % mesh.data == 0 and b // mesh.data == rows
+    ways = mesh.size(BATCH_AXIS)
+    if not any(b % ways == 0 and b // ways == rows
                for b in _DECLARED_BATCHES):
         raise ValueError(
             f"process {mesh.rank}'s feed of {rows} rows matches no declared "
             f"global batch size {sorted(_DECLARED_BATCHES)} at its "
-            f"1/{mesh.data} share — a full-global-batch feed from every "
+            f"1/{ways} share — a full-global-batch feed from every "
             f"rank? Use process_sharded_loader so each rank decodes only "
             f"its row span")
 

@@ -1,6 +1,6 @@
-"""The parameter layout of a ``(data, model)`` mesh and the collectives the
-model runs under it (port of ``param_shardings``, ``replicate`` and
-``place_like``, gslora_tpu/parallel/mesh.py:220-346).
+"""The parameter layout of a ``(dcn, data, model)`` mesh and the
+collectives the model runs under it (port of ``param_shardings``,
+``replicate`` and ``place_like``, gslora_tpu/parallel/mesh.py:220-346).
 
 JAX states a layout as a NamedSharding per leaf and lets GSPMD derive the
 collectives. Here every rank builds the whole tree from one seed,
@@ -33,6 +33,10 @@ of the LoRA on its layer dim over ``model`` (the stages); the head
 weight's class dim goes over ``model`` whenever that axis is > 1 and pp
 is off. sp changes no layout. Optimizer moments follow their parameters.
 
+On a mesh with ``--mesh_slices`` the rules are the same: fsdp shards
+over ``data`` within a slice, tp, sp and pp over ``model``; every slice
+holds the same shards.
+
 Gradients (:func:`sync_grads`): under sp and pp a rank's gradient of a
 leaf it holds whole inside the stack, or of the embedding, is its part of
 the whole (its tokens; its stage), summed over ``model``; the head and
@@ -45,7 +49,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from gslora_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, DataMesh
+from gslora_tpu_torch.parallel.mesh import (DATA_AXIS, DCN_AXIS, MODEL_AXIS,
+                                            DataMesh)
 
 Spec = Tuple[Optional[str], ...]
 
@@ -405,15 +410,19 @@ def sync_model_grads(mesh: Optional[DataMesh], names: Sequence[str],
 
 def sync_grads(mesh: Optional[DataMesh], names: Sequence[str],
                grads: Sequence[torch.Tensor]) -> None:
-    """SUM each gradient over the data axis in place, but those of fsdp
-    shards, which the backward of :func:`gather_from_data` already
-    summed; first those that are a rank's part over ``model`` (sp, pp)
-    over that axis."""
+    """SUM each gradient over the batch axis (dcn x data) in place, but
+    those of fsdp shards, which the backward of :func:`gather_from_data`
+    already summed over ``data`` within the slice: theirs cross ``dcn``
+    alone. First those that are a rank's part over ``model`` (sp, pp) are
+    summed over that axis."""
     if mesh is None:
         return
     sync_model_grads(mesh, names, grads)
     specs = named_specs(mesh, names, grads)
-    mesh.all_reduce_([g for g, s in zip(grads, specs) if DATA_AXIS not in s])
+    mesh.all_reduce_([g for g, s in zip(grads, specs) if DATA_AXIS in s],
+                     axis=DCN_AXIS)
+    mesh.all_reduce_([g for g, s in zip(grads, specs)
+                      if DATA_AXIS not in s])
 
 
 def layout_flags(mesh: Optional[DataMesh]) -> str:
@@ -436,9 +445,9 @@ def check_layout_support(cfg, mesh: Optional[DataMesh]) -> None:
     flags = layout_flags(mesh)
     if cfg.net != "VIT":
         raise NotImplementedError(
-            f"-n {cfg.net} under {flags} is not ported yet: the (data, "
-            f"model) layouts run the face ViT (-n VIT)")
+            f"-n {cfg.net} under {flags} is not ported yet: the sharded "
+            f"layouts run the face ViT (-n VIT)")
     if cfg.lora.rank > 0 and cfg.lora.pos != "FFN":
         raise NotImplementedError(
             f"--lora_pos {cfg.lora.pos} under {flags} is not ported yet: "
-            f"the (data, model) layouts run FFN LoRA")
+            f"the sharded layouts run FFN LoRA")

@@ -320,12 +320,12 @@ def test_cl_cli_runs_end_to_end_on_cpu(tiny_cl_cli, tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--dp", "--SCRUB", "--fsdp"], "--fsdp"),
     (["--dp", "--LIRF", "--sp", "--mesh_model", "2"], "--sp"),
-    (["--dp", "--one_stage", "--mesh_slices", "2"], "--mesh_slices"),
+    (["--dp", "--replay", "--mesh_model", "2"], "--mesh_model"),
 ])
 def test_cl_cli_unported_paths_raise(monkeypatch, tiny_cl_cli, tmp_path,
                                      flags, match):
-    """Under a world of 2 (torchrun's WORLD_SIZE), fsdp and sp under a
-    baseline, and multi-slice, are not ported yet: they raise before any
+    """Under a world of 2 (torchrun's WORLD_SIZE), fsdp, sp and a model
+    axis under a baseline are not ported yet: they raise before any
     process group is made."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match=match):

@@ -190,14 +190,14 @@ def test_cli_runs_end_to_end_on_cpu(tiny_cli, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dp", "--mesh_data", "1"], "--mesh_data 1"),
+    (["--dp", "--MAS", "--mesh_model", "2"], "--mesh_model"),
     (["--dp", "--ewc", "--tp", "--mesh_model", "2"], "--tp"),
 ])
 def test_cli_unported_paths_raise(monkeypatch, tiny_cli, tmp_path, flags,
                                   match):
-    """Under a world of 2 (torchrun's WORLD_SIZE), a mesh that leaves a
-    rank idle, and tp under a baseline, are not ported yet: they raise
-    before any process group is made."""
+    """Under a world of 2 (torchrun's WORLD_SIZE), a model axis and tp
+    under a baseline are not ported yet: they raise before any process
+    group is made."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match=match):
         tiny_cli.main(["-d", "synthetic", "--vit_depth", "1", "-b", "8",

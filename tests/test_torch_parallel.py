@@ -25,6 +25,7 @@ import torch_dp_worker as worker
 from gslora_tpu_torch.config import MeshConfig
 from gslora_tpu_torch.parallel import mesh as tmesh
 from gslora_tpu_torch.parallel import multihost as tmh
+from gslora_tpu_torch.parallel import sharding
 
 ROOT = Path(__file__).resolve().parent.parent
 RANK_TIMEOUT_S = 150
@@ -93,24 +94,44 @@ def test_refusals_match_jax_placement(mesh_kw, flags):
     assert _port_outcome(mesh_kw, flags) == want
 
 
-@pytest.mark.parametrize("mesh_kw,flags,name", [
-    ({"data": 1, "model": 2, "slices": 2}, {"pp": True}, "--mesh_slices"),
-    ({"data": 1, "model": 2, "slices": 2}, {"tp": True, "sp": True},
-     "--mesh_slices"),
-    ({"data": 1, "model": 2}, {"sp": True}, "--mesh_data 1"),
-    ({"data": 2, "model": 2, "slices": 2}, {"tp": True}, "--mesh_slices"),
-    ({"data": 2, "model": 2}, {}, "--mesh_data 2"),
-    ({"data": 4, "model": 1}, {}, "--mesh_data 4"),
-    ({"data": 4, "model": 1, "slices": 2}, {}, "--mesh_slices"),
-], ids=["slices2_pp", "slices2_tp_sp", "data1_model2_sp", "slices2_tp",
-        "data2_model2", "data4", "slices2"])
-def test_unported_layouts_raise_not_implemented(mesh_kw, flags, name):
-    """What JAX runs but the port does not (multi-slice, a mesh that
-    leaves devices idle), with or without sp and pp, raises
-    NotImplementedError naming the flag, never a silent replicated run."""
+@pytest.mark.parametrize("mesh_kw,flags,what,name", [
+    ({"data": 4, "model": 2}, {"tp": True}, "baseline", "--tp"),
+    ({"data": 4, "slices": 2}, {"fsdp": True}, "baseline", "--fsdp"),
+    ({"data": 1, "model": 2, "slices": 2}, {"sp": True}, "baseline",
+     "--sp"),
+    ({"data": 2, "model": 2}, {}, "baseline", "--mesh_model"),
+    ({"data": 2, "model": 2, "slices": 2}, {"tp": True}, "VIT_B16",
+     "-n VIT_B16"),
+    ({"data": 4, "model": 2}, {"pp": True}, "VIT_B16", "-n VIT_B16"),
+    ({"data": 2, "slices": 2}, {"fsdp": True}, "Attention",
+     "--lora_pos Attention"),
+], ids=["baseline_tp", "baseline_slices2_fsdp", "baseline_slices2_sp",
+        "baseline_model2", "vit_b16_slices2_tp", "vit_b16_pp",
+        "attention_slices2_fsdp"])
+def test_unported_layouts_raise_not_implemented(mesh_kw, flags, what,
+                                                name):
+    """What JAX runs but the port does not yet (a baseline under tp,
+    fsdp, sp or a model axis; ``-n VIT_B16`` or an attention LoRA under a
+    sharded layout), with or without --mesh_slices, raises
+    NotImplementedError naming the flag, never a silent replicated
+    run."""
+    import gslora_tpu_torch.config as tc
     assert _jax_outcome(mesh_kw, flags) is None
-    kind, msg = _port_outcome(mesh_kw, flags)
-    assert kind is NotImplementedError and name in msg
+    cfg = MeshConfig(**mesh_kw, **flags)
+    mesh = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"),
+                          model=cfg.model, slices=cfg.slices, data=cfg.data,
+                          tp=cfg.tp, fsdp=cfg.fsdp, sp=cfg.sp, pp=cfg.pp)
+    with pytest.raises(NotImplementedError) as err:
+        if what == "baseline":
+            tmesh.check_baseline_placement(cfg, mesh)
+        else:
+            net, pos = ("VIT_B16", "FFN") if what == "VIT_B16" \
+                else ("VIT", "Attention")
+            run = tc.RunConfig(net=net, mesh=cfg,
+                               lora=tc.LoraConfig(rank=4, pos=pos))
+            tmesh.check_placement(cfg, mesh)
+            sharding.check_layout_support(run, mesh)
+    assert name in str(err.value)
 
 
 @pytest.mark.parametrize("mesh_kw,flags", [
@@ -123,20 +144,35 @@ def test_unported_layouts_raise_not_implemented(mesh_kw, flags, name):
     ({"model": 2}, {"tp": True, "fsdp": True, "sp": True}),
     ({"data": 4, "model": 2}, {"pp": True, "pp_micro": 4}),
     ({"data": 1, "model": 8}, {"pp": True}),
+    ({"data": 1, "model": 2, "slices": 2}, {"pp": True}),
+    ({"data": 1, "model": 2, "slices": 2}, {"tp": True, "sp": True}),
+    ({"data": 1, "model": 2}, {"sp": True}),
+    ({"data": 2, "model": 2, "slices": 2}, {"tp": True}),
+    ({"data": 2, "model": 2}, {}),
+    ({"data": 4, "model": 1}, {}),
+    ({"data": 4, "model": 1, "slices": 2}, {}),
 ], ids=["tp", "fsdp", "model2", "tp_fsdp", "model8_tp", "sp",
-        "tp_fsdp_sp", "pp", "model8_pp"])
+        "tp_fsdp_sp", "pp", "model8_pp", "slices2_pp", "slices2_tp_sp",
+        "data1_model2_sp", "slices2_tp", "data2_model2", "data4",
+        "slices2"])
 def test_mesh_layouts_pass_the_guards(mesh_kw, flags):
-    """--mesh_model, --tp, --fsdp, --sp, --pp and their compositions run
-    on a mesh of the whole world, as JAX's placement() accepts them; a
-    baseline still refuses them (pp with JAX's own ValueError)."""
+    """--mesh_model, --tp, --fsdp, --sp, --pp, --mesh_slices and their
+    compositions run, on the whole world or on a mesh that leaves ranks
+    idle, as JAX's placement() accepts them; a baseline still refuses a
+    model axis, tp, fsdp and sp (pp with JAX's own ValueError) and runs
+    the data axes."""
     assert _jax_outcome(mesh_kw, flags) is None
     assert _port_outcome(mesh_kw, flags) is None
     world = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"))
-    error, match = (ValueError, "pp is supported") if flags.get("pp") \
-        else (NotImplementedError, "baseline runners")
-    with pytest.raises(error, match=match):
-        tmesh.check_baseline_placement(MeshConfig(**mesh_kw, **flags),
-                                       world)
+    cfg = MeshConfig(**mesh_kw, **flags)
+    if flags.get("pp"):
+        with pytest.raises(ValueError, match="pp is supported"):
+            tmesh.check_baseline_placement(cfg, world)
+    elif flags or cfg.model > 1:
+        with pytest.raises(NotImplementedError, match="baseline runners"):
+            tmesh.check_baseline_placement(cfg, world)
+    else:
+        tmesh.check_baseline_placement(cfg, world)
 
 
 def test_prox_under_tp_raises_the_jax_error():

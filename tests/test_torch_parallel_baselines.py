@@ -18,7 +18,14 @@ Held to:
   micro-batches' sum);
 * the importances also against one process without micro-batches, which
   sums a batch's rows in one backward: that order differs, so the JAX
-  tolerance holds there."""
+  tolerance holds there.
+
+Four more gloo ranks, started beside the two, run the data axes of the
+whole JAX mesh: EWC under ``--mesh_slices 2`` (2 x 2 x 1), held to the
+JAX runner on ``make_mesh(MeshConfig(data=2, slices=2))`` and to plain
+``--dp`` on the same four ranks (to the bit: the same rows and sums), and
+SCRUB on ``--mesh_data 2`` (ranks 2 and 3 idle), held to the JAX runner
+on a 2-device mesh and to the two ranks' ``--dp`` run (to the bit)."""
 import numpy as np
 import pytest
 
@@ -29,12 +36,21 @@ from torch_baselines_setup import one_torch_thread
 _one_torch_thread = pytest.fixture(autouse=True, scope="module")(
     one_torch_thread)
 
-NAMES = ["reg_ewc", "importance"]
+NAMES = ["reg_ewc", "importance", "scrub"]
+MESH_NAMES = ["reg_ewc_dcn", "reg_ewc_dp4", "scrub_subworld"]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return W.family_runs(tmp_path_factory.mktemp("dp_reg"), NAMES)
+    return W.family_runs(tmp_path_factory.mktemp("dp_reg"), NAMES,
+                         MESH_NAMES)
+
+
+def _mesh_ranks(runs, name, idle=False):
+    """The results of ``name`` on the used ranks of its mesh (``idle``:
+    on the others)."""
+    got = [r[name] for r in runs["mesh_ranks"]]
+    return [g for g in got if g.get("idle", False) == idle]
 
 
 def test_two_ranks_equal_the_jax_mesh_run(runs):
@@ -79,3 +95,43 @@ def test_the_run_moves(runs):
     start = flatten_tree(runs["trees"]["p"])
     assert max(float(np.abs(one["params"][k] - start[k]).max())
                for k in start) > 1e-3
+
+
+@pytest.mark.parametrize("name", ["reg_ewc_dcn", "scrub_subworld"])
+def test_mesh_runs_equal_the_jax_mesh_run(runs, name):
+    """EWC on 2 x 2 x 1 against the JAX runner on the same dcn mesh, SCRUB
+    on the 2 used ranks of 4 against the JAX runner on 2 devices: each
+    used rank's final trees to rtol 1e-4 / atol 1e-5, the accuracies and
+    best H to 1e-3."""
+    used = _mesh_ranks(runs, name)
+    assert len(used) == {"reg_ewc_dcn": 4, "scrub_subworld": 2}[name]
+    W.check_against_jax(runs, name, [{name: g} for g in used])
+
+
+@pytest.mark.parametrize("name,dp", [("reg_ewc_dcn", "reg_ewc_dp4"),
+                                     ("scrub_subworld", "scrub")])
+def test_mesh_runs_equal_the_dp_run_to_the_bit(runs, name, dp):
+    """--mesh_slices 2 equals plain --dp on the same four ranks, and
+    --mesh_data 2 on four ranks equals --dp on two, to the bit: every
+    used rank loads the same rows and sums over the same ranks."""
+    dp_ranks = [r[dp] for r in runs["ranks"]] if dp == "scrub" \
+        else _mesh_ranks(runs, dp)
+    used = _mesh_ranks(runs, name)
+    assert len(used) == len(dp_ranks)
+    for r, (got, want) in enumerate(zip(used, dp_ranks)):
+        assert got["acc"] == want["acc"], r
+        for key in ("params", "swa", "importance"):
+            if key not in want:
+                continue
+            for k, w in want[key].items():
+                np.testing.assert_array_equal(got[key][k], w,
+                                              err_msg=f"rank {r} {key} {k}")
+
+
+def test_subworld_idle_ranks_leave_without_a_default_group_call(runs):
+    """Ranks 2 and 3 of the --mesh_data 2 run are idle and leave; no
+    collective of the used ranks' run goes over the default group once
+    the groups are made (the idle ranks would never join it)."""
+    assert len(_mesh_ranks(runs, "scrub_subworld", idle=True)) == 2
+    for rank in runs["mesh_ranks"]:
+        assert rank["scrub_subworld"]["default_group_calls"] == []

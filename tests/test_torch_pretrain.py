@@ -284,14 +284,14 @@ def test_cli_pretrain_then_lora_only_resume_on_cpu(tiny_pretrain, tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--dp", "--mesh_slices", "2"], NotImplementedError,
-     "--mesh_slices"),
+    (["--dp", "--mesh_slices", "4"], ValueError,
+     "mesh 4x0x1 does not fit 2 devices"),
     (["--device", "cuda"], RuntimeError, "no CUDA GPU"),
 ])
 def test_cli_refuses_what_it_cannot_run(monkeypatch, tiny_pretrain,
                                         tmp_path, flags, error, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setenv("WORLD_SIZE", "2")  # multi-slice is not ported
+    monkeypatch.setenv("WORLD_SIZE", "2")  # 4 slices do not fit 2 ranks
     args = [a for a in CLI if a not in ("--device", "cpu")]
     with pytest.raises(error, match=match):
         tiny_pretrain.main(args + ["-e", "1", "--outdir", str(tmp_path)] +

@@ -305,10 +305,48 @@ def zeroed(tree):
     return torch.zeros_like(tree) if isinstance(tree, torch.Tensor) else 0
 
 
+MESH_WORLD = 4
+
+
+def mesh_runs():
+    """Family runs on a world of MESH_WORLD on meshes of their own, by
+    name: (family, the MeshConfig its mesh is made from (None: the
+    launched world's plain data mesh), the JAX mesh it is held to (None:
+    none)). EWC under --mesh_slices 2 (2 x 2 x 1, and plain --dp on the
+    same 4 ranks), SCRUB on --mesh_data 2 (ranks 2 and 3 idle)."""
+    from gslora_tpu_torch.config import MeshConfig
+    return {"reg_ewc_dcn": ("reg_ewc", MeshConfig(slices=2),
+                            {"data": 2, "slices": 2}),
+            "reg_ewc_dp4": ("reg_ewc", None, None),
+            "scrub_subworld": ("scrub", MeshConfig(data=2), {"data": 2})}
+
+
+def run_on_mesh(name, trees, mesh):
+    """A run of :func:`mesh_runs` on this rank: its mesh made by
+    ``make_mesh`` (every rank makes the groups); an idle rank returns at
+    once. The collectives on the default group after the groups are made
+    are recorded (``default_group_calls``)."""
+    from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                                make_mesh)
+    from torch_mesh_worker import default_group_recorder
+    family, cfg, _ = mesh_runs()[name]
+    if cfg is not None:
+        mesh = make_mesh(cfg, "cpu", check=check_baseline_placement)
+    seen, start = default_group_recorder()
+    start()
+    if mesh.idle:
+        return {"idle": True, "default_group_calls": seen}
+    out = run_family(family, trees, mesh)
+    return {**out, "default_group_calls": list(seen)}
+
+
 def run(name, trees, mesh=None, grad_accum=1):
-    """Run ``name``: a family, "importance", "dcp", or a CLI run (with
-    --dp and an --outdir of the rank's own in the working directory under
-    a mesh; the mesh is the CLI's own)."""
+    """Run ``name``: a family, "importance", "dcp", a run of
+    :func:`mesh_runs`, or a CLI run (with --dp and an --outdir of the
+    rank's own in the working directory under a mesh; the mesh is the
+    CLI's own)."""
+    if mesh is not None and name in mesh_runs():
+        return run_on_mesh(name, trees, mesh)
     if name in FAMILIES:
         return run_family(name, trees, mesh, grad_accum)
     if name == "importance":
@@ -330,10 +368,11 @@ def _host(tree):
             for k, v in flatten_tree(jax.tree.map(np.asarray, tree)).items()}
 
 
-def jax_family(name, trees):
+def jax_family(name, trees, mesh_kw=None):
     """The family's runner calls in the JAX package, on a 2-device data
-    mesh (the test process's 8 host devices), with the same config, trees
-    and padded global batches; run by the test process only."""
+    mesh (or ``make_mesh(MeshConfig(**mesh_kw))``) of the test process's 8
+    host devices, with the same config, trees and padded global batches;
+    run by the test process only."""
     import jax.numpy as jnp
 
     import gslora_tpu.config as jc
@@ -347,7 +386,7 @@ def jax_family(name, trees):
     from torch_baselines_setup import loaders as jax_loaders
     from torch_baselines_setup import to_jax
 
-    mesh = make_mesh(jc.MeshConfig(data=2))
+    mesh = make_mesh(jc.MeshConfig(**(mesh_kw or {"data": 2})))
     method = {"reg_ewc": "ewc", "distill_der_plus": "der_plus"}.get(name,
                                                                       name)
     cfg = family_config(jc, method)
@@ -396,28 +435,38 @@ def jax_family(name, trees):
     return out
 
 
-def family_runs(outdir, names):
+def family_runs(outdir, names, mesh_names=()):
     """Every run of ``names`` (families and "importance") on 2 gloo ranks
     (started first), in one process with --grad_accum 2 and, for the
     importances, without it, and each family through the JAX runners on
-    a 2-device mesh."""
+    a 2-device mesh; the runs of ``mesh_names`` (:func:`mesh_runs`) on
+    MESH_WORLD ranks started beside them, each family through the JAX
+    runners on the mesh it names."""
     p = pretrained_tree(3)
     trees = {"p": p, "teacher": p, "swa": pretrained_tree(4)}
     save_trees(outdir, trees)
     procs = start_ranks(outdir, names)
+    mesh_procs = start_ranks(outdir, mesh_names, MESH_WORLD) \
+        if mesh_names else []
     try:
         one = {name: run(name, trees, grad_accum=2) for name in names}
         one_whole = run("importance", trees) if "importance" in names \
             else None
         jax_ref = {name: jax_family(name, trees) for name in names
                    if name in FAMILIES}
+        for name in mesh_names:
+            family, _, jax_kw = mesh_runs()[name]
+            if jax_kw is not None:
+                jax_ref[name] = jax_family(family, trees, jax_kw)
     except BaseException:
-        for proc in procs:
+        for proc in procs + mesh_procs:
             proc.kill()
             proc.wait()
         raise
     return {"ranks": collect(procs, outdir, names), "one": one,
-            "one_whole": one_whole, "jax": jax_ref, "trees": trees}
+            "one_whole": one_whole, "jax": jax_ref, "trees": trees,
+            "mesh_ranks": collect(mesh_procs, outdir, mesh_names)
+            if mesh_names else []}
 
 
 # The JAX suite's data-parallel tolerance (tests/test_mesh_loop.py:79-80)
@@ -425,12 +474,14 @@ RTOL, ATOL = 1e-4, 1e-5
 ACC_TOL = 1e-3
 
 
-def check_against_jax(runs, name):
+def check_against_jax(runs, name, ranks=None):
     """Each rank's final trees of ``name`` (the student; SCRUB's SWA
     model; EWC's second Fisher) against the JAX mesh run's to RTOL /
-    ATOL, every runner call's accuracies and best H to ACC_TOL."""
+    ATOL, every runner call's accuracies and best H to ACC_TOL; of
+    ``ranks`` (each rank's {name: result}; the 2-rank runs by
+    default)."""
     want = runs["jax"][name]
-    for r, rank in enumerate(runs["ranks"]):
+    for r, rank in enumerate(runs["ranks"] if ranks is None else ranks):
         got = rank[name]
         for key in ("params", "swa", "importance"):
             if key not in want:

@@ -249,24 +249,30 @@ def expected_spec(name, ndim, data, model, tp, fsdp, pp=False):
     return spec
 
 
-def expected_shard(whole, name, rank, data, model, tp, fsdp, pp=False):
+def expected_shard(whole, name, rank, data, model, tp, fsdp, pp=False,
+                   slices=1):
     """Rank ``rank``'s slice of the whole leaf (rank r sits at data index
-    r // model, model index r % model)."""
+    (r // model) % data, model index r % model; every slice holds the
+    same shards)."""
     t = torch.from_numpy(whole)
     for dim, axis in enumerate(expected_spec(name, t.ndim, data, model, tp,
                                              fsdp, pp)):
         if axis is not None:
             n, i = (model, rank % model) if axis == "model" \
-                else (data, rank // model)
+                else (data, (rank // model) % data)
             t = t.chunk(n, dim=dim)[i]
     return t.numpy()
 
 
 def layout_of(name):
-    """(data, model, tp, fsdp, pp) of a scenario."""
+    """(data, model, tp, fsdp, pp, slices) of a scenario."""
     flags = mw.SCENARIOS[name][2]
     world = mw.SCENARIOS[name][5]
-    model = int(flags[flags.index("--mesh_model") + 1]) \
-        if "--mesh_model" in flags else 1
-    return world // model, model, "--tp" in flags, "--fsdp" in flags, \
-        "--pp" in flags
+
+    def flag(key, default):
+        return int(flags[flags.index(key) + 1]) if key in flags \
+            else default
+    model, slices = flag("--mesh_model", 1), flag("--mesh_slices", 1)
+    data = flag("--mesh_data", world // (model * slices))
+    return data, model, "--tp" in flags, "--fsdp" in flags, \
+        "--pp" in flags, slices

@@ -11,8 +11,12 @@ tests/torch_dp_worker.py, from the parameter tree the scenario names
 parameters gathered whole, and this rank's own shards. The scenario
 ``collectives`` checks the all_reduce route of all_gather,
 reduce_scatter and the pipeline's shift against the native one instead,
-and ``pp_remat`` takes the pipeline's gradients with and without
-rematerialization.
+``pp_remat`` takes the pipeline's gradients with and without
+rematerialization, and ``dcn_sums`` records a rank's place, rows and
+sums on the dcn meshes. A mesh smaller than the world leaves its other
+ranks idle: those return at once, and the collectives every rank calls
+after the groups are made are recorded, so that the test sees none on
+the default group.
 
 This module imports no JAX: a rank starts with PyTorch only."""
 import os
@@ -25,6 +29,7 @@ import torch_dp_worker as dpw
 TP = ["--tp", "--mesh_model", "2"]
 SP = ["--sp", "--mesh_model", "2"]
 PP = ["--pp", "--mesh_model", "2"]
+DCN = ["--mesh_slices", "2"]
 # scenario -> (CLI, argv without the layout, layout flags, the tree it
 # starts from, model overrides, world)
 SCENARIOS = {
@@ -72,10 +77,35 @@ SCENARIOS = {
     "continual_pp": ("train_forget_cl", dpw.CONTINUAL + [
         "--structure_mode", "loss"], PP, "pretrained", {}, 2),
     "pretrain_pp": ("train_pretrain", dpw.PRETRAIN, PP, "init", {}, 4),
+    # the outer dcn axis (--mesh_slices 2) on a world of 8: JAX's three
+    # compositions (tests/test_mesh_multislice.py:47; 2 x 4 x 1 and
+    # 2 x 2 x 2), the continual with the prox step and fsdp, the pretrain
+    # with tp and fsdp (fsdp's shards within a slice, their gradients
+    # summed across dcn), and plain --dp on the same world
+    "forget_dp8": ("train_forget", dpw.FORGET, [], "pretrained", {}, 8),
+    "forget_dcn_dp": ("train_forget", dpw.FORGET, DCN, "pretrained", {}, 8),
+    "forget_dcn_tp_fsdp_sp": ("train_forget", dpw.FORGET,
+                              DCN + TP + ["--fsdp", "--sp"], "pretrained",
+                              {}, 8),
+    "forget_dcn_pp": ("train_forget", dpw.FORGET,
+                      DCN + PP + ["--pp_micro", "2"], "pretrained", {}, 8),
+    "continual_dcn_fsdp": ("train_forget_cl", dpw.CONTINUAL,
+                           DCN + ["--fsdp"], "pretrained", {}, 8),
+    "pretrain_dcn_tp_fsdp": ("train_pretrain", dpw.PRETRAIN,
+                             DCN + TP + ["--fsdp"], "init", {}, 8),
+    # meshes smaller than the world of 4: ranks 2 and 3 idle
+    "forget_subworld": ("train_forget", dpw.FORGET, ["--mesh_data", "2"],
+                        "pretrained", {}, 4),
+    "forget_subworld_tp": ("train_forget", dpw.FORGET,
+                           ["--mesh_data", "1"] + TP, "pretrained", {}, 4),
 }
 # scenarios whose rank 0 (and one process) write their files to
 # ``<dir>/<scenario>.out`` (``.one`` for the one-process run)
 WRITES = ("pretrain_pp",)
+# scenarios whose every rank has an outdir of its own,
+# ``<dir>/<scenario>.out<rank>``, and whose collectives after the groups
+# are made are recorded (``default_group_calls``)
+WATCHED = ("forget_subworld", "forget_subworld_tp")
 
 
 def patch(module, tree, overrides, setattr_=setattr):
@@ -112,6 +142,58 @@ def mesh_reinit(generator, tree):
         for k, t in sub.items()} for pos, sub in drawn.items()}
 
 
+# the collectives of torch.distributed, by the argument that names the
+# group (batch_isend_irecv: each op's group)
+_WATCHED_CALLS = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                  "reduce_scatter_tensor", "all_gather", "barrier",
+                  "batch_isend_irecv")
+
+
+def default_group_recorder(setattr_=setattr):
+    """Wrap the collectives of torch.distributed; returns the list the
+    names of those called on the default group go to and the function
+    that starts the recording (once the groups are made)."""
+    import torch.distributed as dist
+    seen, on = [], []
+
+    def default(group):
+        return group is None or group is dist.group.WORLD
+
+    def wrap(fn_name):
+        fn = getattr(dist, fn_name)
+
+        def call(*a, **k):
+            if on:
+                if fn_name == "batch_isend_irecv":
+                    groups = [op.group for op in a[0]]
+                else:
+                    groups = [k.get("group")]
+                if any(default(g) for g in groups):
+                    seen.append(fn_name)
+            return fn(*a, **k)
+        return call
+
+    for fn_name in _WATCHED_CALLS:
+        setattr_(dist, fn_name, wrap(fn_name))
+    return seen, lambda: on.append(True)
+
+
+def watch_default_group(module, setattr_=setattr):
+    """Record, once ``module``'s ``make_mesh`` has returned (the groups
+    are made), every collective called on the default group; returns the
+    list the calls' names go to."""
+    seen, start = default_group_recorder(setattr_)
+    make = module.make_mesh
+
+    def make_then_watch(*a, **k):
+        mesh = make(*a, **k)
+        start()
+        return mesh
+
+    setattr_(module, "make_mesh", make_then_watch)
+    return seen
+
+
 def run(name, tree, layout=True, setattr_=setattr, device="cpu",
         outdir=""):
     """Scenario ``name``'s CLI from ``tree``: with ``--dp`` and its layout
@@ -129,6 +211,8 @@ def run(name, tree, layout=True, setattr_=setattr, device="cpu",
     if layout:
         argv += ["--dp"] + flags
     seen = {}
+    if layout and name in WATCHED:
+        seen["default_group_calls"] = watch_default_group(module, setattr_)
 
     def whole(params):
         mesh = active_mesh()
@@ -137,6 +221,8 @@ def run(name, tree, layout=True, setattr_=setattr, device="cpu",
 
     if cli == "train_pretrain":
         report, state = module.main(argv, return_state=True)
+        if state is None:  # an idle rank
+            return {"report": report, **seen}
         moments = dict(zip(state.trainable_names(), state.opt_state["mu"]))
         out = {"report": report, "params": whole(state.params),
                "shards": seen["shards"], "history": [],
@@ -213,7 +299,7 @@ def collectives(rank, world):
     g = torch.Generator().manual_seed(rank)
     out = {"route": mesh.route}
     if world == 2:
-        pipe = dataclasses.replace(mesh, model=2)
+        pipe = dataclasses.replace(mesh, model=2, data=1)
         x = torch.randn((3, 5, 7), generator=g) * 1e3
         out["shift.input"] = x
         for step in (1, -1):
@@ -231,6 +317,35 @@ def collectives(rank, world):
                 out[f"scatter.{axis}.{dim}.{which}"] = m.reduce_scatter(
                     x, axis, dim)
             out[f"input.{axis}.{dim}"] = x
+    return out
+
+
+def dcn_sums(rank, world):
+    """On a world of 8, for the dcn meshes 2 x 2 x 2 (fsdp) and 2 x 4 x 1:
+    the rank's (dcn, data, model) indices, its block, its rows of a batch
+    of 16, and what the sums give for rank-unique values (2^rank): an
+    fsdp shard's gradient through ``sync_grads`` (as the backward leaves
+    it, summed over ``data``: it crosses ``dcn`` alone), a replicated
+    leaf's, and ``mesh.sum``."""
+    from gslora_tpu_torch.config import MeshConfig
+    from gslora_tpu_torch.parallel import multihost, sharding
+    from gslora_tpu_torch.parallel.mesh import make_mesh
+    out = {}
+    for tag, cfg in (("2x2x2", MeshConfig(slices=2, model=2, fsdp=True)),
+                     ("2x4x1", MeshConfig(slices=2))):
+        mesh = make_mesh(cfg, "cpu")
+        names = ["base.blocks.qkv.kernel", "lora.ffn.A1"]
+        grads = [torch.full((2, 8, 4), 2.0 ** rank, dtype=torch.float64),
+                 torch.full((2, 4, 8), 2.0 ** rank, dtype=torch.float64)]
+        sharding.sync_grads(mesh, names, grads)
+        out[tag] = {
+            "index": (mesh.dcn_index, mesh.data_index, mesh.model_index),
+            "block": mesh.block,
+            "rows": multihost.host_batch_bounds(mesh, 16),
+            "specs": sharding.named_specs(mesh, names, grads),
+            "fsdp_grad": float(grads[0][0, 0, 0]),
+            "replicated_grad": float(grads[1][0, 0, 0]),
+            "sum": mesh.sum([2.0 ** rank])[0]}
     return out
 
 
@@ -280,11 +395,15 @@ def main(argv):
                 out = collectives(rank, world)
             elif name == "pp_remat":
                 out = pp_remat(rank, world)
+            elif name == "dcn_sums":
+                out = dcn_sums(rank, world)
             else:
                 tree = dpw.load_tree(os.path.join(
                     outdir, SCENARIOS[name][3] + ".npz"))
+                sub = f"{name}.out" if name in WRITES else \
+                    f"{name}.out{rank}" if name in WATCHED else None
                 out = run(name, tree, device=device, outdir=os.path.join(
-                    outdir, f"{name}.out") if name in WRITES else "")
+                    outdir, sub) if sub else "")
             torch.save(out, os.path.join(outdir, f"{name}.rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
