@@ -184,7 +184,20 @@ non-zero exit code and without the final result line.
    S·D; and train_forget with --mesh_data 2 on a world of 4, whose ranks
    2 and 3 are idle (no launch, no byte on the card, exit 0), against the
    data-parallel phase's one process to the bit, after one save and load
-   of checkpoints/dcp_io over the used ranks' group.
+   of checkpoints/dcp_io over the used ranks' group. Slice 12 adds every
+   model and method under the layouts: ViT-B/16 at full width and depth
+   through the ImageNet continual CLI (1 task of the recipe, the seeded
+   folder and checkpoint with the missing-class eval, its 1000-way head
+   split over ``model`` too) under --tp --fsdp (2 x 2, 4 ranks, after
+   the pretrains in their spawn) and under --sp with the prox (1 x 2, K2
+   on every rank); the baselines at the baseline phase's flags:
+   train_forget --ewc --tp (1 x 2), train_forget_cl --SCRUB --fsdp
+   --mesh_model 2 (2 x 2), --DER_plus --sp (1 x 2) and --LIRF --tp
+   --fsdp (2 x 2), whose one-process references at --grad_accum 2 are
+   the data-parallel phase's; train_forget with --lora_pos Attention
+   --pp (1 x 2, block 0's attention backward on stage 0 too). Each held
+   as the others: launches per rank derived, block-kernel bytes by the
+   rules, LAYOUT_FLOOR_FACTOR times the noise floor.
 14. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
@@ -716,7 +729,8 @@ def expected_launches(argv):
     --dp run: the same counts over its rows): 'depth' forward launches per
     forward; 'depth - 1' backward launches per training forward (the FFN
     LoRA's gradient never needs block 0's attention inputs, so autograd
-    skips that backward); the test evals before training, every ver_freq
+    skips that backward), 'depth' with an attention LoRA (block 0's qkv
+    LoRA needs them); the test evals before training, every ver_freq
     steps and at the end; the prototypes (--prototype)."""
     cfg = config_from_args(build_parser().parse_args(argv))
     bs = cfg.data.batch_size
@@ -737,9 +751,10 @@ def expected_launches(argv):
     rounds = 2 + steps // cfg.ver_freq
     fwd, bwd = forget_passes(cfg.optim.grad_accum)
     depth = cfg.model.depth
+    per_bwd = depth if cfg.lora.pos == "Attention" else depth - 1
     # forget and remain forwards (no fused batch)
     return depth * (rounds * evals + protos + 2 * fwd * steps), \
-        (depth - 1) * 2 * bwd * steps
+        per_bwd * 2 * bwd * steps
 
 
 _DATASETS = {}
@@ -2720,6 +2735,10 @@ class Ranks:
             stdout=self.logs[r], stderr=subprocess.STDOUT)
             for r in range(world)]
 
+    def finished(self):
+        """Whether every rank has exited."""
+        return all(p.poll() is not None for p in self.procs)
+
     def kill(self):
         for p in self.procs:
             if p.poll() is None:
@@ -2754,6 +2773,11 @@ def accuracy_tolerances(name):
     tile its bf16 GEMMs otherwise and sum a logit in another order, which
     can flip the argmax of a near tie."""
     module, argv, _ = DP_RUNS[name]
+    return tolerances_of(module, argv)
+
+
+def tolerances_of(module, argv):
+    """accuracy_tolerances of ``module`` run with ``argv``."""
     cfg = config_from_args(build_parser().parse_args(argv))
     train, test = datasets(cfg)
     if module is train_pretrain:
@@ -2900,6 +2924,12 @@ DCN2 = ["--mesh_slices", "2"]
 # slice 10's from slice 11 on); forget_subworld keeps 5, to reuse the dp
 # phase's one process
 LAYOUT_FORGET_ARGV = DP_FORGET_ARGV + ["-e", "2"]
+# the ImageNet recipe's flags cut to one task (slice 12's ViT-B/16 runs)
+LAYOUT_IMAGENET_ARGV = IMAGENET_ARGV + ["--num_tasks", "1"]
+# where layout_phase writes the seeded ImageNet folder and ViT-B/16
+# checkpoint the runs of LAYOUT_IMAGENET_ARGV read (every rank is told
+# through its environment)
+IMAGENET_ROOT_ENV = "CHIP_SMOKE_IMAGENET_ROOT"
 LAYOUT_RUNS = {
     "forget_fsdp": (train_forget, LAYOUT_FORGET_ARGV, ["--fsdp"], 2),
     "forget_tp": (train_forget, LAYOUT_FORGET_ARGV, TP2, 2),
@@ -2935,6 +2965,24 @@ LAYOUT_RUNS = {
     "pretrain_dcn_pp": (train_pretrain, DP_PRETRAIN_ARGV, DCN2 + PP2, 4),
     "forget_subworld": (train_forget, DP_FORGET_ARGV, ["--mesh_data", "2"],
                         4),
+    # every model and method under the layouts (slice 12): ViT-B/16 at
+    # full width and depth through the ImageNet continual CLI (1 task,
+    # the seeded folder, layout_argv adds its paths) under tp + fsdp and
+    # under sp with the prox; the baselines at the baseline phase's flags
+    # under tp, fsdp + a model axis, sp and tp + fsdp; the attention LoRA
+    # under pp
+    "b16_tp_fsdp": (train_forget_cl, LAYOUT_IMAGENET_ARGV, TP2 + ["--fsdp"],
+                    4),
+    "b16_sp_prox": (train_forget_cl, LAYOUT_IMAGENET_ARGV + [
+        "--structure_mode", "prox"], SP2, 2),
+    "ewc_tp": (train_forget, BASELINE_ARGV + ["--ewc"], TP2, 2),
+    "scrub_fsdp_model": (train_forget_cl, BASELINE_ARGV + ["--SCRUB"],
+                         ["--fsdp", "--mesh_model", "2"], 4),
+    "derpp_sp": (train_forget_cl, BASELINE_ARGV + ["--DER_plus"], SP2, 2),
+    "lirf_tp_fsdp": (train_forget_cl, BASELINE_ARGV + ["--LIRF"],
+                     TP2 + ["--fsdp"], 4),
+    "attn_pp": (train_forget, LAYOUT_FORGET_ARGV + ["--lora_pos",
+                                                    "Attention"], PP2, 2),
 }
 # the ranks each run is spawned in, by name (others: the world's size;
 # the pretrains share one spawn, so that no two run at once on the
@@ -2945,7 +2993,17 @@ LAYOUT_SPAWN = {**{name: "2b" for name in ("forget_sp", "forget_tp_sp",
                 **{name: "4b" for name in ("cl_fsdp_model2", "forget_dcn_dp",
                                            "forget_dp4", "cl_dcn_fsdp_prox",
                                            "cl_dp4")},
-                "forget_dcn_tp_fsdp_sp": "8", "forget_subworld": "sub4"}
+                "forget_dcn_tp_fsdp_sp": "8", "forget_subworld": "sub4",
+                # slice 12: ViT-B/16's 4 ranks after the pretrains, its 2
+                # sp ranks once those have ended (LAYOUT_AFTER: beside the
+                # pretrains' ranks and every other spawn, their ~9 GB a
+                # rank do not fit in an 80 GB card); the baselines after
+                # the runs of the old spawns
+                "b16_tp_fsdp": "4", "b16_sp_prox": "b16",
+                "ewc_tp": "2", "attn_pp": "2", "derpp_sp": "2b",
+                "scrub_fsdp_model": "4b", "lirf_tp_fsdp": "4b"}
+# a spawn started only once another has ended (the card's memory)
+LAYOUT_AFTER = {"b16": "4"}
 # a run held to the bit against plain --dp on the same world (the same
 # rows and the same sum over the same ranks); against one process, whose
 # fp32 sum of four micro-batches runs in another order than the ranks'
@@ -3004,10 +3062,16 @@ def layout_used(name):
 def layout_argv(name, layout, accum=None):
     """The argv of one rank (``layout``) or of a one-process run, with
     --grad_accum ``accum`` (by default 1 on a rank, S·D in one
-    process)."""
+    process); a ViT-B/16 run reads the folder and checkpoint under
+    $CHIP_SMOKE_IMAGENET_ROOT."""
     _, argv, flags, _ = LAYOUT_RUNS[name]
     if accum is None:
         accum = 1 if layout else layout_ways(name)
+    if argv[:len(LAYOUT_IMAGENET_ARGV)] == LAYOUT_IMAGENET_ARGV:
+        root = os.environ[IMAGENET_ROOT_ENV]
+        argv = argv + ["--data_root", os.path.join(root, "data"),
+                       "--imagenet_miss_root", os.path.join(root, "miss"),
+                       "-r", os.path.join(root, "vit_b16.pth")]
     return argv + ["--grad_accum", str(accum), "--outdir", ""] + \
         (["--dp"] + flags if layout else [])
 
@@ -3027,17 +3091,20 @@ def pp_stages(name):
 def layout_expected(name, layout, accum=None, stage=0, idle=False):
     """K1 and K2 launches of one rank (every rank of a model group runs
     the attention and the prox on whole tensors: under sp on whole
-    sequences) or of a one-process run. Under pp, of the rank's ``stage``:
-    each forward runs its depth / S layers on M micro-batches, and the
-    backward too, but on stage 0 with an FFN LoRA only, where block 0's
-    attention backward is skipped as in one process. An ``idle`` rank
-    launches nothing."""
+    sequences) or of a one-process run; a baseline's as its phase derives
+    them. Under pp, of the rank's ``stage``: each forward runs its depth /
+    S layers on M micro-batches, and the backward too, but on stage 0
+    with an FFN LoRA only, where block 0's attention backward is skipped
+    as in one process. An ``idle`` rank launches nothing."""
     if idle:
         return {k: 0 for k in ("attention_fwd", "attention_bwd",
                                "group_prox", "group_norms", "group_scale")}
     module, argv0, _, _ = LAYOUT_RUNS[name]
     argv = layout_argv(name, layout, accum)
-    if module is train_forget:
+    if is_baseline(argv):
+        want = (expected_single_step_launches if module is train_forget
+                else expected_baseline_launches)(argv)
+    elif module is train_forget:
         fwd, bwd = expected_launches(argv)
         want = {"attention_fwd": fwd, "attention_bwd": bwd,
                 "group_prox": 0, "group_norms": 0, "group_scale": 0}
@@ -3049,11 +3116,13 @@ def layout_expected(name, layout, accum=None, stage=0, idle=False):
     if pp is None:
         return want
     stages, micro = pp
-    depth = config_from_args(build_parser().parse_args(argv0)).model.depth
+    cfg0 = config_from_args(build_parser().parse_args(argv0))
+    depth = cfg0.model.depth
     # one process: depth forward launches per forward; depth - 1 backward
     # launches per training forward with the FFN LoRA, depth when every
-    # parameter trains (the pretrain at lora_rank 0)
-    full = module is train_pretrain
+    # parameter trains (the pretrain at lora_rank 0) or an attention LoRA
+    # does (block 0's qkv LoRA needs its dq, dk and dv)
+    full = module is train_pretrain or cfg0.lora.pos == "Attention"
     per_bwd = depth if full else depth - 1
     local = depth // stages
     skip = 0 if full or stage > 0 else 1
@@ -3104,8 +3173,9 @@ def layout_run(name, layout, accum=None, rank=0):
     the final parameters gathered whole (host fp32, flat), the eval
     history, the launches, the wall seconds, the peak of the card's
     memory this process allocated, and on a rank its bytes of parameters
-    and moments and the collective route. A rank past the mesh (idle)
-    returns its launches (none), wall and peak memory (none) only."""
+    (a baseline's as its runner sharded them) and moments and the
+    collective route. A rank past the mesh (idle) returns its launches
+    (none), wall and peak memory (none) only."""
     module, _, _, _ = LAYOUT_RUNS[name]
     argv = layout_argv(name, layout, accum)
     idle = layout and rank >= layout_used(name)
@@ -3124,7 +3194,34 @@ def layout_run(name, layout, accum=None, rank=0):
         return {k: v.detach().float().cpu() for k, v in whole.items()}
 
     patched = {(module, "config_from_args"): config}
-    if module is train_forget:
+    if is_baseline(argv):
+        # the runner's shards of the student (LIRF: of the teacher, whose
+        # names lack "base."), each call's; its whole trees come back
+        from gslora_tpu_torch.baselines import (distill, lirf,
+                                                regularization, scrub)
+        for runner in (distill, lirf, regularization, scrub):
+            put = runner.put_trees
+
+            def spy_put(*a, put=put, **k):
+                out = put(*a, **k)
+                first = out[0] if "base" in out[0] else {"base": out[0]}
+                seen["shard_bytes"] = tensor_bytes(flatten_tree(first))
+                return out
+            patched[(runner, "put_trees")] = spy_put
+        run_base = module.run_regularization_task \
+            if module is train_forget else module.run_baseline_continual
+
+        def spy(*a, **k):
+            res = run_base(*a, **k)
+            whole = flatten_tree(res["params"] if module is train_forget
+                                 else res[1])
+            seen["whole_bytes"] = tensor_bytes(whole)
+            seen["params"] = {k: v.detach().float().cpu()
+                              for k, v in whole.items()}
+            return res
+        patched[(module, "run_regularization_task" if module is train_forget
+                 else "run_baseline_continual")] = spy
+    elif module is train_forget:
         run = module.run_forget_training
 
         def spy(*a, **k):
@@ -3217,13 +3314,10 @@ def layout_rank_main(rank, world, port, outdir, *names):
 
 
 def layout_accuracy_tolerances(name):
-    """accuracy_tolerances of the DP_RUNS path with the same CLI and flags
-    (one test image of each set)."""
-    module, argv, _, _ = LAYOUT_RUNS[name]
-    for dp_name, (dp_module, dp_argv, _) in DP_RUNS.items():
-        if dp_module is module and dp_argv == argv[:len(dp_argv)]:
-            return accuracy_tolerances(dp_name)
-    raise KeyError(name)
+    """accuracy_tolerances of the run's CLI and flags (one test image of
+    each set)."""
+    module = LAYOUT_RUNS[name][0]
+    return tolerances_of(module, layout_argv(name, False))
 
 
 def layout_phase(card, refs):
@@ -3246,14 +3340,34 @@ def layout_phase(card, refs):
         spawns.setdefault(LAYOUT_SPAWN.get(name, str(w)), (w, []))[1].append(
             name)
     tmp = tempfile.TemporaryDirectory()
-    # every spawn's ranks run together, while this process runs the
-    # references
+    # the ViT-B/16 runs' seeded folder and torchvision-named checkpoint,
+    # read until the phase's last check
+    imagenet_tmp = tempfile.TemporaryDirectory()
+    root = imagenet_tmp.name
+    imagenet_folder(root)
+    vit_b16_checkpoint(os.path.join(root, "vit_b16.pth"), config_from_args(
+        build_parser().parse_args(LAYOUT_IMAGENET_ARGV)).model)
+    os.environ[IMAGENET_ROOT_ENV] = root
+    # every spawn's ranks run together (those of LAYOUT_AFTER once the
+    # spawn they follow has ended), while this process runs the references
     spawned = {}
+
+    def start(tag):
+        w, names = spawns[tag]
+        os.makedirs(os.path.join(tmp.name, tag))
+        spawned[tag] = Ranks("layout", w, os.path.join(tmp.name, tag),
+                             names, LAYOUT_TIMEOUT_S)
+
+    def start_ready():
+        for tag, before in LAYOUT_AFTER.items():
+            if tag in spawns and tag not in spawned and \
+                    spawned[before].finished():
+                start(tag)
+
     try:
-        for tag, (w, names) in spawns.items():
-            os.makedirs(os.path.join(tmp.name, tag))
-            spawned[tag] = Ranks("layout", w, os.path.join(tmp.name, tag),
-                                 names, LAYOUT_TIMEOUT_S)
+        for tag in spawns:
+            if tag not in LAYOUT_AFTER:
+                start(tag)
     except BaseException:
         for r in spawned.values():
             r.kill()
@@ -3271,6 +3385,7 @@ def layout_phase(card, refs):
                 return refs[dp]
         key = (module.__name__, tuple(argv), accum)
         if key not in ran:
+            start_ready()
             ran[key] = layout_run(name, False, accum)
             torch.cuda.empty_cache()  # the card is shared with the ranks
         return ran[key]
@@ -3288,7 +3403,10 @@ def layout_phase(card, refs):
                                    ref_runs[name]["params"].items())
         refs = ref_runs
         ranks = {}
-        for tag, (w, names) in spawns.items():
+        for tag in sorted(spawns, key=lambda t: t in LAYOUT_AFTER):
+            w, names = spawns[tag]
+            if tag not in spawned:  # the spawn it follows has been waited
+                start(tag)
             spawned[tag].wait()
             for res in spawned[tag].results(names):
                 for name in names:
@@ -3375,7 +3493,10 @@ def layout_phase(card, refs):
         if len(got[0]["history"]) != len(ref["history"]):
             raise AssertionError(f"{name}: eval histories of other lengths")
         if not pairs:
-            pairs = [(got[0]["report"], ref["report"])]
+            # a baseline's report: one dict, or one per task
+            rep, want_rep = got[0]["report"], ref["report"]
+            pairs = list(zip(rep, want_rep)) if isinstance(rep, list) \
+                else [(rep, want_rep)]
         for h, w in pairs:
             if any(not math.isfinite(h[k]) for k in tols if h.get(k)
                    is not None):
@@ -3441,6 +3562,8 @@ def layout_phase(card, refs):
             "moment_bytes_per_rank": [r.get("moment_bytes") for r in got],
             "report_rank0": got[0]["report"] if not isinstance(
                 got[0]["report"], list) else None}), flush=True)
+    del os.environ[IMAGENET_ROOT_ENV]
+    imagenet_tmp.cleanup()
     print(f"layout phase in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches

@@ -1,6 +1,7 @@
-"""What the baseline runners share: batches onto the device, the last
-evals of a task, the valid counts of a global batch, and the per-stream
-gradient accumulation every baseline step goes through."""
+"""What the baseline runners share: batches onto the device, the trees
+onto the mesh and back, the last evals of a task, the valid counts of a
+global batch, and the per-stream gradient accumulation every baseline
+step goes through."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -8,8 +9,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.evaluate import eval_accuracy
 from gslora_tpu_torch.models.convert import flatten_tree
+from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.multihost import check_local_feed
 from gslora_tpu_torch.utils.trees import PairwiseSum
 
@@ -37,13 +40,22 @@ def global_counts(mesh, *labels: torch.Tensor) -> List[torch.Tensor]:
     return list(torch.clamp(counts, min=1.0).unbind())
 
 
-def broadcast_trees(mesh, *trees) -> None:
-    """Every leaf of each parameter tree overwritten with rank 0's, in
-    place (no-op without a mesh): the ranks start from one set of
-    weights."""
+def put_trees(mesh, device: torch.device, *trees) -> List:
+    """Each whole parameter tree on ``device`` as plain tensors, rank 0's
+    on every rank, and this rank's shards of it under ``mesh``
+    (parallel/sharding.shard_tree: JAX's ``put_params``); the trees
+    themselves without a mesh."""
+    out = [detached(t, device) for t in trees]
     if mesh is not None:
-        mesh.broadcast_([t for tree in trees
+        mesh.broadcast_([t for tree in out
                          for t in flatten_tree(tree).values()])
+    return [sharding.shard_tree(mesh, t) for t in out]
+
+
+def whole_tree(mesh, tree) -> Dict:
+    """The whole tree of plain tensors from this rank's shards, on every
+    rank (a collective under a sharding mesh: every rank calls it)."""
+    return detached(sharding.gather_tree(mesh, tree))
 
 
 def rank_generator(cfg, device: torch.device, mesh) -> torch.Generator:
@@ -69,7 +81,7 @@ def final_accuracies(eval_step, params, test_batches_f: Callable,
 
 
 def stream_grads(sums_fn: Callable, combine: Callable,
-                 leaves: Sequence[torch.Tensor],
+                 leaves: Sequence[torch.Tensor], names: Sequence[str],
                  streams: Sequence[torch.Tensor], grad_accum: int,
                  mesh=None, fixed: Optional[torch.Tensor] = None
                  ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
@@ -88,17 +100,23 @@ def stream_grads(sums_fn: Callable, combine: Callable,
     counts of the step (:func:`global_counts`), so the micro-gradients and
     the ranks' gradients add up to the global batch's gradient exactly:
     every term is linear in per-sample statistics. Gradients add up in
-    fp32 as a tree (utils/trees.PairwiseSum), then one bucketed
-    all_reduce (SUM) takes the gradients and the sums over the ranks
-    before ``combine`` gives the metrics; so two ranks equal one process
-    with twice the micro-batches to the bit.
+    fp32 as a tree (utils/trees.PairwiseSum), then the gradients are
+    summed over the ranks by parallel/sharding.sync_grads (``names``: the
+    leaves' dotted names, which say how each is sharded: an fsdp shard's
+    gradient comes out of the backward summed over ``data`` and crosses
+    ``dcn`` alone, one that sp or pp leaves a rank's part of is summed
+    over ``model`` first, a tp shard's is the rank's own; the others go
+    over the batch axis) and one all_reduce takes the sums before
+    ``combine`` gives the metrics; so two ranks equal one process with
+    twice the micro-batches to the bit.
 
     ``fixed``: a term of the loss that does not depend on the data (a
     quadratic penalty, an SWA distance), as a 0-dim tensor with its
-    graph. Its gradient joins after the all_reduce, on every rank alike,
-    so it counts once, not once per micro-batch or rank; its value joins
-    ``loss_total``. Gradients are cast back to each leaf's dtype at the
-    end."""
+    graph, the same value on every rank (summed over the shards inside).
+    Its gradient joins after the sums, on every rank alike and local to
+    each shard, so it counts once, not once per micro-batch or rank; its
+    value joins ``loss_total``. Gradients are cast back to each leaf's
+    dtype at the end."""
     n = grad_accum
     if any(t.shape[0] % n for t in streams):
         n = 1
@@ -115,7 +133,8 @@ def stream_grads(sums_fn: Callable, combine: Callable,
     grads = gsum.total()
     flat = torch.stack(ssum.total())
     if mesh is not None:
-        mesh.all_reduce_(grads + [flat])
+        sharding.sync_grads(mesh, names, grads)
+        mesh.all_reduce_([flat])
     total, metrics = combine(dict(zip(keys, flat.unbind())))
     if fixed is not None:
         if fixed.requires_grad:

@@ -25,14 +25,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from gslora_tpu_torch.baselines.common import (broadcast_trees,
-                                               final_accuracies,
-                                               global_counts, rank_generator,
-                                               stream_grads, to_device,
-                                               valid_count)
+from gslora_tpu_torch.baselines.common import (final_accuracies,
+                                               global_counts, put_trees,
+                                               rank_generator, stream_grads,
+                                               to_device, valid_count,
+                                               whole_tree)
 from gslora_tpu_torch.baselines.freeze import freeze_flags, trains
 from gslora_tpu_torch.config import LoraConfig, RunConfig, ViTConfig
-from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
     make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
@@ -43,7 +42,8 @@ from gslora_tpu_torch.losses.classification import cross_entropy
 from gslora_tpu_torch.losses.distillation import lwf_kd_loss
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.vit import ViT, vit_apply
-from gslora_tpu_torch.parallel.mesh import check_baseline_placement
+from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                            set_active)
 
 
 def der_loss(emb_s, emb_t, labels=None) -> torch.Tensor:
@@ -87,7 +87,10 @@ def make_distill_step(method: str, model: ViTConfig, lora: LoraConfig,
     same gradient), one pass again when it does not divide a stream.
     Under ``mesh`` each rank passes its rows of every stream: the counts
     are the global batches', and DER's global SUM is the sum of the
-    ranks' sums (the all_reduce of the gradients), with no count."""
+    ranks' sums (the all_reduce of the gradients), with no count. Under
+    a sharding mesh the student and the teacher hold this rank's shards:
+    KD, FDR and DER read the class scores and embeddings, which the
+    model gathers whole on every rank (models/heads._class_scores)."""
     method = method.lower()
     if method not in ("lwf", "der", "der_plus", "fdr"):
         raise ValueError(f"unknown distill method {method}")
@@ -151,7 +154,8 @@ def make_distill_step(method: str, model: ViTConfig, lora: LoraConfig,
 
         streams = (xf, yf, xr, yr, xr2, yr2) if method == "der_plus" \
             else (xf, yf, xr, yr)
-        grads, metrics = stream_grads(sums_fn, combine, leaves, streams,
+        grads, metrics = stream_grads(sums_fn, combine, leaves,
+                                      state.trainable_names(), streams,
                                       grad_accum, mesh)
         optimizer.update(leaves, grads, state.opt_state, lr)
         state.step += 1
@@ -173,13 +177,15 @@ def run_distill_task(cfg: RunConfig, params, teacher_params,
     batch is the cycler's next global batch).
 
     ``mesh``: as for baselines/regularization.run_regularization_task;
-    the student and the teacher are broadcast from rank 0."""
+    the student and the teacher are broadcast from rank 0 and sharded
+    alike; the returned ``params`` are whole."""
     method = (method or cfg.baseline.method).lower()
     b = cfg.baseline
     hp = {"T": b.lwf_T, "lambda_kd": b.lwf_lambda_kd,
           "lambda_remain": b.lwf_lambda_remain, "lambda_der": b.der_lambda,
           "lambda_der_plus": b.der_plus_lambda, "lambda_fdr": b.fdr_lambda}
     check_baseline_placement(cfg.mesh, mesh)
+    set_active(mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
@@ -188,11 +194,9 @@ def run_distill_task(cfg: RunConfig, params, teacher_params,
                              compute_dtype=cdt,
                              faithful_zero_kd=b.lwf_faithful_zero_kd,
                              grad_accum=cfg.optim.grad_accum, mesh=mesh)
-    state = PretrainState.create(
-        ViT(params, cfg.model, cfg.lora).to(device), opt,
-        trains=partial(trains, **freeze_flags(cfg)))
-    teacher = detached(teacher_params, device)
-    broadcast_trees(mesh, state.params, teacher)
+    params, teacher = put_trees(mesh, device, params, teacher_params)
+    state = PretrainState.create(ViT(params, cfg.model, cfg.lora), opt,
+                                 trains=partial(trains, **freeze_flags(cfg)))
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 
     def accuracy(batches):
@@ -226,6 +230,6 @@ def run_distill_task(cfg: RunConfig, params, teacher_params,
                                         test_batches_f, test_batches_r,
                                         test_batches_open, mesh=mesh)
     best_h = max(best_h, h_mean(facc_before, facc, racc, eps=1e-8))
-    return {"params": detached(state.params), "forget_acc_before":
+    return {"params": whole_tree(mesh, state.params), "forget_acc_before":
             facc_before, "forget_acc": facc, "remain_acc": racc,
             "open_acc": oacc, "best_h": best_h}

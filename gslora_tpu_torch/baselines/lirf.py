@@ -36,10 +36,10 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from gslora_tpu_torch.baselines.common import (broadcast_trees,
-                                               global_counts, rank_generator,
-                                               stream_grads, to_device,
-                                               valid_count)
+from gslora_tpu_torch.baselines.common import (global_counts, put_trees,
+                                               rank_generator, stream_grads,
+                                               to_device, valid_count,
+                                               whole_tree)
 from gslora_tpu_torch.config import LoraConfig, RunConfig, ViTConfig
 from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.ema import merged_params
@@ -53,7 +53,8 @@ from gslora_tpu_torch.losses.distillation import attention_transfer_loss, \
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.heads import apply_head
 from gslora_tpu_torch.models.vit import _Node, vit_embed
-from gslora_tpu_torch.parallel.mesh import check_baseline_placement
+from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                            set_active)
 
 
 @dataclass
@@ -76,7 +77,8 @@ def low_slice(tree: Dict, half: int) -> Dict:
     """The ViT_face_low parameters (vit_face.py:638-665): patch embedding,
     CLS, pos-embed and the first ``half`` blocks of a base tree, so the
     optimizer's state (and weight decay) covers exactly what the reference
-    trains."""
+    trains. The layer dim is never sharded (the baselines refuse pp), so
+    the low half of a rank's shards is its shards of the low half."""
     return {"patch": tree["patch"], "cls_token": tree["cls_token"],
             "pos_embed": tree["pos_embed"],
             "blocks": _slice_blocks(tree["blocks"], half)}
@@ -115,12 +117,14 @@ def make_lirf_step(model: ViTConfig, lora: LoraConfig, optimizer,
     masked sums over the two streams divided by their global valid
     counts (baselines/common.stream_grads): ``grad_accum`` micro-batches
     and the ranks of ``mesh`` give the global batch's gradient; one pass
-    when it does not divide a stream."""
+    when it does not divide a stream. Under a sharding mesh the gradients
+    are summed as each leaf's layout asks (parallel/sharding.sync_grads,
+    by the student's leaf names)."""
     cdt = compute_dtype
 
     def step(state: LIRFState, teacher, xf, yf, xr, yr, lr: float,
              generator: Optional[torch.Generator] = None):
-        leaves = list(state.student.parameters())
+        names, leaves = zip(*state.student.named_parameters())
         student = state.student_low
         nf, nr = global_counts(mesh, yf, yr)
 
@@ -159,9 +163,9 @@ def make_lirf_step(model: ViTConfig, lora: LoraConfig, optimizer,
                 5.0 * m["loss_remain"]
             return total, m
 
-        grads, metrics = stream_grads(sums_fn, combine, leaves,
+        grads, metrics = stream_grads(sums_fn, combine, list(leaves), names,
                                       (xf, yf, xr, yr), grad_accum, mesh)
-        optimizer.update(leaves, grads, state.opt_state, lr)
+        optimizer.update(list(leaves), grads, state.opt_state, lr)
         state.step += 1
         return state, metrics
 
@@ -210,18 +214,21 @@ def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     reinitialize optimizer", cl.py:811-815).
 
     ``mesh``: as for baselines/regularization.run_regularization_task;
-    the carry is broadcast from rank 0 and stays one on every rank (the
-    student's updates are the global batch's)."""
+    the carry (whole trees) is broadcast from rank 0 and each rank keeps
+    its shards of it, one set on every rank of a model group (the
+    student's updates are the global batch's); the returned carry is
+    whole. The split (``layer_range``) runs under tp, fsdp and sp
+    (models/vit.transformer_stack)."""
     check_baseline_placement(cfg.mesh, mesh)
+    set_active(mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
     b = cfg.baseline
     half = cfg.model.depth // 2
     if carry is not None:
-        teacher = detached(carry["teacher"], device)
-        student_low = detached(carry["student_low"], device)
-        deposit_low = detached(carry["deposit_low"], device)
+        teacher, student_low, deposit_low = (
+            carry[k] for k in ("teacher", "student_low", "deposit_low"))
     else:
         params = detached(params, device)
         teacher = params["base"]
@@ -239,8 +246,9 @@ def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
                           split=cfg.forget.per_forget_cls, T=b.lirf_T,
                           alpha=b.lirf_alpha, compute_dtype=cdt,
                           grad_accum=cfg.optim.grad_accum, mesh=mesh)
-    student = _Node(student_low).to(device)  # a trainable copy
-    broadcast_trees(mesh, teacher, student.tree(), deposit_low)
+    teacher, student_low, deposit_low = put_trees(
+        mesh, device, teacher, student_low, deposit_low)
+    student = _Node(student_low)  # a trainable copy
     state = LIRFState(student=student, deposit_low=deposit_low,
                       opt_state=opt.init(list(student.parameters())))
 
@@ -275,7 +283,8 @@ def run_lirf_task(cfg: RunConfig, params, forget_loader_factory: Callable,
         racc = accuracy(test_batches_r())
         best_h = max(best_h, h_mean(facc_before, facc, racc, eps=1e-8))
     oacc = accuracy(test_batches_open()) if test_batches_open else None
-    return {"student_low": detached(state.student_low),
-            "deposit_low": deposit_low, "teacher": teacher,
+    return {"student_low": whole_tree(mesh, state.student_low),
+            "deposit_low": whole_tree(mesh, deposit_low),
+            "teacher": whole_tree(mesh, teacher),
             "forget_acc_before": facc_before, "forget_acc": facc,
             "remain_acc": racc, "open_acc": oacc, "best_h": best_h}

@@ -24,14 +24,13 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from gslora_tpu_torch.baselines.common import (broadcast_trees,
-                                               final_accuracies,
-                                               global_counts, rank_generator,
-                                               stream_grads, to_device,
-                                               valid_count)
+from gslora_tpu_torch.baselines.common import (final_accuracies,
+                                               global_counts, put_trees,
+                                               rank_generator, stream_grads,
+                                               to_device, valid_count,
+                                               whole_tree)
 from gslora_tpu_torch.baselines.freeze import freeze_flags, trains
 from gslora_tpu_torch.config import LoraConfig, RunConfig, ViTConfig
-from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
     make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
@@ -44,7 +43,9 @@ from gslora_tpu_torch.losses.regularization import quadratic_penalty
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.convert import flatten_tree, unflatten_tree
 from gslora_tpu_torch.models.vit import ViT, vit_apply
-from gslora_tpu_torch.parallel.mesh import check_baseline_placement
+from gslora_tpu_torch.parallel import sharding
+from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                            set_active)
 from gslora_tpu_torch.utils.trees import tree_map
 
 
@@ -60,7 +61,11 @@ def make_reg_step(model: ViTConfig, lora: LoraConfig, optimizer,
     ``mesh`` add up to the global batch's gradient. The quadratic penalty
     does not depend on the data: its gradient is added once, after the
     all_reduce, on every rank alike (``stream_grads(fixed=...)``), not
-    once per rank. A batch ``grad_accum`` does not divide runs whole."""
+    once per rank. A batch ``grad_accum`` does not divide runs whole.
+    Under a sharding ``mesh`` the state, the anchors and the importances
+    hold this rank's shards: the penalty sums each leaf's part over its
+    shards, and the gradients are summed as each leaf's layout asks
+    (parallel/sharding.sync_grads)."""
 
     def step(state: PretrainState, x, y, anchors, importances, lam: float,
              lr: float, generator: Optional[torch.Generator] = None):
@@ -80,9 +85,10 @@ def make_reg_step(model: ViTConfig, lora: LoraConfig, optimizer,
             m = {"loss_CE": s["ce"] / n, "acc": s["acc"] / n}
             return m["loss_CE"], m
 
-        reg = quadratic_penalty(params, anchors, importances, lam) \
+        reg = quadratic_penalty(params, anchors, importances, lam, mesh) \
             if anchors else torch.zeros((), device=y.device)
-        grads, metrics = stream_grads(sums_fn, combine, leaves, (x, y),
+        grads, metrics = stream_grads(sums_fn, combine, leaves,
+                                      state.trainable_names(), (x, y),
                                       grad_accum, mesh, fixed=reg)
         metrics["loss_regularization"] = reg.detach()
         optimizer.update(leaves, grads, state.opt_state, lr)
@@ -106,16 +112,23 @@ def estimate_importance(method: str, params, batches, model: ViTConfig,
     divided by the global batch's valid count; the gradient is summed
     over the micro-batches and the ranks (baselines/common.stream_grads)
     BEFORE it is squared (EWC) or its absolute value taken (MAS): a sum of
-    per-rank squares would be another Fisher. ``len(batches)`` counts
-    global batches, the same number on every rank."""
+    per-rank squares would be another Fisher: under sp that sum takes in
+    the ``model`` sum of the leaves each rank holds a part of the
+    gradient of (parallel/sharding.sync_grads). ``len(batches)`` counts
+    global batches, the same number on every rank. ``params`` is the
+    whole tree (on every rank alike); under a sharding mesh each rank
+    differentiates its shards of it and the whole importance tree is
+    gathered at the end."""
     if method == "l2":
         return tree_map(torch.ones_like, params)
     if method not in ("ewc", "mas"):
         raise ValueError(f"unknown importance method {method}")
     n = len(batches)
+    set_active(mesh)
     # detached leaves that require grad, made once for every batch
     flat = {k: v.detach().requires_grad_(True)
-            for k, v in flatten_tree(params).items()}
+            for k, v in flatten_tree(sharding.shard_tree(mesh,
+                                                         params)).items()}
     names = list(flat)
     leaves = [flat[k] for k in names]
     tree = unflatten_tree(flat)
@@ -138,7 +151,7 @@ def estimate_importance(method: str, params, batches, model: ViTConfig,
         x, y = to_device(device, x, y)
         (count,) = global_counts(mesh, y)
         grads, _ = stream_grads(sums_fn, lambda s: (s["loss"] / count, {}),
-                                leaves, (x, y), grad_accum, mesh)
+                                leaves, names, (x, y), grad_accum, mesh)
         for k, g in zip(names, grads):
             g = g.float()
             if method == "ewc":
@@ -148,7 +161,7 @@ def estimate_importance(method: str, params, batches, model: ViTConfig,
                 imp[k] += (g * g) * (int(count) / n)
             else:
                 imp[k] += g.abs() / n
-    out = unflatten_tree(imp)
+    out = whole_tree(mesh, unflatten_tree(imp))
     if "base" in params:
         out.setdefault("lora", {})
     return out
@@ -168,23 +181,26 @@ def run_regularization_task(cfg: RunConfig, params, train_loader_factory,
     (``params``) and the accuracies.
 
     ``mesh``: an optional parallel/mesh.DataMesh, as JAX's ``mesh``: the
-    starting parameters, anchors and importances are broadcast from rank
-    0, every loader gives this rank's rows of the global batches
+    starting parameters, anchors and importances (whole trees) are
+    broadcast from rank 0 and each rank keeps its shards of them under
+    the mesh's layout (JAX's ``put_params``; baselines/common.put_trees),
+    every loader gives this rank's rows of the global batches
     (parallel/multihost.process_sharded_loader), the loss is the global
-    batch's, and the evals sum their counts over the ranks."""
+    batch's, and the evals sum their counts over the ranks; the returned
+    ``params`` are whole on every rank."""
     check_baseline_placement(cfg.mesh, mesh)
+    set_active(mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
     opt = make_optimizer(cfg.optim)
     step = make_reg_step(cfg.model, cfg.lora, opt, compute_dtype=cdt,
                          grad_accum=cfg.optim.grad_accum, mesh=mesh)
-    state = PretrainState.create(
-        ViT(params, cfg.model, cfg.lora).to(device), opt,
-        trains=partial(trains, **freeze_flags(cfg)))
-    anchors = [detached(a, device) for a in anchors]
-    importances = [detached(i, device) for i in importances]
-    broadcast_trees(mesh, state.params, *anchors, *importances)
+    params, *trees = put_trees(mesh, device, params, *anchors,
+                               *importances)
+    anchors, importances = trees[:len(anchors)], trees[len(anchors):]
+    state = PretrainState.create(ViT(params, cfg.model, cfg.lora), opt,
+                                 trains=partial(trains, **freeze_flags(cfg)))
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 
     def accuracy(batches):
@@ -216,6 +232,6 @@ def run_regularization_task(cfg: RunConfig, params, train_loader_factory,
                                         test_batches_f, test_batches_r,
                                         test_batches_open, mesh=mesh)
     best_h = max(best_h, h_mean(facc_before, facc, racc, eps=1e-8))
-    return {"params": detached(state.params), "forget_acc_before":
+    return {"params": whole_tree(mesh, state.params), "forget_acc_before":
             facc_before, "forget_acc": facc, "remain_acc": racc,
             "open_acc": oacc, "best_h": best_h}

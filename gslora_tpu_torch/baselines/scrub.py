@@ -19,15 +19,14 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from gslora_tpu_torch.baselines.common import (broadcast_trees,
-                                               final_accuracies,
-                                               global_counts, rank_generator,
-                                               stream_grads, to_device,
-                                               valid_count)
+from gslora_tpu_torch.baselines.common import (final_accuracies,
+                                               global_counts, put_trees,
+                                               rank_generator, stream_grads,
+                                               to_device, valid_count,
+                                               whole_tree)
 from gslora_tpu_torch.baselines.freeze import freeze_flags, trains
 from gslora_tpu_torch.config import LoraConfig, OptimConfig, RunConfig, \
     ViTConfig
-from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.evaluate import eval_accuracy, h_mean, \
     make_eval_step
 from gslora_tpu_torch.engine.loop import _dtype, resolve_device
@@ -39,20 +38,28 @@ from gslora_tpu_torch.losses.distillation import kd_kl_loss
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.convert import flatten_tree
 from gslora_tpu_torch.models.vit import ViT, vit_apply
-from gslora_tpu_torch.parallel.mesh import check_baseline_placement
+from gslora_tpu_torch.parallel import sharding
+from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                            set_active)
 from gslora_tpu_torch.utils.trees import tree_map
 
 
-def param_dist(params, swa_params, p: float) -> torch.Tensor:
+def param_dist(params, swa_params, p: float, mesh=None) -> torch.Tensor:
     """p * the sum over tensors of the Frobenius norm of (theta -
     theta_swa) (util/sgda_utils.py:36-41). The sqrt is clamped: params ==
     swa at the start of a superepoch, where the plain norm's gradient is
-    NaN (0/0); the clamp gives the zero subgradient."""
+    NaN (0/0); the clamp gives the zero subgradient. Under a sharding
+    ``mesh`` the trees hold this rank's shards: each leaf's squares are
+    summed over the axes it is sharded on BEFORE the square root
+    (parallel/sharding.whole_sums), so the norm, and the gradient
+    (theta - theta_swa) / norm of each shard, are the whole tensor's."""
     a, b = flatten_tree(params), flatten_tree(swa_params)
     if p == 0.0:
         return next(iter(a.values())).new_zeros((), dtype=torch.float32)
-    norms = [torch.sqrt(torch.clamp(torch.sum(
-        (a[k].float() - b[k].float()) ** 2), min=1e-24)) for k in a]
+    names = list(a)
+    sq = [torch.sum((a[k].float() - b[k].float()) ** 2) for k in names]
+    sq = sharding.whole_sums(mesh, names, [a[k] for k in names], sq)
+    norms = [torch.sqrt(torch.clamp(s, min=1e-24)) for s in sq]
     return p * torch.stack(norms).sum()
 
 
@@ -114,8 +121,9 @@ def make_scrub_steps(model: ViTConfig, lora: LoraConfig, optimizer,
                                                  "loss_CE": ce}
 
             grads, metrics = stream_grads(
-                sums_fn, combine, leaves, (x, y), grad_accum, mesh,
-                fixed=param_dist(params, swa, smoothing))
+                sums_fn, combine, leaves, state.trainable_names(), (x, y),
+                grad_accum, mesh, fixed=param_dist(params, swa, smoothing,
+                                                   mesh))
             metrics["loss_total_forget" if maximize else
                     "loss_total_remain"] = metrics.pop("loss_total")
             optimizer.update(leaves, grads, state.opt_state, lr)
@@ -144,12 +152,13 @@ def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     SWA update copies.
 
     ``mesh``: as for baselines/regularization.run_regularization_task;
-    the student, the teacher and the SWA model are broadcast from rank 0,
-    and every rank runs the same number of max and min steps (its
-    loaders give the same number of global batches) and the same SWA
-    updates."""
+    the student, the teacher and the SWA model are broadcast from rank 0
+    and sharded alike, every rank runs the same number of max and min
+    steps (its loaders give the same number of global batches) and the
+    same SWA updates (on its shards); the returned trees are whole."""
     b = cfg.baseline
     check_baseline_placement(cfg.mesh, mesh)
+    set_active(mesh)
     device = resolve_device(cfg.device)
     cdt = _dtype(cfg)
     logger = logger or MetricLogger()
@@ -163,12 +172,11 @@ def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
         cfg.model, cfg.lora, opt, b.kd_T, b.sgda_smoothing, b.sgda_gamma,
         b.sgda_alpha, compute_dtype=cdt, grad_accum=cfg.optim.grad_accum,
         mesh=mesh)
-    state = PretrainState.create(
-        ViT(params, cfg.model, cfg.lora).to(device), opt,
-        trains=partial(trains, **freeze_flags(cfg)))
-    teacher = detached(teacher if teacher is not None else params, device)
-    swa = detached(swa if swa is not None else params, device)
-    broadcast_trees(mesh, state.params, teacher, swa)
+    params, teacher, swa = put_trees(
+        mesh, device, params, teacher if teacher is not None else params,
+        swa if swa is not None else params)
+    state = PretrainState.create(ViT(params, cfg.model, cfg.lora), opt,
+                                 trains=partial(trains, **freeze_flags(cfg)))
     eval_step = make_eval_step(cfg.model, cfg.lora, compute_dtype=cdt)
 
     def accuracy(batches):
@@ -202,7 +210,8 @@ def run_scrub_task(cfg: RunConfig, params, forget_loader_factory: Callable,
     facc, racc, oacc = final_accuracies(eval_step, state.params,
                                         test_batches_f, test_batches_r,
                                         test_batches_open, mesh=mesh)
-    return {"params": detached(state.params), "swa": swa,
-            "teacher": teacher, "n_averaged": n_averaged,
+    return {"params": whole_tree(mesh, state.params),
+            "swa": whole_tree(mesh, swa), "teacher": whole_tree(mesh, teacher),
+            "n_averaged": n_averaged,
             "forget_acc_before": facc_before, "forget_acc": facc,
             "remain_acc": racc, "open_acc": oacc, "best_h": best_h}

@@ -19,13 +19,14 @@ trains GS-LoRA (and ``--one_stage``) and the single-step baselines
 data-parallel over torch.distributed ranks, one per card:
   torchrun --nproc_per_node N -m gslora_tpu_torch.cli.train_forget --dp ...
 each rank loading its rows of every global batch (engine/loop,
-:func:`run_single_step_baseline`). GS-LoRA also runs on JAX's
-``(data, model)`` mesh: ``--mesh_model M`` shards the head's classes over
-``model``, ``--tp`` the FFN hidden, ``--fsdp`` the block kernels over
-``data`` (parallel/sharding), ``--sp`` the activations' tokens over
-``model``, ``--pp [--pp_micro N]`` the layers in stages over ``model``
-(parallel/pipeline), and ``--mesh_slices S`` the outer dcn data axis
-over all of them (the baselines too); a mesh smaller than the world
+:func:`run_single_step_baseline`). Both also run on JAX's
+``(data, model)`` mesh, every ``-n`` and ``--lora_pos``: ``--mesh_model
+M`` shards the head's classes over ``model``, ``--tp`` the FFN hidden,
+``--fsdp`` the block kernels over ``data`` (parallel/sharding), ``--sp``
+the activations' tokens over ``model``, ``--pp [--pp_micro N]`` the
+layers in stages over ``model`` (parallel/pipeline; GS-LoRA only: a
+baseline raises JAX's ValueError), and ``--mesh_slices S`` the outer dcn
+data axis over all of them; a mesh smaller than the world
 (``--mesh_data``, ``--mesh_model``) leaves the other ranks idle, e.g. on
 the CPU
   torchrun --nproc_per_node 4 -m gslora_tpu_torch.cli.train_forget \
@@ -59,7 +60,6 @@ from gslora_tpu_torch.engine.continual import detached
 from gslora_tpu_torch.engine.loop import ForgetData, _dtype, \
     resolve_device, run_forget_training
 from gslora_tpu_torch.metrics.logging import MetricLogger, make_run_name
-from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
                                             check_batch_divisible,
                                             check_placement, make_mesh)
@@ -212,7 +212,6 @@ def main(argv=None):
         return None
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
-    sharding.check_layout_support(cfg, mesh)
     main_rank = mesh is None or mesh.is_main
     resolve_device(cfg.device)  # no card when one is asked for: fail first
     # a baseline builds its own model (Retrain skips the -r resume)

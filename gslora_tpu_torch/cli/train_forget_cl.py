@@ -40,7 +40,11 @@ at once (``rank r idle``). GS-LoRA (``--one_stage``) also runs on JAX's
 whole ``(dcn, data, model)`` mesh: ``--mesh_model M``, ``--tp``,
 ``--fsdp``, ``--sp`` (parallel/sharding) and ``--pp [--pp_micro N]``
 (parallel/pipeline; the prox step under ``--tp`` or ``--pp`` raises JAX's
-ValueError).
+ValueError); the baselines on the same mesh but ``--pp`` (JAX's
+ValueError), e.g. on the CPU
+  torchrun --nproc_per_node 4 -m gslora_tpu_torch.cli.train_forget_cl \
+      --device cpu --dp --SCRUB --fsdp --mesh_model 2 ...
+Every ``-n`` and ``--lora_pos`` runs under every layout.
 ``--gemm_impl int8`` raises the model's ValueError at the first training
 step, as in the JAX CLI (int8 is an eval and serving path).
 ``--profile_dir`` is accepted and ignored, as by the JAX CLI.
@@ -95,7 +99,10 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
     this rank's rows of the global batches (the relabeling and the
     subsets are drawn on the whole dataset first, with the same seeds on
     every rank), the evals sum their counts over the ranks, and rank 0
-    alone writes the task snapshots."""
+    alone writes the task snapshots. The trees between the tasks are
+    whole on every rank; each runner keeps its shards of them under the
+    mesh's layout (tp, fsdp, sp, a model axis) and returns them whole,
+    and the old-class eval runs on this rank's shards."""
     f, b = cfg.forget, cfg.baseline
     method = b.method
     device = resolve_device(cfg.device)
@@ -213,8 +220,9 @@ def run_baseline_continual(cfg: RunConfig, params, train_ds, test_ds,
 
         old_acc = None
         if old_te is not None and len(old_te):
-            old_acc = eval_accuracy(eval_step, detached(params, device),
-                                    test_loader(old_te)(), mesh=mesh)
+            old_acc = eval_accuracy(
+                eval_step, sharding.shard_tree(mesh, detached(params, device)),
+                test_loader(old_te)(), mesh=mesh)
         out["old_acc"] = old_acc
         for key in ("params", "swa", "student_low", "deposit_low",
                     "teacher"):
@@ -265,7 +273,6 @@ def main(argv=None):
         return None
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
-    sharding.check_layout_support(cfg, mesh)
     main_rank = mesh is None or mesh.is_main
     device = resolve_device(cfg.device)  # no card when asked for: fail first
     train_ds, test_ds = build_datasets(cfg)
@@ -291,11 +298,14 @@ def main(argv=None):
 
     def missing_acc(tag, p):
         """Held-out-class accuracy with the 1000-way head put back
-        (cl.py:294-312, :1738-1763)."""
+        (cl.py:294-312, :1738-1763), on this rank's shards of the whole
+        tree ``p`` (under a model axis the 1000 classes split over it, as
+        the run's head does)."""
         if miss_ds is None:
             return None
         acc = eval_accuracy(
-            miss_ev, detached(resume_head(p, original_head), device),
+            miss_ev, sharding.shard_tree(mesh, detached(
+                resume_head(p, original_head), device)),
             process_sharded_loader(mesh, miss_ds, cfg.data.batch_size,
                                    shuffle=False, prefetch=0,
                                    mask_padding=device.type != "cpu"),

@@ -19,7 +19,8 @@ split, saves the best-accuracy checkpoint under ``--outdir`` and runs the
       --dp -b 480 ...
 Each rank loads its rows of every global batch of ``-b``; the loss and its
 gradient are the global batch's (engine/pretrain._accumulated); rank 0
-alone logs, verifies and writes checkpoints. Under one process ``--dp``
+alone logs, verifies (on the parameters every rank gathers whole) and
+writes checkpoints. Under one process ``--dp``
 changes nothing, as in JAX on one device. ``--mesh_model M``, ``--tp``
 and ``--fsdp`` lay the ranks out as JAX's ``(data, model)`` mesh and
 shard the parameters and their optimizer moments (parallel/sharding);
@@ -57,7 +58,7 @@ from gslora_tpu_torch.metrics.logging import MetricLogger, buffer_val, \
 from gslora_tpu_torch.models.vit import ViT, vit_apply
 from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import check_batch_divisible, \
-    data_parallel_size, make_mesh
+    data_parallel_size, inactive, make_mesh
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
 from gslora_tpu_torch.utils.params import param_summary
 
@@ -77,11 +78,6 @@ def main(argv=None, return_state: bool = False):
     if mesh is not None:
         cfg = dataclasses.replace(cfg, device=str(mesh.device))
         check_batch_divisible(mesh, cfg.data.batch_size)
-    sharding.check_layout_support(cfg, mesh)
-    if sharding.sharded(mesh) and args.ver_targets:
-        raise NotImplementedError(
-            f"--ver_targets under {sharding.layout_flags(mesh)} is not "
-            f"ported yet: rank 0 alone verifies, with whole parameters")
     main_rank = mesh is None or mesh.is_main
     world = data_parallel_size(mesh)
     device = resolve_device(cfg.device)
@@ -132,7 +128,8 @@ def main(argv=None, return_state: bool = False):
     # in-training LFW-style pair verification (train_own.py evaluates
     # perform_val + buffer_val per VER_FREQ window, util/utils.py:167-232)
     ver_sets = []
-    # rank 0 alone verifies (every rank holds the same parameters)
+    # rank 0 alone verifies, with the whole parameters
+    verify = any(args.ver_targets.split(","))
     targets = [t for t in args.ver_targets.split(",") if t and main_rank]
     if targets:
         from gslora_tpu_torch.data.recordio import get_val_data
@@ -144,11 +141,13 @@ def main(argv=None, return_state: bool = False):
                           f"{cfg.data.data_root}: {missing}")
 
     def run_verification(batch):
+        if not verify:
+            return
+        # every rank: the gather is a collective
+        params_now = sharding.gather_tree(mesh, state.params)
         if not ver_sets:
             return
         from gslora_tpu_torch.evaluation.verification import perform_val
-
-        params_now = state.params
 
         @torch.no_grad()
         def embed(b):
@@ -156,12 +155,14 @@ def main(argv=None, return_state: bool = False):
             return vit_apply(params_now, x, None, cfg.model, cfg.lora,
                              train=False, compute_dtype=cdt).cpu().numpy()
 
-        for name, data_set, issame in ver_sets:
-            vacc, vstd, xnorm, thr, (fpr, tpr) = perform_val(
-                embed, data_set, issame, embedding_size=cfg.model.dim,
-                return_roc=True)
-            buffer_val(logger, name, vacc, vstd, xnorm, thr,
-                       gen_roc_plot(fpr, tpr), batch=batch)
+        # the whole parameters on rank 0 alone: no collective inside
+        with inactive():
+            for name, data_set, issame in ver_sets:
+                vacc, vstd, xnorm, thr, (fpr, tpr) = perform_val(
+                    embed, data_set, issame, embedding_size=cfg.model.dim,
+                    return_roc=True)
+                buffer_val(logger, name, vacc, vstd, xnorm, thr,
+                           gen_roc_plot(fpr, tpr), batch=batch)
 
     # each batch block draws its rows' dropout masks from a stream of its
     # own; the ranks of one model group draw the same masks

@@ -127,7 +127,7 @@ def merge_lora(base_blocks: dict, lora_tree: LoraTree,
         delta = torch.einsum("lcrd,lcor->ldco", a["A"], a["B"]) * scaling
         delta = delta.reshape(delta.shape[0], delta.shape[1], -1)
         qkv = dict(blocks["qkv"])
-        qkv["kernel"] = qkv["kernel"] + delta.to(qkv["kernel"].dtype)
+        qkv["kernel"] = add(qkv["kernel"], delta)
         blocks["qkv"] = qkv
     return blocks
 
@@ -167,6 +167,7 @@ def group_lasso(lora_tree: LoraTree, group_type: str = "block",
     def root(s):
         return torch.sqrt(s + eps)
 
+    mesh = active_mesh()
     if group_pos == "FFN":
         sq = _ffn_sq(lora_tree["ffn"])
         if group_type == "block":
@@ -179,16 +180,18 @@ def group_lasso(lora_tree: LoraTree, group_type: str = "block",
             total = sum(torch.sum(root(s)) for s in sq.values())
         else:
             raise ValueError("group_type should be block or lora or matrix")
-        mesh = active_mesh()
-        if sharding.pp_on(mesh):
-            # each stage holds its layers' groups: the sum over the stages
-            # (g: each stage's gradient stays its layers')
-            total = sharding.reduce_from_model(total, mesh)
-        return total
-    if group_pos == "Attention":
+    elif group_pos == "Attention":
+        # no tp rule shards the attention LoRA: its squares are whole
         a = lora_tree["attn"]
-        return torch.sum(root(_per_layer_sq(a["A"]) + _per_layer_sq(a["B"])))
-    raise ValueError(f"unknown group_pos {group_pos}")
+        total = torch.sum(root(_per_layer_sq(a["A"]) +
+                               _per_layer_sq(a["B"])))
+    else:
+        raise ValueError(f"unknown group_pos {group_pos}")
+    if sharding.pp_on(mesh):
+        # each stage holds its layers' groups: the sum over the stages
+        # (g: each stage's gradient stays its layers')
+        total = sharding.reduce_from_model(total, mesh)
+    return total
 
 
 @torch.no_grad()
@@ -211,11 +214,13 @@ def lora_group_norms(lora_tree: LoraTree, group_pos: str = "FFN",
             sq = _ffn_sq(f)
             sq = sum(sq[k] for k in ("A1", "B1", "A2", "B2"))
             return whole(torch.sqrt(sq))
+        l1 = {k: torch.sum(v.float().abs().reshape(v.shape[0], -1), dim=-1)
+              for k, v in f.items()}
         if sharding.tp_on(mesh):
-            raise NotImplementedError("L1 group norms of tp-sharded LoRA "
-                                      "factors are not ported")
-        return whole(sum(torch.sum(arr.float().abs().reshape(
-            arr.shape[0], -1), dim=-1) for arr in f.values()))
+            # B1 and A2 hold shards: their sums over ``model``
+            for k in ("B1", "A2"):
+                l1[k] = sharding.reduce_from_model(l1[k], mesh)
+        return whole(sum(l1[k] for k in ("A1", "B1", "A2", "B2")))
     a = lora_tree["attn"]
     sq = _per_layer_sq(a["A"]) + _per_layer_sq(a["B"])
-    return [float(x) for x in torch.sqrt(sq)]
+    return whole(torch.sqrt(sq))

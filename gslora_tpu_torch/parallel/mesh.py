@@ -41,6 +41,7 @@ filled: adding zeros is exact.
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -276,6 +277,18 @@ def active_mesh() -> Optional[DataMesh]:
     return _ACTIVE
 
 
+@contextmanager
+def inactive():
+    """No active mesh inside the block (a forward of whole parameters on
+    one rank alone), the active one again after it."""
+    was = _ACTIVE
+    set_active(None)
+    try:
+        yield
+    finally:
+        set_active(was)
+
+
 def data_parallel_size(mesh: Optional[DataMesh]) -> int:
     """Total data-parallel ways (dcn x data) — what batch sizes must
     divide."""
@@ -362,27 +375,15 @@ def check_baseline_placement(cfg: MeshConfig,
                              mesh: Optional[DataMesh] = None) -> None:
     """The guards of JAX's baseline runners (e.g. baselines/
     regularization.py:170-181) for a run on ``mesh``: pp raises JAX's
-    ValueError first, then :func:`check_placement`; under a world the
-    baselines run the data axes only (``--mesh_slices`` and a mesh that
-    leaves ranks idle included), so tp, fsdp, sp and a model axis raise
-    NotImplementedError naming the flag (without a mesh, JAX's
-    ValueError)."""
+    ValueError first, then :func:`check_placement`; every other layout
+    runs (tp, fsdp, sp, a model axis, ``--mesh_slices`` and a mesh that
+    leaves ranks idle)."""
     if cfg.pp:
         raise ValueError(
             "MeshConfig.pp is supported by the GS-LoRA forget and "
             "pretrain engines only; baseline runners support "
             "dp/tp/fsdp")
     check_placement(cfg, mesh)
-    if mesh is None:
-        return
-    for flag, on in (("--tp", cfg.tp), ("--fsdp", cfg.fsdp),
-                     ("--sp", cfg.sp), ("--mesh_model > 1", cfg.model > 1)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet for the baseline runners: they "
-                f"run the data axes only (--dp, --mesh_data, "
-                f"--mesh_slices; --tp, --fsdp, --sp, --pp and a model axis "
-                f"are refused)")
 
 
 def world_size() -> int:

@@ -42,6 +42,13 @@ leaf it holds whole inside the stack, or of the embedding, is its part of
 the whole (its tokens; its stage), summed over ``model``; the head and
 the final LayerNorm run replicated on the gathered (sp) or broadcast (pp)
 tokens, so each rank holds their whole gradient already.
+
+A sum over the elements of sharded leaves (a baseline's quadratic
+penalty, SCRUB's per-tensor distance) is each leaf's part summed over the
+axes it is sharded on (:func:`whole_sums`); a replicated leaf's part is
+whole already. Every model (the face ViT, its soft split, ViT-B/16) and
+LoRA position takes these rules: no rule names the attention LoRA but
+pp's, so it stays replicated under tp and fsdp.
 """
 from __future__ import annotations
 
@@ -234,16 +241,16 @@ class _CopyToModel(torch.autograd.Function):
         return g, None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, axis):
         out = x.contiguous().clone()
-        mesh.all_reduce_([out], axis=MODEL_AXIS)
+        mesh.all_reduce_([out], axis=axis)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -277,7 +284,33 @@ def copy_to_model(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     """Megatron's g: the SUM of ``x`` over ``model``; its gradient as
     is."""
-    return _ReduceFromModel.apply(x, mesh)
+    return _ReduceOver.apply(x, mesh, MODEL_AXIS)
+
+
+def whole_sums(mesh: Optional[DataMesh], names: Sequence[str],
+               tensors: Sequence[torch.Tensor],
+               values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each leaf's sum over the whole leaf, from ``values[i]``, a rank's
+    sum of a quantity over its shard of the leaf at dotted path
+    ``names[i]`` (shaped as ``tensors[i]``): each is summed over the axes
+    its leaf is sharded on (one all_reduce per set of axes), a whole
+    leaf's is its own, so every rank holds the whole tree's sums; the
+    gradient of each stays the rank's own (g)."""
+    out = list(values)
+    if not sharded(mesh):
+        return out
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, spec in enumerate(named_specs(mesh, names, tensors)):
+        axes = tuple(a for a in spec if a is not None)
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        s = torch.stack([values[i] for i in idx])
+        for axis in axes:
+            s = _ReduceOver.apply(s, mesh, axis)
+        for j, i in enumerate(idx):
+            out[i] = s[j]
+    return out
 
 
 def gather_from_model(x: torch.Tensor, mesh: DataMesh,
@@ -423,31 +456,3 @@ def sync_grads(mesh: Optional[DataMesh], names: Sequence[str],
                      axis=DCN_AXIS)
     mesh.all_reduce_([g for g, s in zip(grads, specs)
                       if DATA_AXIS not in s])
-
-
-def layout_flags(mesh: Optional[DataMesh]) -> str:
-    """The flags that shard under ``mesh``, as a user typed them."""
-    if mesh is None:
-        return ""
-    return " ".join(f for f, on in (
-        ("--tp", tp_on(mesh)), ("--fsdp", fsdp_on(mesh)),
-        ("--sp", sp_on(mesh)), ("--pp", pp_on(mesh)),
-        (f"--mesh_model {mesh.model}", mesh.model > 1)) if on)
-
-
-def check_layout_support(cfg, mesh: Optional[DataMesh]) -> None:
-    """The sharded layouts run what the tests hold against the JAX
-    package: the face ViT (-n VIT) with FFN LoRA; anything else under them
-    (tp, fsdp, sp, pp, a model axis) raises NotImplementedError naming its
-    flags."""
-    if not sharded(mesh):
-        return
-    flags = layout_flags(mesh)
-    if cfg.net != "VIT":
-        raise NotImplementedError(
-            f"-n {cfg.net} under {flags} is not ported yet: the sharded "
-            f"layouts run the face ViT (-n VIT)")
-    if cfg.lora.rank > 0 and cfg.lora.pos != "FFN":
-        raise NotImplementedError(
-            f"--lora_pos {cfg.lora.pos} under {flags} is not ported yet: "
-            f"the sharded layouts run FFN LoRA")

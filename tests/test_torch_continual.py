@@ -317,20 +317,26 @@ def test_cl_cli_runs_end_to_end_on_cpu(tiny_cl_cli, tmp_path):
     assert any("Test forget-ema Accuracy" in rec for rec in logged)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--dp", "--SCRUB", "--fsdp"], "--fsdp"),
-    (["--dp", "--LIRF", "--sp", "--mesh_model", "2"], "--sp"),
-    (["--dp", "--replay", "--mesh_model", "2"], "--mesh_model"),
+@pytest.mark.parametrize("flags,mesh_kw,jax_flags", [
+    (["--dp", "--SCRUB", "--fsdp", "--mesh_model", "2"],
+     {"data": 1, "model": 2}, {"fsdp": True}),
+    (["--dp", "--LIRF", "--sp", "--pp", "--mesh_model", "2"], {"model": 2},
+     {"sp": True, "pp": True}),
+    (["--dp", "--replay", "--sp"], {"data": 2}, {"sp": True}),
 ])
 def test_cl_cli_unported_paths_raise(monkeypatch, tiny_cl_cli, tmp_path,
-                                     flags, match):
-    """Under a world of 2 (torchrun's WORLD_SIZE), fsdp, sp and a model
-    axis under a baseline are not ported yet: they raise before any
-    process group is made."""
+                                     flags, mesh_kw, jax_flags):
+    """Under a world of 2 (torchrun's WORLD_SIZE) a baseline runs every
+    layout JAX's runners take; what they refuse (fsdp on a data axis of
+    1; pp, before sp's own refusal; sp on a model axis of 1) raises JAX's
+    ValueError, word for word, before any process group is made."""
+    import torch_mesh_setup
+    want = torch_mesh_setup.jax_refusal(mesh_kw, jax_flags, baseline=True)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError) as err:
         tiny_cl_cli.main(CLI_ARGS + ["--device", "cpu", "--outdir",
                                      str(tmp_path)] + flags)
+    assert str(err.value) == want
 
 
 def test_cl_cli_accepts_and_ignores_profile_dir(tiny_cl_cli, tmp_path):

@@ -189,21 +189,26 @@ def test_cli_runs_end_to_end_on_cpu(tiny_cli, tmp_path):
     assert any("loss_total" in rec for rec in logged)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--dp", "--MAS", "--mesh_model", "2"], "--mesh_model"),
-    (["--dp", "--ewc", "--tp", "--mesh_model", "2"], "--tp"),
+@pytest.mark.parametrize("flags,mesh_kw,jax_flags", [
+    (["--dp", "--MAS", "--pp", "--mesh_model", "2"], {"model": 2},
+     {"pp": True}),
+    (["--dp", "--ewc", "--tp"], {"data": 2}, {"tp": True}),
 ])
 def test_cli_unported_paths_raise(monkeypatch, tiny_cli, tmp_path, flags,
-                                  match):
-    """Under a world of 2 (torchrun's WORLD_SIZE), a model axis and tp
-    under a baseline are not ported yet: they raise before any process
+                                  mesh_kw, jax_flags):
+    """Under a world of 2 (torchrun's WORLD_SIZE) a baseline runs every
+    layout JAX's runners take; what they refuse (pp; tp on a model axis
+    of 1) raises JAX's ValueError, word for word, before any process
     group is made."""
+    import torch_mesh_setup
+    want = torch_mesh_setup.jax_refusal(mesh_kw, jax_flags, baseline=True)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError) as err:
         tiny_cli.main(["-d", "synthetic", "--vit_depth", "1", "-b", "8",
                        "-e", "1", "--device", "cpu", "--num_of_first_cls",
                        "6", "--per_forget_cls", "2", "--outdir",
                        str(tmp_path)] + flags)
+    assert str(err.value) == want
 
 
 @pytest.mark.parametrize("flag,method", [

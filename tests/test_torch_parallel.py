@@ -72,7 +72,7 @@ def _port_outcome(mesh_kw, flags, world=8):
     try:
         tmesh.check_placement(cfg, mesh)
         return None
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         return type(e), str(e)
 
 
@@ -94,44 +94,118 @@ def test_refusals_match_jax_placement(mesh_kw, flags):
     assert _port_outcome(mesh_kw, flags) == want
 
 
-@pytest.mark.parametrize("mesh_kw,flags,what,name", [
-    ({"data": 4, "model": 2}, {"tp": True}, "baseline", "--tp"),
-    ({"data": 4, "slices": 2}, {"fsdp": True}, "baseline", "--fsdp"),
-    ({"data": 1, "model": 2, "slices": 2}, {"sp": True}, "baseline",
-     "--sp"),
-    ({"data": 2, "model": 2}, {}, "baseline", "--mesh_model"),
-    ({"data": 2, "model": 2, "slices": 2}, {"tp": True}, "VIT_B16",
-     "-n VIT_B16"),
-    ({"data": 4, "model": 2}, {"pp": True}, "VIT_B16", "-n VIT_B16"),
-    ({"data": 2, "slices": 2}, {"fsdp": True}, "Attention",
-     "--lora_pos Attention"),
+def _jax_layout(mesh_kw, flags, tree, baseline):
+    """JAX's outcome for ``flags`` on the mesh of ``mesh_kw`` over its 8
+    host devices: the baseline runners' pp guard (``baseline``), then
+    placement() and param_shardings of ``tree``: (exception type,
+    message), or each leaf's mesh axes by dotted name."""
+    import jax
+
+    import gslora_tpu.config as jc
+    import torch_mesh_setup
+    from gslora_tpu.parallel.mesh import make_mesh, param_shardings, \
+        placement
+    from gslora_tpu_torch.models.convert import flatten_tree
+    if baseline and flags.get("pp"):
+        return ValueError, torch_mesh_setup.jax_refusal(mesh_kw, flags,
+                                                        baseline=True)
+    try:
+        mesh = make_mesh(jc.MeshConfig(**mesh_kw))
+        placement(mesh, **flags)
+        shardings = param_shardings(
+            mesh, tree, **{k: v for k, v in flags.items()
+                           if k in ("tp", "fsdp", "pp")})
+    except ValueError as e:
+        return ValueError, str(e)
+    finally:
+        placement(None)
+    flat = flatten_tree(jax.tree.map(lambda s: s.spec, shardings,
+                                     is_leaf=lambda s: hasattr(s, "spec")))
+    leaves = flatten_tree(tree)
+    return {k: tuple(spec) + (None,) * (leaves[k].ndim - len(spec))
+            for k, spec in flat.items()}
+
+
+def _port_layout(mesh_kw, flags, tree, baseline):
+    """The port's outcome for the same: its guard
+    (``check_baseline_placement`` for a baseline, else
+    ``check_placement``) on a world of 8, then parallel/sharding's spec of
+    each leaf."""
+    from gslora_tpu_torch.models.convert import flatten_tree
+    cfg = MeshConfig(**mesh_kw, **flags)
+    world = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"))
+    try:
+        (tmesh.check_baseline_placement if baseline
+         else tmesh.check_placement)(cfg, world)
+        shape = tmesh.jax_mesh_shape(cfg, 8)
+        mesh = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"),
+                              model=shape["model"], data=shape["data"],
+                              slices=cfg.slices, tp=cfg.tp, fsdp=cfg.fsdp,
+                              sp=cfg.sp, pp=cfg.pp)
+        return {k: sharding.leaf_spec(mesh, k.split("."), v.shape)
+                for k, v in flatten_tree(tree).items()}
+    except ValueError as e:
+        return ValueError, str(e)
+
+
+def _layout_tree(what):
+    """The tiny model's tree (numpy, JAX's init) for ``what``: a baseline's
+    (rank 0, the face ViT), ViT-B/16's structure with a 100-way Softmax
+    head and a rank-4 FFN LoRA, or the face ViT with a rank-4 attention
+    LoRA."""
+    import jax
+
+    import gslora_tpu.config as jc
+    from gslora_tpu.models.vit import init_vit_params
+    model = dict(worker.MODEL)
+    lora = jc.LoraConfig(rank=0 if what == "baseline" else 4,
+                         pos="Attention" if what == "Attention" else "FFN")
+    if what == "VIT_B16":
+        model.update(soft_split=True, ac_patch_size=8, pad=0, qkv_bias=True,
+                     attn_scale="dim_head", num_class=100)
+    return jax.tree.map(np.asarray, init_vit_params(
+        jax.random.key(0), jc.ViTConfig(**model), lora))
+
+
+@pytest.mark.parametrize("mesh_kw,flags,what", [
+    ({"data": 4, "model": 2}, {"tp": True}, "baseline"),
+    ({"data": 4, "slices": 2}, {"fsdp": True}, "baseline"),
+    ({"data": 1, "model": 2, "slices": 2}, {"sp": True}, "baseline"),
+    ({"data": 2, "model": 2}, {}, "baseline"),
+    ({"data": 2, "model": 2, "slices": 2}, {"tp": True}, "VIT_B16"),
+    ({"data": 4, "model": 2}, {"pp": True}, "VIT_B16"),
+    ({"data": 2, "slices": 2}, {"fsdp": True}, "Attention"),
 ], ids=["baseline_tp", "baseline_slices2_fsdp", "baseline_slices2_sp",
         "baseline_model2", "vit_b16_slices2_tp", "vit_b16_pp",
         "attention_slices2_fsdp"])
-def test_unported_layouts_raise_not_implemented(mesh_kw, flags, what,
-                                                name):
-    """What JAX runs but the port does not yet (a baseline under tp,
-    fsdp, sp or a model axis; ``-n VIT_B16`` or an attention LoRA under a
-    sharded layout), with or without --mesh_slices, raises
-    NotImplementedError naming the flag, never a silent replicated
-    run."""
-    import gslora_tpu_torch.config as tc
-    assert _jax_outcome(mesh_kw, flags) is None
-    cfg = MeshConfig(**mesh_kw, **flags)
-    mesh = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"),
-                          model=cfg.model, slices=cfg.slices, data=cfg.data,
-                          tp=cfg.tp, fsdp=cfg.fsdp, sp=cfg.sp, pp=cfg.pp)
-    with pytest.raises(NotImplementedError) as err:
-        if what == "baseline":
-            tmesh.check_baseline_placement(cfg, mesh)
-        else:
-            net, pos = ("VIT_B16", "FFN") if what == "VIT_B16" \
-                else ("VIT", "Attention")
-            run = tc.RunConfig(net=net, mesh=cfg,
-                               lora=tc.LoraConfig(rank=4, pos=pos))
-            tmesh.check_placement(cfg, mesh)
-            sharding.check_layout_support(run, mesh)
-    assert name in str(err.value)
+def test_unported_layouts_raise_not_implemented(mesh_kw, flags, what):
+    """What the port once refused, JAX runs, and so does the port now: a
+    baseline under tp, fsdp, sp or a model axis (with or without
+    --mesh_slices), ``-n VIT_B16`` and an attention LoRA under a sharded
+    layout pass both guards, and every leaf takes JAX's layout
+    (param_shardings). ``_jax_layout`` and ``_port_layout`` also hold the
+    ValueErrors alike, word for word (test_layout_refusals_match_jax)."""
+    tree = _layout_tree(what)
+    baseline = what == "baseline"
+    want = _jax_layout(mesh_kw, flags, tree, baseline)
+    assert not isinstance(want, tuple), want
+    assert _port_layout(mesh_kw, flags, tree, baseline) == want
+
+
+@pytest.mark.parametrize("mesh_kw,flags,what", [
+    ({"data": 2, "model": 2}, {"pp": True}, "baseline"),
+    ({"data": 2, "model": 3}, {"tp": True}, "VIT_B16"),
+    ({"data": 4, "model": 2}, {"tp": True, "pp": True}, "Attention"),
+], ids=["baseline_pp", "vit_b16_head_model3", "attention_tp_pp"])
+def test_layout_refusals_match_jax(mesh_kw, flags, what):
+    """Where JAX refuses, the port raises its ValueError, word for word: a
+    baseline under pp (the runners' guard), a 100-way head on a model
+    axis of 3 (param_shardings), pp with tp (placement)."""
+    tree = _layout_tree(what)
+    baseline = what == "baseline"
+    want = _jax_layout(mesh_kw, flags, tree, baseline)
+    assert want[0] is ValueError
+    assert _port_layout(mesh_kw, flags, tree, baseline) == want
 
 
 @pytest.mark.parametrize("mesh_kw,flags", [
@@ -158,18 +232,14 @@ def test_unported_layouts_raise_not_implemented(mesh_kw, flags, what,
 def test_mesh_layouts_pass_the_guards(mesh_kw, flags):
     """--mesh_model, --tp, --fsdp, --sp, --pp, --mesh_slices and their
     compositions run, on the whole world or on a mesh that leaves ranks
-    idle, as JAX's placement() accepts them; a baseline still refuses a
-    model axis, tp, fsdp and sp (pp with JAX's own ValueError) and runs
-    the data axes."""
+    idle, as JAX's placement() accepts them; a baseline runs them all but
+    pp, which raises JAX's own ValueError."""
     assert _jax_outcome(mesh_kw, flags) is None
     assert _port_outcome(mesh_kw, flags) is None
     world = tmesh.DataMesh(rank=0, world=8, device=torch.device("cpu"))
     cfg = MeshConfig(**mesh_kw, **flags)
     if flags.get("pp"):
         with pytest.raises(ValueError, match="pp is supported"):
-            tmesh.check_baseline_placement(cfg, world)
-    elif flags or cfg.model > 1:
-        with pytest.raises(NotImplementedError, match="baseline runners"):
             tmesh.check_baseline_placement(cfg, world)
     else:
         tmesh.check_baseline_placement(cfg, world)
@@ -236,9 +306,8 @@ def test_baseline_runner_guards_match_jax():
 
 
 def test_baseline_placement_under_a_world(monkeypatch):
-    """A baseline runs plain --dp under a world of 2; --fsdp, --tp and a
-    model axis raise NotImplementedError naming the flag, and --pp the
-    ValueError of JAX's
+    """A baseline runs plain --dp, --fsdp, --tp and a model axis under a
+    world of 2, as JAX's runners do; --pp raises the ValueError of JAX's
     baseline runners, through the guard itself and through make_mesh's
     check before any process group is made."""
     import gslora_tpu.config as jc
@@ -248,13 +317,10 @@ def test_baseline_placement_under_a_world(monkeypatch):
         jax_run(jc.RunConfig(mesh=jc.MeshConfig(pp=True)), {}, None, None,
                 None, lam=0.0, anchors=[], importances=[])
     world = tmesh.DataMesh(rank=0, world=2, device=torch.device("cpu"))
-    tmesh.check_baseline_placement(MeshConfig(), world)
-    with pytest.raises(NotImplementedError, match="--fsdp"):
-        tmesh.check_baseline_placement(MeshConfig(fsdp=True), world)
-    with pytest.raises(NotImplementedError, match="--tp"):
-        tmesh.check_baseline_placement(MeshConfig(tp=True, model=2), world)
-    with pytest.raises(NotImplementedError, match="--mesh_model"):
-        tmesh.check_baseline_placement(MeshConfig(model=2), world)
+    for cfg in (MeshConfig(), MeshConfig(fsdp=True),
+                MeshConfig(tp=True, model=2), MeshConfig(model=2),
+                MeshConfig(sp=True, model=2)):
+        tmesh.check_baseline_placement(cfg, world)
     for mesh_kw in ({}, {"model": 2}):
         with pytest.raises(ValueError) as err:
             tmesh.check_baseline_placement(MeshConfig(pp=True, **mesh_kw),
@@ -659,3 +725,43 @@ def test_two_gloo_ranks_on_one_card(card, tmp_path):
                                       v)
     _assert_params(got["params"], one["params"])
     _assert_history(got["history"], one["history"])
+
+
+@pytest.mark.cuda
+def test_baseline_under_tp_on_one_card(card, tmp_path):
+    """Two ranks sharing cuda:0 through gloo run train_forget --ewc --tp
+    --mesh_model 2 (the FFN hidden and the head's classes split over
+    ``model``, K1 on every rank) in bf16 through the kernels: both end
+    with one model, within 4 times the recipe's bf16 noise floor (one
+    process at --grad_accum 1 against itself at 2, another order of the
+    same sums) of one process, as chip_smoke's layout phase holds its
+    runs."""
+    import gslora_tpu_torch.config as tc
+    import torch_mesh_setup as setup
+    import torch_mesh_worker as mw
+    from gslora_tpu_torch.models.convert import unflatten_tree
+    from gslora_tpu_torch.models.vit import init_vit_params
+    base = worker.numpy_tree(init_vit_params(  # no JAX on the card's machine
+        torch.Generator().manual_seed(0), tc.ViTConfig(**worker.MODEL),
+        tc.LoraConfig(rank=0)))
+    np.savez(tmp_path / "base.npz", **base)
+    wait = setup.start_ranks(tmp_path, ["ewc_tp_card"], 2, device="cuda")
+    mp = pytest.MonkeyPatch()
+    try:
+        one, floor = (mw.run("ewc_tp_card", unflatten_tree(base),
+                             layout=False, setattr_=mp.setattr,
+                             device="cuda", extra=extra)
+                      for extra in ([], ["--grad_accum", "2"]))
+        ranks = [r["ewc_tp_card"] for r in wait()]
+    finally:
+        mp.undo()
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+    noise = max(rel(floor["params"][k], v) for k, v in one["params"].items())
+    moved = max(rel(v, base[k]) for k, v in one["params"].items())
+    assert 0 < noise < moved
+    for k, v in ranks[0]["params"].items():
+        np.testing.assert_array_equal(ranks[1]["params"][k], v, err_msg=k)
+        assert rel(v, one["params"][k]) <= 4 * noise, k

@@ -55,6 +55,13 @@ CLI_RUNS = {
 }
 
 
+def family_method(name):
+    """The method of a runner family (``reg_<method>``,
+    ``distill_<method>``, ``scrub``, ``lirf``)."""
+    return name.split("_", 1)[1] if name.startswith(("reg_", "distill_")) \
+        else name
+
+
 def family_config(C, method, grad_accum=1, device=None):
     """The RunConfig of a family run in either package's config module
     ``C``: two epochs of SGD (momentum 0.9) at lr 0.05; SCRUB's sgda at
@@ -135,22 +142,22 @@ def run_family(name, trees, mesh=None, grad_accum=1):
     from gslora_tpu_torch.data.pipeline import CyclingLoader
     from gslora_tpu_torch.models.convert import params_from_jax
 
-    method = {"reg_ewc": "ewc", "distill_der_plus": "der_plus"}.get(name,
-                                                                      name)
+    method = family_method(name)
     cfg = family_config(tc, method, grad_accum, device="cpu")
     t = {k: params_from_jax(v) for k, v in trees.items()}
     ld = loaders(mesh)
     tbf, tbr = ld["tbf"], ld["tbr"]
     out = {}
-    if name == "reg_ewc":
-        # EWC's task 1: anchors at the start and after task 0, each with
-        # its global Fisher
+    if name.startswith("reg_"):
+        # EWC's (MAS's) task 1: anchors at the start and after task 0,
+        # each with its global Fisher (importance)
         p0 = t["p"]
 
         def importance(params):
             return estimate_importance(
-                "ewc", params, ld["importance"](ld["remain_tr"]), cfg.model,
-                cfg.lora, torch.float32, grad_accum=grad_accum, mesh=mesh)
+                method, params, ld["importance"](ld["remain_tr"]),
+                cfg.model, cfg.lora, torch.float32, grad_accum=grad_accum,
+                mesh=mesh)
 
         imp0 = importance(p0)
         task0 = run_regularization_task(
@@ -165,7 +172,7 @@ def run_family(name, trees, mesh=None, grad_accum=1):
         out["importance"] = numpy_tree(imp1)
         out["acc"] = [{k: r[k] for k in ACC_KEYS} for r in (task0, res)]
         return out
-    if name == "distill_der_plus":
+    if name.startswith("distill_"):
         res = run_distill_task(cfg, t["p"], t["teacher"],
                                lambda: iter(ld["forget"]),
                                CyclingLoader(ld["remain"]), tbf, tbr,
@@ -340,11 +347,80 @@ def run_on_mesh(name, trees, mesh):
     return {**out, "default_group_calls": list(seen)}
 
 
+def layout_runs():
+    """Family runs under the sharded layouts JAX's baseline runners take,
+    by name: (family, the MeshConfig its mesh is made from, world); each
+    is held to the JAX runners' one-device run. EWC with its importance
+    taken under tp (1 x 2), fsdp (2 x 1) and sp (1 x 2), MAS under sp,
+    LwF, DER++ and FDR under tp + fsdp (2 x 2), SCRUB under fsdp and a
+    model axis (2 x 2), LIRF's split under tp + fsdp + sp (2 x 2), DER++
+    under --mesh_slices 2 with tp (2 x 1 x 2); and SCRUB's SWA distance on
+    the shards of the fsdp + model mesh (``param_dist``)."""
+    from gslora_tpu_torch.config import MeshConfig
+    tp_fsdp = MeshConfig(model=2, tp=True, fsdp=True)
+    return {
+        "reg_ewc_tp": ("reg_ewc", MeshConfig(model=2, tp=True), 2),
+        "reg_ewc_fsdp": ("reg_ewc", MeshConfig(fsdp=True), 2),
+        "reg_ewc_sp": ("reg_ewc", MeshConfig(model=2, sp=True), 2),
+        "reg_mas_sp": ("reg_mas", MeshConfig(model=2, sp=True), 2),
+        "distill_lwf_tp_fsdp": ("distill_lwf", tp_fsdp, 4),
+        "distill_der_plus_tp_fsdp": ("distill_der_plus", tp_fsdp, 4),
+        "distill_fdr_tp_fsdp": ("distill_fdr", tp_fsdp, 4),
+        "scrub_fsdp_model2": ("scrub", MeshConfig(model=2, fsdp=True), 4),
+        "lirf_tp_fsdp_sp": ("lirf", MeshConfig(model=2, tp=True, fsdp=True,
+                                               sp=True), 4),
+        "distill_der_plus_dcn_tp": ("distill_der_plus",
+                                    MeshConfig(slices=2, model=2, tp=True),
+                                    4),
+        "param_dist": (None, MeshConfig(model=2, fsdp=True), 4),
+    }
+
+
+def param_dist_check(trees, mesh):
+    """SCRUB's SWA distance (p 0.1) between the student and the SWA model
+    and its gradient: of the whole trees, and of this rank's shards under
+    ``mesh`` (the gradient gathered whole); each as (value, flat numpy
+    gradient)."""
+    from gslora_tpu_torch.baselines.scrub import param_dist
+    from gslora_tpu_torch.models.convert import (flatten_tree,
+                                                 params_from_jax,
+                                                 unflatten_tree)
+    from gslora_tpu_torch.parallel import sharding
+    p, swa = (params_from_jax(trees[k]) for k in ("p", "swa"))
+
+    def value_and_grad(a, b, m):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in flatten_tree(a).items()}
+        d = param_dist(unflatten_tree(leaves), b, 0.1, m)
+        grads = torch.autograd.grad(d, list(leaves.values()))
+        return float(d), {k: sharding.gather(m, g, sharding.named_specs(
+            m, [k], [g])[0]).numpy() if m is not None else g.numpy()
+            for k, g in zip(leaves, grads)}
+
+    return {"whole": value_and_grad(p, swa, None),
+            "sharded": value_and_grad(sharding.shard_tree(mesh, p),
+                                      sharding.shard_tree(mesh, swa), mesh)}
+
+
+def run_on_layout(name, trees):
+    """A run of :func:`layout_runs` on this rank, on its mesh (made by
+    ``make_mesh`` through the baselines' guard)."""
+    from gslora_tpu_torch.parallel.mesh import (check_baseline_placement,
+                                                make_mesh)
+    family, cfg, _ = layout_runs()[name]
+    mesh = make_mesh(cfg, "cpu", check=check_baseline_placement)
+    if family is None:
+        return param_dist_check(trees, mesh)
+    return run_family(family, trees, mesh)
+
+
 def run(name, trees, mesh=None, grad_accum=1):
     """Run ``name``: a family, "importance", "dcp", a run of
-    :func:`mesh_runs`, or a CLI run (with --dp and an --outdir of the
-    rank's own in the working directory under a mesh; the mesh is the
-    CLI's own)."""
+    :func:`mesh_runs` or of :func:`layout_runs`, or a CLI run (with --dp
+    and an --outdir of the rank's own in the working directory under a
+    mesh; the mesh is the CLI's own)."""
+    if mesh is not None and name in layout_runs():
+        return run_on_layout(name, trees)
     if mesh is not None and name in mesh_runs():
         return run_on_mesh(name, trees, mesh)
     if name in FAMILIES:
@@ -368,11 +444,11 @@ def _host(tree):
             for k, v in flatten_tree(jax.tree.map(np.asarray, tree)).items()}
 
 
-def jax_family(name, trees, mesh_kw=None):
+def jax_family(name, trees, mesh_kw=None, one_device=False):
     """The family's runner calls in the JAX package, on a 2-device data
     mesh (or ``make_mesh(MeshConfig(**mesh_kw))``) of the test process's 8
-    host devices, with the same config, trees and padded global batches;
-    run by the test process only."""
+    host devices, or on one device (``one_device``), with the same config,
+    trees and padded global batches; run by the test process only."""
     import jax.numpy as jnp
 
     import gslora_tpu.config as jc
@@ -386,20 +462,20 @@ def jax_family(name, trees, mesh_kw=None):
     from torch_baselines_setup import loaders as jax_loaders
     from torch_baselines_setup import to_jax
 
-    mesh = make_mesh(jc.MeshConfig(**(mesh_kw or {"data": 2})))
-    method = {"reg_ewc": "ewc", "distill_der_plus": "der_plus"}.get(name,
-                                                                      name)
+    mesh = None if one_device else \
+        make_mesh(jc.MeshConfig(**(mesh_kw or {"data": 2})))
+    method = family_method(name)
     cfg = family_config(jc, method)
     t = {k: to_jax(v) for k, v in trees.items()}
     fl, rl, tbf, tbr = jax_loaders("jax", relabel=name != "scrub", bs=BS)
     out = {}
-    if name == "reg_ewc":
+    if name.startswith("reg_"):
         remain_tr = task_data("jax")[1]
 
         def importance(params):
             return estimate_importance(
-                "ewc", params, BatchLoader(remain_tr, BS, shuffle=False,
-                                           prefetch=0, mask_padding=True),
+                method, params, BatchLoader(remain_tr, BS, shuffle=False,
+                                            prefetch=0, mask_padding=True),
                 cfg.model, cfg.lora, jnp.float32)
 
         p0 = t["p"]
@@ -414,7 +490,7 @@ def jax_family(name, trees, mesh_kw=None):
             mesh=mesh)
         out["importance"] = _host(imp1)
         runs = (task0, res)
-    elif name == "distill_der_plus":
+    elif name.startswith("distill_"):
         res = run_distill_task(cfg, t["p"], t["teacher"], lambda: iter(fl),
                                CyclingLoader(rl), tbf, tbr, mesh=mesh)
         runs = (res,)

@@ -67,21 +67,23 @@ def start_ranks(outdir, names, world, device="cpu"):
     return finish
 
 
-def init_tree(depth=2):
+def init_tree(depth=2, overrides=None, pos="FFN"):
     """One parameter tree for both packages (numpy leaves, drawn by the JAX
-    package's init), its LoRA B factors nonzero."""
+    package's init) of the tiny model with ``overrides`` and a rank-4
+    LoRA at ``pos``, its LoRA B factors nonzero."""
     import jax
 
     import gslora_tpu.config as jc
     from gslora_tpu.models.vit import init_vit_params
     p = jax.tree.map(np.asarray, init_vit_params(
-        jax.random.key(0), jc.ViTConfig(**{**dpw.MODEL, "depth": depth}),
-        jc.LoraConfig(rank=4)))
+        jax.random.key(0), jc.ViTConfig(**{**dpw.MODEL, "depth": depth,
+                                           **(overrides or {})}),
+        jc.LoraConfig(rank=4, pos=pos)))
     rng = np.random.RandomState(1)
-    for name in ("B1", "B2"):
-        b = p["lora"]["ffn"][name]
-        p["lora"]["ffn"][name] = (0.05 * rng.randn(*b.shape)).astype(
-            np.float32)
+    for sub in p["lora"].values():
+        for name in [k for k in sub if k.startswith("B")]:
+            sub[name] = (0.05 * rng.randn(*sub[name].shape)).astype(
+                np.float32)
     return p
 
 
@@ -100,10 +102,11 @@ def pretrained_tree(init, monkeypatch):
     return {"base": base, "lora": init["lora"]}
 
 
-def jax_run(cli, argv, tree, monkeypatch):
+def jax_run(cli, argv, tree, monkeypatch, overrides=None):
     """The JAX CLI ``cli`` on one device with ``argv`` (no --dp, no layout,
-    no --device), the tiny model and ``tree``; the report, the final
-    parameters (flat numpy) and the eval history of every forget run."""
+    no --device), the tiny model with ``overrides`` and ``tree``; the
+    report, the final parameters (flat numpy), the eval history of every
+    forget run and the pair verifications it logged."""
     import jax
     import jax.numpy as jnp
 
@@ -114,11 +117,14 @@ def jax_run(cli, argv, tree, monkeypatch):
     def config(args):
         cfg = orig(args)
         cfg.model = jc.ViTConfig(**{**dpw.MODEL, "depth": args.vit_depth,
-                                    "head_type": args.head})
+                                    "head_type": args.head,
+                                    **(overrides or {})})
         cfg.ver_freq = dpw.VER_FREQ
         return cfg
 
     monkeypatch.setattr(module, "config_from_args", config)
+    import gslora_tpu.metrics.logging as jlog
+    verification = mw.verification_spy(jlog, monkeypatch.setattr)
     monkeypatch.setattr(module, "build_params", lambda cfg, seed=None:
                         jax.tree.map(jnp.asarray, tree))
     seen = {"history": []}
@@ -164,7 +170,7 @@ def jax_run(cli, argv, tree, monkeypatch):
     report = module.main(list(argv) + ["--outdir", ""])
     if "state" in seen:
         seen["params"] = host(seen.pop("state").params)
-    return {"report": report, **seen}
+    return {"report": report, "verification": verification, **seen}
 
 
 def references(names, trees, monkeypatch, outdir=None):
@@ -183,8 +189,8 @@ def references(names, trees, monkeypatch, outdir=None):
                           setattr_=monkeypatch.setattr,
                           outdir=str(Path(outdir) / f"{name}.one")
                           if name in mw.WRITES else "")
-            ref = jax_run(cli, argv, tree, monkeypatch) \
-                if not overrides else None
+            ref = jax_run(cli, argv, tree, monkeypatch, overrides) \
+                if not overrides or name in mw.STRUCTURAL else None
             done[key] = (port, ref)
         one[name], jax_ref[name] = done[key]
     return one, jax_ref
@@ -230,7 +236,7 @@ def expected_spec(name, ndim, data, model, tp, fsdp, pp=False):
     parts = name.split(".")
     spec = [None] * ndim
     if pp and model > 1:
-        if "blocks" in parts or "ffn" in parts:
+        if "blocks" in parts or "ffn" in parts or "attn" in parts:
             spec[0] = "model"
         return spec
     if "head" in parts and parts[-1] == "weight" and model > 1:
@@ -276,3 +282,24 @@ def layout_of(name):
     data = flag("--mesh_data", world // (model * slices))
     return data, model, "--tp" in flags, "--fsdp" in flags, \
         "--pp" in flags, slices
+
+
+def jax_refusal(mesh_kw, flags, baseline=False):
+    """The ValueError message of what JAX refuses for ``flags`` on the mesh
+    of ``mesh_kw`` over its host devices: the baseline runners' pp guard
+    first (``baseline``: JAX's run_regularization_task raises it before
+    anything else), then placement()."""
+    import gslora_tpu.config as jc
+    from gslora_tpu.baselines.regularization import run_regularization_task
+    from gslora_tpu.parallel.mesh import make_mesh, placement
+    try:
+        if baseline and flags.get("pp"):
+            run_regularization_task(
+                jc.RunConfig(mesh=jc.MeshConfig(**mesh_kw, **flags)), {},
+                None, None, None, lam=0.0, anchors=[], importances=[])
+        placement(make_mesh(jc.MeshConfig(**mesh_kw)), **flags)
+    except ValueError as e:
+        return str(e)
+    finally:
+        placement(None)
+    raise AssertionError(f"JAX runs {flags} on {mesh_kw}")

@@ -30,6 +30,12 @@ TP = ["--tp", "--mesh_model", "2"]
 SP = ["--sp", "--mesh_model", "2"]
 PP = ["--pp", "--mesh_model", "2"]
 DCN = ["--mesh_slices", "2"]
+ATTN = dpw.FORGET + ["--lora_pos", "Attention"]
+# ViT-B/16's structure at the tiny width (16 px, 16 / 8 + 1 = 5 tokens)
+B16 = dict(soft_split=True, ac_patch_size=8, pad=0, qkv_bias=True,
+           attn_scale="dim_head")
+# the face ViT's overlapping soft split (kernel 12, stride 8, pad 4)
+VITS = dict(soft_split=True, ac_patch_size=12, pad=4)
 # scenario -> (CLI, argv without the layout, layout flags, the tree it
 # starts from, model overrides, world)
 SCENARIOS = {
@@ -98,10 +104,49 @@ SCENARIOS = {
                         "pretrained", {}, 4),
     "forget_subworld_tp": ("train_forget", dpw.FORGET,
                            ["--mesh_data", "1"] + TP, "pretrained", {}, 4),
+    # every model and LoRA position under the layouts (the structures of
+    # B16 and VITS, which both packages' CLIs take as the model): ViT-B/16
+    # (qkv bias, head-dim scale, conv patchify, Softmax head with a bias)
+    # under tp + fsdp, sp and pp; the face ViT's soft split under tp; the
+    # attention LoRA under fsdp, tp, sp and pp (its group-Lasso and norms
+    # over the stages)
+    "b16_tp_fsdp": ("train_forget", dpw.FORGET + ["-n", "VIT_B16"],
+                    TP + ["--fsdp"], "b16", B16, 4),
+    "b16_sp": ("train_forget", dpw.FORGET + ["-n", "VIT_B16"], SP, "b16",
+               B16, 2),
+    "b16_pp": ("train_forget", dpw.FORGET + ["-n", "VIT_B16"],
+               PP + ["--pp_micro", "2"], "b16", B16, 2),
+    "vits_tp": ("train_forget", dpw.FORGET + ["-n", "VITs"], TP, "vits",
+                VITS, 4),
+    "attn_fsdp": ("train_forget", ATTN, ["--fsdp"], "attn", {}, 2),
+    "attn_tp": ("train_forget", ATTN, TP, "attn", {}, 4),
+    "attn_sp": ("train_forget", ATTN, SP, "attn", {}, 2),
+    "attn_pp": ("train_forget", ATTN, PP + ["--pp_micro", "2"], "attn", {},
+                2),
+    # pair verification on the gathered parameters, rank 0 alone (the
+    # .bin in the working directory)
+    "pretrain_ver_tp_fsdp": ("train_pretrain", dpw.PRETRAIN + [
+        "--ver_targets", "lfw", "--data_root", "."], TP + ["--fsdp"],
+        "init", {}, 4),
 }
+# the card test of tests/test_torch_parallel.py: a baseline (train_forget
+# --ewc, every parameter training but the head) under tp in bf16 through
+# the kernels, from a tree without LoRA
+SCENARIOS["ewc_tp_card"] = (
+    "train_forget", ["-d", "synthetic", "--vit_depth", "2", "--head",
+                     "Softmax", "--lora_rank", "0", "-b", "8", "-e", "2",
+                     "--lr", "1e-3", "--warmup-epochs", "0",
+                     "--num_of_first_cls", "6", "--per_forget_cls", "2",
+                     "--few_shot", "--few_shot_num", "4", "--compute_dtype",
+                     "bfloat16", "--ewc", "--ewc_lambda", "50"],
+    TP, "base", {}, 2)
+# scenarios whose model overrides are the structure of the model they
+# name (the JAX run takes them too), not a departure from it
+STRUCTURAL = {name for name, spec in SCENARIOS.items()
+              if spec[4] in (B16, VITS)}
 # scenarios whose rank 0 (and one process) write their files to
 # ``<dir>/<scenario>.out`` (``.one`` for the one-process run)
-WRITES = ("pretrain_pp",)
+WRITES = ("pretrain_pp", "pretrain_ver_tp_fsdp")
 # scenarios whose every rank has an outdir of its own,
 # ``<dir>/<scenario>.out<rank>``, and whose collectives after the groups
 # are made are recorded (``default_group_calls``)
@@ -195,9 +240,10 @@ def watch_default_group(module, setattr_=setattr):
 
 
 def run(name, tree, layout=True, setattr_=setattr, device="cpu",
-        outdir=""):
+        outdir="", extra=()):
     """Scenario ``name``'s CLI from ``tree``: with ``--dp`` and its layout
-    flags (a rank), or without both (the one-process run), writing its
+    flags (a rank), or without both (the one-process run), with ``extra``
+    flags, writing its
     files to ``outdir`` when given. Returns the report, the history, the
     final parameters whole and, on a rank, its shards."""
     import importlib
@@ -207,7 +253,8 @@ def run(name, tree, layout=True, setattr_=setattr, device="cpu",
     cli, argv, flags, _, overrides, _ = SCENARIOS[name]
     module = importlib.import_module(f"gslora_tpu_torch.cli.{cli}")
     patch(module, tree, overrides, setattr_)
-    argv = list(argv) + ["--device", device, "--outdir", outdir]
+    argv = list(argv) + ["--device", device, "--outdir", outdir] + \
+        list(extra)
     if layout:
         argv += ["--dp"] + flags
     seen = {}
@@ -220,17 +267,29 @@ def run(name, tree, layout=True, setattr_=setattr, device="cpu",
         return dpw.numpy_tree(sharding.gather_tree(mesh, params))
 
     if cli == "train_pretrain":
+        seen["verification"] = verification_spy(module, setattr_)
         report, state = module.main(argv, return_state=True)
         if state is None:  # an idle rank
             return {"report": report, **seen}
         moments = dict(zip(state.trainable_names(), state.opt_state["mu"]))
         out = {"report": report, "params": whole(state.params),
                "shards": seen["shards"], "history": [],
-               "moments": {k: tuple(v.shape) for k, v in moments.items()}}
+               "moments": {k: tuple(v.shape) for k, v in moments.items()},
+               "verification": seen["verification"]}
         if layout:
             out["restored"] = recovery(state, name)
         return out
-    if cli == "train_forget":
+    if cli == "train_forget" and "--ewc" in argv:
+        # a baseline's runner returns its trees whole
+        fn = module.run_regularization_task
+
+        def spy(*a, **k):
+            res = fn(*a, **k)
+            seen["params"] = dpw.numpy_tree(res["params"])
+            seen["history"] = []
+            return res
+        setattr_(module, "run_regularization_task", spy)
+    elif cli == "train_forget":
         fn = module.run_forget_training
 
         def spy(*a, **k):
@@ -260,6 +319,37 @@ def run(name, tree, layout=True, setattr_=setattr, device="cpu",
         setattr_(module, "run_continual_forgetting", spy)
     report = module.main(argv)
     return {"report": report, **seen}
+
+
+def verification_spy(module, setattr_=setattr):
+    """Record each pair verification ``module`` logs (``buffer_val``):
+    the list of (target, batch, accuracy, std) it is kept in."""
+    kept = []
+    log = module.buffer_val
+
+    def spy(logger, name, acc, std, *a, batch=None, **k):
+        kept.append((name, batch, float(acc), float(std)))
+        return log(logger, name, acc, std, *a, batch=batch, **k)
+
+    setattr_(module, "buffer_val", spy)
+    return kept
+
+
+def l1_norms(rank, world, outdir):
+    """The LoRA's per-block group norms (L1 and L2) of the init tree on a
+    1 x 2 tp mesh (B1 and A2 sharded over ``model``), on this rank's
+    shards."""
+    from gslora_tpu_torch.config import MeshConfig
+    from gslora_tpu_torch.lora.core import lora_group_norms
+    from gslora_tpu_torch.models.convert import params_from_jax
+    from gslora_tpu_torch.parallel import sharding
+    from gslora_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(MeshConfig(model=2, tp=True), "cpu")
+    tree = params_from_jax(dpw.load_tree(os.path.join(outdir, "init.npz")))
+    lora = sharding.shard_tree(mesh, tree)["lora"]
+    return {"shards": dpw.numpy_tree(lora),
+            **{f"ord{o}": lora_group_norms(lora, "FFN", ord=o)
+               for o in (1, 2)}}
 
 
 def recovery(state, name):
@@ -397,6 +487,8 @@ def main(argv):
                 out = pp_remat(rank, world)
             elif name == "dcn_sums":
                 out = dcn_sums(rank, world)
+            elif name == "l1_norms":
+                out = l1_norms(rank, world, outdir)
             else:
                 tree = dpw.load_tree(os.path.join(
                     outdir, SCENARIOS[name][3] + ".npz"))
