@@ -77,7 +77,8 @@ non-zero exit code and without the final result line.
 8. Baseline phase: every baseline of the zoo (Retrain, Replay, L2, EWC,
    MAS, LwF, DER, DER++, FDR, SCRUB, LIRF) through train_forget_cl, 2
    tasks, and train_forget --ewc and --retrain, at the flagship width and
-   depth with scripts/run_cl_forget_open.sh's windows (bs 48, 80 + 20
+   depth 2 (the integration phase runs every method at depth 6) with
+   scripts/run_cl_forget_open.sh's windows (bs 48, 80 + 20
    classes, 10 open) and rank 0, cut to 1 epoch, 4 images per class and
    1 SCRUB superepoch. Checks finite accuracies of every task, the task
    snapshots, and K1's counts per run against those its flags and data
@@ -128,8 +129,8 @@ non-zero exit code and without the final result line.
 12. Data-parallel phase (slice 7): train_forget (GS-LoRA, bs 48, 20
    steps), train_forget_cl (--one_stage, prox, EMA, 2 tasks) and
    train_pretrain (bs 480, 10 steps; and with --grad_accum 2) with --dp
-   at the flagship width, dropout off, in two ranks of this script
-   (``--dp-rank``) sharing the card through gloo (and with the one
+   at the flagship width and depth 2, dropout off, in two ranks of this
+   script (``--dp-rank``) sharing the card through gloo (and with the one
    process, whose references run while the ranks do), each against one
    process with twice the --grad_accum (whose micro-batches are the
    ranks' rows): K1's and K2's counts per rank as derived, both ranks'
@@ -146,7 +147,8 @@ non-zero exit code and without the final result line.
    AsyncSaver in one process and in both ranks (one gloo group), read
    back equal with a template on the card and without one.
 13. Layout phase (slice 9, the (data, model) mesh; every world's ranks
-   start together and run beside the one-process references):
+   start together and run beside the one-process references; the face
+   ViT at depth 2, as in the data-parallel phase):
    train_forget with --fsdp (2 x 1), with --tp --mesh_model 2 (1 x 2),
    factored and merged (2 of the recipe's 5 epochs);
    train_forget_cl --one_stage with prox, --fsdp --mesh_model 2 (2 x 2,
@@ -198,10 +200,26 @@ non-zero exit code and without the final result line.
    --pp (1 x 2, block 0's attention backward on stage 0 too). Each held
    as the others: launches per rank derived, block-kernel bytes by the
    rules, LAYOUT_FLOOR_FACTOR times the noise floor.
-14. Prints the kernels line, then the result line.
+14. Integration phase (slice 15, right after the baseline phase): the
+   four flagship integration tools (gslora_tpu_torch/tools/, the ports
+   of the JAX package's scripts/integration_*.py) through their run
+   functions at the flagship width and depth and their scripts' recipes,
+   every epoch count cut to 1, bf16: integration_synthetic --unsaturated
+   (single-step GS-LoRA with the alpha warm-up, prototypes and EMA), all
+   twelve methods of integration_baselines --unsaturated, the four
+   default methods of integration_baselines_cl for 2 tasks, and
+   integration_continual --unsaturated for its 4 tasks, from one base at
+   $PRETRAIN_CKPT in a temporary directory (the first tool pretrains it
+   for 1 epoch and says so, the others say they loaded it). Checks each
+   report against the JAX script's keys, every accuracy finite and in
+   [0, 100], K1's counts per tool against those its recipe and data
+   imply, K2 and K3 at 0, and that no file appeared in the working tree;
+   prints each tool's wall and peak memory.
+15. Prints the kernels line, then the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -239,16 +257,19 @@ from gslora_tpu_torch.cli import (backbone_probe, export_torch,  # noqa: E402
 from gslora_tpu_torch.cli.common import (build_datasets,  # noqa: E402
                                          build_missing_dataset,
                                          build_params)
-from gslora_tpu_torch.config import (ForgetConfig, LoraConfig,  # noqa: E402
-                                     MeshConfig, OptimConfig, ViTConfig,
-                                     build_parser, config_from_args)
+from gslora_tpu_torch.config import (DataConfig,  # noqa: E402
+                                     ForgetConfig, LoraConfig, MeshConfig,
+                                     OptimConfig, ViTConfig, build_parser,
+                                     config_from_args)
 from gslora_tpu_torch import native  # noqa: E402
 from gslora_tpu_torch.data.folders import (ImageFolderDataset,  # noqa: E402
                                            SubsetDataset)
 from gslora_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
 from gslora_tpu_torch.data.recordio import (FaceRecordDataset,  # noqa: E402
                                             read_record, write_recordio)
-from gslora_tpu_torch.data.splits import make_order_list  # noqa: E402
+from gslora_tpu_torch.data.splits import (make_order_list,  # noqa: E402
+                                          ratio_subset,
+                                          split_by_class_window)
 from gslora_tpu_torch.engine import continual as CONT  # noqa: E402
 from gslora_tpu_torch.engine.continual import (PROTO_BATCH,  # noqa: E402
                                                detached, split_task_data)
@@ -277,6 +298,12 @@ from gslora_tpu_torch.parallel import sharding  # noqa: E402
 from gslora_tpu_torch.parallel.mesh import (active_mesh,  # noqa: E402
                                             make_mesh)
 from gslora_tpu_torch.tools import bench_inference as BI  # noqa: E402
+from gslora_tpu_torch.tools import flagship  # noqa: E402
+from gslora_tpu_torch.tools import integration_baselines as IB  # noqa: E402
+from gslora_tpu_torch.tools import (  # noqa: E402
+    integration_baselines_cl as ICL)
+from gslora_tpu_torch.tools import integration_continual as IC  # noqa: E402
+from gslora_tpu_torch.tools import integration_synthetic as IS  # noqa: E402
 from gslora_tpu_torch.tools import group_bench as GB  # noqa: E402
 from gslora_tpu_torch.utils.profiling import (device_summary,  # noqa: E402
                                               trace)
@@ -362,7 +389,8 @@ def path_shapes():
     missing-class batch (one size) and its eval batch, at its own scale;
     the baselines' train and eval batches; the eval base's train and eval
     batches and the rest of the eval and serving surface's
-    (eval_surface_shapes)."""
+    (eval_surface_shapes); the integration tools' train, fused, eval,
+    pretrain and prototype batches."""
     shapes = set()
     for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV, IMAGENET_ARGV,
                  BASELINE_ARGV, EVAL_BASE_ARGV):
@@ -397,6 +425,13 @@ def path_shapes():
                       for b in (local, local * cfg.data.test_batch_scale))
         shapes.update((bs // a * m.heads, m.seq_len, attention_scale(m))
                       for a in (ways, 2 * ways))
+    # the integration tools: the train batch, GS-LoRA's fused batch, the
+    # evals of 240 and 250 images, the pretrain batch and the continual
+    # prototypes (every loader pads its tail on the card)
+    m = flagship.model_config(unsaturated=True)
+    shapes.update((b * m.heads, m.seq_len, attention_scale(m)) for b in
+                  (flagship.BS, 2 * flagship.BS, IB.EVAL_BS, IS.EVAL_BS,
+                   IC.EVAL_BS, flagship.PRETRAIN_BS, PROTO_BATCH))
     shapes.update(eval_surface_shapes())
     return sorted(shapes)
 
@@ -725,36 +760,49 @@ def forget_passes(grad_accum):
 
 
 def expected_launches(argv):
-    """Attention launches the single-step path implies (on one rank of a
-    --dp run: the same counts over its rows): 'depth' forward launches per
-    forward; 'depth - 1' backward launches per training forward (the FFN
-    LoRA's gradient never needs block 0's attention inputs, so autograd
-    skips that backward), 'depth' with an attention LoRA (block 0's qkv
-    LoRA needs them); the test evals before training, every ver_freq
-    steps and at the end; the prototypes (--prototype)."""
+    """(forward, backward) attention launches the single-step CLI implies
+    (on one rank of a --dp run: the same counts over its rows), from its
+    flags and data (:func:`forget_run_launches`)."""
     cfg = config_from_args(build_parser().parse_args(argv))
-    bs = cfg.data.batch_size
-    assert not cfg.forget.few_shot and not cfg.forget.average_weight and \
-        not cfg.fused_batch
+    assert not cfg.forget.average_weight and not cfg.fused_batch
     train, test = datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
-    data = train_forget.single_step_data(cfg, train, test, order)
+    want = forget_run_launches(
+        cfg, train_forget.single_step_data(cfg, train, test, order))
+    return want["attention_fwd"], want["attention_bwd"]
+
+
+def forget_run_launches(cfg, data):
+    """K1 launches of engine/loop.run_forget_training (single step) at
+    ``cfg`` on ``data``: 'depth' forward launches per forward; 'depth -
+    1' backward launches per training forward (the FFN LoRA's gradient
+    never needs block 0's attention inputs, so autograd skips that
+    backward), 'depth' with an attention LoRA (block 0's qkv LoRA needs
+    them); the forget and remain forwards of a step, or one of both
+    (fused_batch), with grad_accum as forget_passes says; the test evals
+    before training, every ver_freq steps, after each epoch from
+    ema_epoch on (average_weight) and at the end; the prototypes."""
+    f, bs = cfg.forget, cfg.data.batch_size
+    assert not f.few_shot and f.aug_num == 0
     n_tf, n_tr = len(data.train_forget), len(data.train_remain)
     batches = lambda n, b: -(-n // b)  # noqa: E731
     test_bs = bs * cfg.data.test_batch_scale
     evals = batches(len(data.test_forget), test_bs) + \
         batches(len(data.test_remain), test_bs)
-    protos = batches(n_tf, bs) + batches(n_tr, bs) \
-        if cfg.forget.prototype else 0
+    protos = batches(n_tf, bs) + batches(n_tr, bs) if f.prototype else 0
     # the remain stream drives each epoch
     steps = cfg.num_epoch * batches(n_tr, bs)
-    rounds = 2 + steps // cfg.ver_freq
+    ema_rounds = max(0, cfg.num_epoch - f.ema_epoch) \
+        if f.average_weight else 0
+    rounds = 2 + steps // cfg.ver_freq + ema_rounds
     fwd, bwd = forget_passes(cfg.optim.grad_accum)
+    streams = 1 if cfg.fused_batch else 2
     depth = cfg.model.depth
     per_bwd = depth if cfg.lora.pos == "Attention" else depth - 1
-    # forget and remain forwards (no fused batch)
-    return depth * (rounds * evals + protos + 2 * fwd * steps), \
-        per_bwd * 2 * bwd * steps
+    return {"attention_fwd": depth * (rounds * evals + protos +
+                                      streams * fwd * steps),
+            "attention_bwd": per_bwd * streams * bwd * steps,
+            "group_prox": 0, "group_norms": 0, "group_scale": 0}
 
 
 _DATASETS = {}
@@ -769,6 +817,21 @@ def datasets(cfg):
     if key not in _DATASETS:
         _DATASETS[key] = build_datasets(cfg)
     return _DATASETS[key]
+
+
+def share_datasets():
+    """Every CLI this process runs takes its synthetic sets from the
+    :func:`datasets` cache, so no run draws the same 400 MB again (some
+    seconds a run; the layout phase's one-process references make dozens
+    of runs). The CLIs only read the sets; folder data is built as
+    before."""
+    def shared(cfg):
+        return datasets(cfg) if cfg.data.data_mode == "synthetic" \
+            else build_datasets(cfg)
+
+    for cli in (train_forget, train_forget_cl, train_pretrain, test_model,
+                backbone_probe):
+        cli.build_datasets = shared
 
 
 def reset_counts():
@@ -920,6 +983,11 @@ def profiler_phase(runs, card):
 
 
 MODEL_FLAGS = ["-n", "VIT", "--vit_depth", "6", "--head", "CosFace"]
+# The baseline, data-parallel and layout phases run the flagship's width
+# at depth 2 (the fewest blocks pp's two stages take): at depth 6 they do
+# not fit the script's 1200 s beside the integration phase, which runs
+# every method at full depth.
+CUT_MODEL_FLAGS = ["-n", "VIT", "--vit_depth", "2", "--head", "CosFace"]
 PRETRAIN_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
                  "-b", "480", "-e", "4", "--lr", "3e-4",
                  "--compute_dtype", "bfloat16"]
@@ -1157,24 +1225,34 @@ CL_ARGV = ["-d", "synthetic", "-n", "VIT", "--vit_depth", "6",
 
 
 def expected_cl_launches(argv):
-    """K1 and K2 launches the continual path implies, from its flags. Per
-    task: the old-class evals before and after training (task > 0); the
-    prototypes (batches of PROTO_BATCH, with --prototype); the test forget
-    and remain evals before training, every ver_freq steps, after each
-    epoch from ema_epoch on (--average_weight) and at the end; two training
-    forwards per step. With --imagenet_miss_root, the missing-class evals
-    before and after the run (batches of -b). 'depth' forward launches per
-    forward, 'depth - 1' backward per training forward (FFN LoRA), with
-    --grad_accum as forget_passes says; K2 once per training step under
-    --structure_mode prox. One rank of a --dp run launches these counts
-    over its rows."""
+    """K1 and K2 launches the continual CLI implies, from its flags (see
+    :func:`cl_launches`); with --imagenet_miss_root, the missing-class
+    evals before and after the run (batches of -b) too."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    miss = 0
+    if cfg.data.data_mode == "imagenet100" and args.imagenet_miss_root:
+        miss = len(build_missing_dataset(cfg, args.imagenet_miss_root))
+    return cl_launches(cfg, *datasets(cfg), miss=miss)
+
+
+def cl_launches(cfg, train, test, miss=0):
+    """K1 and K2 launches of engine/continual.run_continual_forgetting at
+    ``cfg`` over (train, test). Per task: the old-class evals before and
+    after training (task > 0); the prototypes (batches of PROTO_BATCH,
+    with prototype); the test forget and remain evals before training,
+    every ver_freq steps, after each epoch from ema_epoch on
+    (average_weight) and at the end; two training forwards per step, or
+    one of both batches (fused_batch). ``miss`` images scored before and
+    after the run (batches of the training batch). 'depth' forward
+    launches per forward, 'depth - 1' backward per training forward (FFN
+    LoRA), with grad_accum as forget_passes says; K2 once per training
+    step under structure_mode prox. One rank of a --dp run launches these
+    counts over its rows."""
     f, bs = cfg.forget, cfg.data.batch_size
-    assert f.open_cls_num == 0 and cfg.lora.pos == "FFN" and \
-        not cfg.fused_batch
+    assert f.open_cls_num == 0 and cfg.lora.pos == "FFN"
     f_pass, b_pass = forget_passes(cfg.optim.grad_accum)
-    train, test = datasets(cfg)
+    streams = 1 if cfg.fused_batch else 2
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
     batches = lambda n, b: -(-n // b)  # noqa: E731
     test_bs = bs * cfg.data.test_batch_scale
@@ -1194,15 +1272,13 @@ def expected_cl_launches(argv):
         protos = batches(len(data.train_forget), PROTO_BATCH) + \
             batches(len(data.train_remain), PROTO_BATCH) \
             if f.prototype else 0
-        fwd += rounds * evals + old_evals + protos + 2 * f_pass * n
+        fwd += rounds * evals + old_evals + protos + streams * f_pass * n
         steps += n
-    if cfg.data.data_mode == "imagenet100" and args.imagenet_miss_root:
-        miss = build_missing_dataset(cfg, args.imagenet_miss_root)
-        fwd += 2 * batches(len(miss), bs)
+    fwd += 2 * batches(miss, bs)
     depth = cfg.model.depth
     prox = steps if cfg.structure_mode == "prox" else 0
     return {"attention_fwd": depth * fwd,
-            "attention_bwd": (depth - 1) * 2 * b_pass * steps,
+            "attention_bwd": (depth - 1) * streams * b_pass * steps,
             "group_prox": prox, "group_norms": 0, "group_scale": 0}
 
 
@@ -1439,12 +1515,12 @@ def imagenet_bench(card, steps=10):
     return run, ms
 
 
-# The baseline zoo at the face flagship's width (ViT-P8S8, depth 6 uncut),
+# The baseline zoo at the face flagship's width (ViT-P8S8, depth 2),
 # with the flags of scripts/run_cl_forget_open.sh (bs 48, 80 first classes,
 # 20 forgotten per task, 10 open classes, lr 1e-2, min lr 1e-5) and rank
 # 0 as the reference's baselines run (scripts/run_cl_forget.sh), cut to 2
 # tasks x 1 epoch, 4 images per class, 1 SCRUB superepoch
-BASELINE_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
+BASELINE_ARGV = ["-d", "synthetic", *CUT_MODEL_FLAGS, "--lora_rank", "0",
                  "-b", "48", "-e", "1", "--lr", "1e-2", "--warmup-epochs",
                  "0", "--min-lr", "1e-5", "--num_tasks", "2",
                  "--num_of_first_cls", "80", "--per_forget_cls", "20",
@@ -1462,29 +1538,36 @@ BASELINE_STEP = {"reg": (1, 1), "lwf": (3, 2), "der": (3, 2), "fdr": (3, 2),
 REG_FAMILY = ("retrain", "replay", "l2", "ewc", "mas")
 
 
-def expected_baseline_launches(argv, datasets=None):
+def expected_baseline_launches(argv):
     """K1 launches train_forget_cl implies for a baseline, from its flags
-    and the data (cli/train_forget_cl.run_baseline_continual). Per task:
-    the forget test eval before training; the training steps
-    (BASELINE_STEP each); for EWC and MAS the importance batches (task
-    0's remain subset and, before the next task, its full remain split),
-    a forward and a backward each; the evals every ver_freq steps, after
-    each SCRUB superepoch and each LIRF epoch, and at the end (forget,
-    remain and open for all but LIRF, which scores forget and remain
-    after each epoch and open at the end); the old-class eval (task > 0).
-    'depth' launches per forward, per backward of a student forward, and
-    per importance batch, each of a training step and an importance batch
-    once per micro-batch of --grad_accum (padded batches on the card, so
-    it divides each); K2 and K3: 0. On a rank of a --dp run the same
-    counts hold over its rows. ``datasets``: the run's (train, test),
-    when already built."""
+    and the data (:func:`baseline_cl_launches`)."""
     cfg = config_from_args(build_parser().parse_args(argv))
+    assert cfg.lora.rank == 0 and cfg.forget.few_shot and \
+        cfg.forget.open_cls_num > 0
+    train, test = datasets(cfg)
+    return baseline_cl_launches(cfg, train, test)
+
+
+def baseline_cl_launches(cfg, train, test):
+    """K1 launches cli/train_forget_cl.run_baseline_continual implies for
+    the baseline of ``cfg`` over (train, test). Per task: the forget test
+    eval before training; the training steps (BASELINE_STEP each); for
+    EWC and MAS the importance batches (task 0's remain subset and,
+    before the next task, its full remain split), a forward and a
+    backward each; the evals every ver_freq steps, after each SCRUB
+    superepoch and each LIRF epoch, and at the end (forget, remain and
+    open for all but LIRF, which scores forget and remain after each
+    epoch and open at the end); the old-class eval (task > 0). 'depth'
+    launches per forward, per backward of a student forward (everything
+    but the head trains, so block 0's attention backward runs too), and
+    per importance batch, each of a training step and an importance
+    batch once per micro-batch of grad_accum (padded batches on the card,
+    so it divides each); K2 and K3: 0. On a rank of a --dp run the same
+    counts hold over its rows."""
     f, b, bs = cfg.forget, cfg.baseline, cfg.data.batch_size
     micro = cfg.optim.grad_accum
-    assert bs % micro == 0 and not cfg.model.remat and \
-        cfg.lora.rank == 0 and f.few_shot and f.open_cls_num > 0
+    assert bs % micro == 0 and not cfg.model.remat
     method = b.method
-    train, test = datasets or build_datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
     batches = lambda n, bb: -(-n // bb)  # noqa: E731
     test_bs = bs * cfg.data.test_batch_scale
@@ -1494,8 +1577,9 @@ def expected_baseline_launches(argv, datasets=None):
         data, old_te = split_task_data(cfg, train, test, order, task,
                                        cfg.data.seed + task)
         n_f, n_r = len(data.train_forget), len(data.train_remain)
-        ev_f, ev_r, ev_o = (batches(len(d), test_bs) for d in (
-            data.test_forget, data.test_remain, data.test_open))
+        ev_f, ev_r, ev_o = (batches(len(d) if d is not None else 0, test_bs)
+                            for d in (data.test_forget, data.test_remain,
+                                      data.test_open))
         if method == "scrub":
             steps = b.scrub_superepoch * (5 * batches(n_f, bs) +
                                           10 * batches(n_r, bs))
@@ -1525,21 +1609,20 @@ def expected_baseline_launches(argv, datasets=None):
             "group_prox": 0, "group_norms": 0, "group_scale": 0}
 
 
-def expected_single_step_launches(argv, datasets=None):
+def expected_single_step_launches(argv):
     """K1 launches train_forget implies for --retrain, --l2, --ewc or
     --MAS (cli/train_forget.run_single_step_baseline): the forget test
     eval before; one forward and backward per step over the remain subset
     (Retrain) or relabeled forget + remain; for EWC and MAS the importance
     batches over the full first window's remain split; the forget, remain
     and open evals at the end. 'depth' launches each, a step's and an
-    importance batch's once per micro-batch of --grad_accum; ``datasets``
-    as for :func:`expected_baseline_launches`."""
+    importance batch's once per micro-batch of --grad_accum."""
     cfg = config_from_args(build_parser().parse_args(argv))
     f, b, bs = cfg.forget, cfg.baseline, cfg.data.batch_size
     micro = cfg.optim.grad_accum
     assert bs % micro == 0 and not cfg.model.remat and \
         f.few_shot and f.open_cls_num > 0
-    train, test = datasets or build_datasets(cfg)
+    train, test = datasets(cfg)
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
     batches = lambda n, bb: -(-n // bb)  # noqa: E731
     test_bs = bs * cfg.data.test_batch_scale
@@ -1573,15 +1656,12 @@ def baseline_phase():
     runs = [("train_forget_cl", flag) for flag in BASELINE_FLAGS] + \
         [("train_forget", flag) for flag in SINGLE_STEP_FLAGS]
     t_phase = time.perf_counter()
-    # every run's data: the same flags but the method
-    datasets = build_datasets(config_from_args(build_parser().parse_args(
-        BASELINE_ARGV)))
     for cli, flag in runs:
         with tempfile.TemporaryDirectory() as out:
             argv = BASELINE_ARGV + [flag, "--outdir", out]
             single = cli == "train_forget"
             want = (expected_single_step_launches if single else
-                    expected_baseline_launches)(argv, datasets)
+                    expected_baseline_launches)(argv)
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
@@ -1623,11 +1703,295 @@ def baseline_phase():
             total[k] += launches[k]
     print("baselines " + json.dumps({
         "recipe": "train_forget_cl x 11 methods (2 tasks x 1 epoch) and "
-                  "train_forget --ewc / --retrain, depth 6 dim 512 bs 48, "
+                  "train_forget --ewc / --retrain, depth 2 dim 512 bs 48, "
                   "80 + 20 classes, 10 open, 4 images per class, rank 0, "
                   "bf16 compute", "wall_s": time.perf_counter() - t_phase,
         "runs": per_run, "launches": total}), flush=True)
     return total
+
+
+# The flagship integration tools (gslora_tpu_torch/tools/integration_*,
+# the ports of the JAX package's scripts/integration_*.py) at the
+# flagship's width and depth and their scripts' recipes, every epoch count
+# cut to 1, bf16 compute, from one unsaturated base that the first tool
+# pretrains for 1 epoch. The report keys are the JAX scripts' (the two
+# GS-LoRA tools add "device").
+INTEGRATION_CL_METHODS = ["scrub", "lwf", "lirf", "ewc"]
+INTEGRATION_METHODS = ["gs_lora", "lwf", "der", "der_plus", "fdr", "lirf",
+                       "ewc", "mas", "l2", "retrain", "replay", "scrub"]
+SYNTHETIC_KEYS = {"pretrain_test_acc", "head", "noise", "forget_acc_before",
+                  "forget_acc_after", "remain_acc_after", "best_H_mean",
+                  "norm_list", "wallclock_s", "device"}
+BASELINE_KEYS = {"pretrain_test_acc_unsat", "total_wallclock_s",
+                 *(m + "_unsat" for m in INTEGRATION_METHODS)}
+BASELINE_METHOD_KEYS = {"forget_acc_before", "forget_acc", "remain_acc",
+                        "best_h", "wallclock_s"}
+BASELINE_CL_KEYS = {"pretrain_test_acc", "num_tasks", "total_wallclock_s",
+                    *INTEGRATION_CL_METHODS}
+BASELINE_CL_TASK_KEYS = {"task", "forget_acc_before", "forget_acc",
+                         "remain_acc", "open_acc", "best_h", "old_acc"}
+CONTINUAL_KEYS = {"pretrain_test_acc", "head", "noise", "boundary",
+                  "few_shot", "device", "tasks", "wallclock_s"}
+CONTINUAL_TASK_KEYS = {"task", "forget_before", "forget_after",
+                       "remain_after", "old_acc_before", "old_acc", "best_H"}
+ACCURACY_KEYS = {"pretrain_test_acc", "pretrain_test_acc_unsat",
+                 "forget_acc_before", "forget_acc", "remain_acc",
+                 "forget_acc_after", "remain_acc_after", "forget_before",
+                 "forget_after", "remain_after", "old_acc_before", "old_acc",
+                 "open_acc"}
+H_KEYS = {"best_h", "best_H", "best_H_mean"}
+
+
+class Tee(io.StringIO):
+    """Standard output that is also kept."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def report_values(report, keys, where=""):
+    """(where, value) of every entry under one of ``keys``, at any depth
+    of ``report``."""
+    if isinstance(report, list):
+        for i, item in enumerate(report):
+            yield from report_values(item, keys, f"{where}[{i}]")
+    elif isinstance(report, dict):
+        for k, v in report.items():
+            if k in keys:
+                yield f"{where}.{k}", v
+            else:
+                yield from report_values(v, keys, f"{where}.{k}")
+
+
+def check_integration_report(name, report, file):
+    """The report equals the file the tool wrote, carries the JAX
+    script's keys, and every accuracy in it is finite and in [0, 100]
+    (None only for the old-class accuracies of task 0 and the open ones,
+    which these windows do not have), every H-mean finite."""
+    if json.loads(json.dumps(report)) != file:
+        raise AssertionError(f"{name}: the report written differs")
+    bad = []
+    if name == "integration_synthetic":
+        bad += [report.keys() ^ SYNTHETIC_KEYS]
+    elif name == "integration_baselines":
+        bad += [report.keys() ^ BASELINE_KEYS]
+        bad += [report[m + "_unsat"].keys() ^ BASELINE_METHOD_KEYS
+                for m in INTEGRATION_METHODS]
+    elif name == "integration_baselines_cl":
+        bad += [report.keys() ^ BASELINE_CL_KEYS]
+        bad += [report[m].keys() ^ {"tasks", "wallclock_s"}
+                for m in INTEGRATION_CL_METHODS]
+        # SCRUB's tasks also carry the SWA model's update count
+        bad += [t.keys() ^ (BASELINE_CL_TASK_KEYS |
+                            ({"n_averaged"} if m == "scrub" else set()))
+                for m in INTEGRATION_CL_METHODS for t in report[m]["tasks"]]
+        bad += [[t["task"] for t in report[m]["tasks"]] != [0, 1]
+                for m in INTEGRATION_CL_METHODS]
+    else:
+        bad += [report.keys() ^ CONTINUAL_KEYS]
+        bad += [t.keys() ^ CONTINUAL_TASK_KEYS for t in report["tasks"]]
+        bad += [[t["task"] for t in report["tasks"]] != [0, 1, 2, 3]]
+    if any(bad):
+        raise AssertionError(f"{name}: report keys differ from the JAX "
+                             f"script's: {[b for b in bad if b]}")
+    for where, v in report_values(report, ACCURACY_KEYS):
+        optional = where.endswith((".old_acc", ".old_acc_before",
+                                   ".open_acc"))
+        if v is None and optional:
+            continue
+        if v is None or not math.isfinite(v) or not 0.0 <= v <= 100.0:
+            raise AssertionError(f"{name}: accuracy {where} = {v}")
+    for where, v in report_values(report, H_KEYS):
+        if v is None or not math.isfinite(v):
+            raise AssertionError(f"{name}: H-mean {where} = {v}")
+
+
+def tree_files(root):
+    """Every file under ``root`` but Python's byte-code caches and the
+    kernels' build directory."""
+    out = set()
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if x not in ("__pycache__", "_build",
+                                                ".git")]
+        out.update(os.path.relpath(os.path.join(d, f), root) for f in files)
+    return out
+
+
+def integration_single_launches(model, recipes, bs, train, test):
+    """K1 launches tools/integration_baselines.run_methods implies for
+    ``recipes`` on (train, test): the pretrain-accuracy eval; per method
+    the forget eval before training, the training steps (a fused GS-LoRA
+    forward with its backward (FFN LoRA: 'depth - 1') per remain batch;
+    BASELINE_STEP per baseline step over the relabeled forget subset, the
+    remain subset (Retrain), both (Replay), SCRUB's superepochs of 5
+    forget and 10 remain passes), EWC's and MAS's importance over the
+    remain subset (a forward and a backward a batch), and the forget and
+    remain evals at the end (LIRF's after each epoch). 'depth' launches
+    each; K2 and K3: 0."""
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    order = make_order_list(100, seed=1337)
+    remain_tr, forget_tr = split_by_class_window(train, order, 0, 80, 80, 100)
+    remain_te, forget_te = split_by_class_window(test, order, 0, 80, 80, 100)
+    n_f = len(ratio_subset(forget_tr, 0.4, 1337))
+    n_r = len(ratio_subset(remain_tr, 0.4, 1337))
+    ev_f, ev_r = (batches(len(d), IB.EVAL_BS) for d in (forget_te,
+                                                         remain_te))
+    depth = model.depth
+    fwd, bwd = depth * batches(len(test), IB.EVAL_BS), 0
+    for m, r in recipes.items():
+        n_ep, family = r["n_ep"], r["family"]
+        if family == "gs_lora":
+            steps = n_ep * batches(n_r, bs)
+            # forget and remain evals before and after, at the loop's
+            # test batch
+            test_bs = bs * DataConfig().test_batch_scale
+            evals = 2 * (batches(len(forget_te), test_bs) +
+                         batches(len(remain_te), test_bs))
+            fwd += depth * (evals + steps)
+            bwd += (depth - 1) * steps
+            continue
+        if family == "scrub":
+            se = r["baseline"]["scrub_superepoch"]
+            steps = se * (5 * batches(n_f, bs) + 10 * batches(n_r, bs))
+            evals = ev_f + se * (ev_f + ev_r) + ev_f + ev_r
+        elif family == "lirf":
+            steps = n_ep * batches(n_f, bs)
+            evals = ev_f + n_ep * (ev_f + ev_r)
+        else:
+            n = {"retrain": n_r, "replay": n_f + n_r}.get(family, n_f)
+            steps = n_ep * batches(n, bs)
+            evals = ev_f + ev_f + ev_r  # ver_freq 10_000: no eval between
+        imp = batches(n_r, bs) if m in ("ewc", "mas") else 0
+        per_fwd, per_bwd = BASELINE_STEP[
+            "reg" if m in REG_FAMILY else m]
+        fwd += depth * (evals + per_fwd * steps + imp)
+        bwd += depth * (per_bwd * steps + imp)
+    return {"attention_fwd": fwd, "attention_bwd": bwd, "group_prox": 0,
+            "group_norms": 0, "group_scale": 0}
+
+
+def integration_phase():
+    """The four flagship integration tools through their run functions on
+    the card (tools/integration_synthetic --unsaturated, all twelve
+    methods of tools/integration_baselines --unsaturated, the CL script's
+    four default methods for 2 tasks, tools/integration_continual
+    --unsaturated for its 4 tasks), every epoch count cut to 1, from one
+    base at $PRETRAIN_CKPT in a temporary directory: the first tool
+    pretrains it (1 epoch of the scripts' recipe), the others load it.
+    Each run's K1 counts against those its recipe and data imply, K2 and
+    K3 at 0, its report against the JAX script's keys with finite
+    accuracies in [0, 100]; no file appears in the working tree. Prints
+    each tool's wall and peak memory; returns the launch counts per
+    tool."""
+    t_phase = time.perf_counter()
+    dev = str(DEV)
+    cwd_files = tree_files(os.getcwd())
+    model = flagship.model_config(unsaturated=True)
+    train, test = flagship.stand_in(model, flagship.noise(True))
+    depth = model.depth
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    pre_steps = batches(len(train), flagship.PRETRAIN_BS)
+    single = IB.with_epochs(IB.RECIPES, 1)
+    cl_recipes = IB.with_epochs(ICL.RECIPES, 1)
+    launches, summary = {}, {}
+    saved_env = os.environ.get("PRETRAIN_CKPT")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["PRETRAIN_CKPT"] = os.path.join(
+            root, "flagship_pretrained.pth")
+        path = flagship.checkpoint_path(unsaturated=True)
+
+        def base():
+            return flagship.pretrained_base(model, train, 1, dev, path)
+
+        def out(name):
+            return os.path.join(root, name + ".json")
+
+        synthetic_want = forget_run_launches(
+            IS.run_config(model, True, dev, epochs=1),
+            IS.forget_data(train, test))
+        # the first tool also pretrains the base (remat: every block's
+        # forward again in the backward; every parameter trains)
+        synthetic_want["attention_fwd"] += depth * (
+            batches(len(test), IS.EVAL_BS) + 2 * pre_steps)
+        synthetic_want["attention_bwd"] += depth * pre_steps
+        cl_want = {k: sum(baseline_cl_launches(ICL.run_config(
+            m, cl_recipes[m], model, flagship.BS, 2, dev), train,
+            test)[k] for m in INTEGRATION_CL_METHODS)
+            for k in read_counts()}
+        cl_want["attention_fwd"] += depth * batches(len(test), IB.EVAL_BS)
+        continual_want = cl_launches(
+            IC.run_config(model, False, 4, dev, epochs=1), train, test)
+        continual_want["attention_fwd"] += depth * batches(len(test),
+                                                           IC.EVAL_BS)
+        runs = [
+            ("integration_synthetic", synthetic_want, lambda: IS.run(
+                base(), train, test, model, unsaturated=True,
+                device=dev, epochs=1, out=out("integration_synthetic"))),
+            ("integration_baselines", integration_single_launches(
+                model, single, flagship.BS, train, test),
+             lambda: IB.run_methods(
+                 INTEGRATION_METHODS, base(), train, test, model,
+                 flagship.BS, dev, recipes=single, suffix="_unsat",
+                 out=out("integration_baselines"))),
+            ("integration_baselines_cl", cl_want, lambda: ICL.run(
+                INTEGRATION_CL_METHODS, base(), train, test, model,
+                flagship.BS, dev, 2, recipes=cl_recipes,
+                out=out("integration_baselines_cl"))),
+            ("integration_continual", continual_want, lambda: IC.run(
+                base(), train, test, model, unsaturated=True, num_tasks=4,
+                device=dev, epochs=1, out=out("integration_continual"))),
+        ]
+        try:
+            for i, (name, want, fn) in enumerate(runs):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(Tee(sys.stdout)) as tee:
+                    report = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = read_counts()
+                said = tee.getvalue()
+                expect = "pretrained + saved" if i == 0 else \
+                    f"loaded pretrained {path}"
+                if expect not in said:
+                    raise AssertionError(f"{name}: no '{expect}' in its "
+                                         f"output: the base is not shared")
+                with open(out(name)) as fh:
+                    check_integration_report(name, report, json.load(fh))
+                if got != want:
+                    raise AssertionError(f"{name} launched {got}; its recipe "
+                                         f"and data imply {want}")
+                launches[name] = got
+                summary[name] = {
+                    "wall_s": wall,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": got}
+        finally:
+            if saved_env is None:
+                os.environ.pop("PRETRAIN_CKPT", None)
+            else:
+                os.environ["PRETRAIN_CKPT"] = saved_env
+    new = tree_files(os.getcwd()) - cwd_files
+    if new:
+        raise AssertionError(f"integration tools wrote into the working "
+                             f"tree: {sorted(new)}")
+    print("integration " + json.dumps({
+        "recipe": "tools/integration_* at their scripts' recipes, every "
+                  "epoch count 1, depth 6 dim 512, bf16 compute, one "
+                  "unsaturated base pretrained 1 epoch",
+        "wall_s": time.perf_counter() - t_phase, "runs": summary}),
+        flush=True)
+    return launches
 
 
 def lirf_check():
@@ -2473,19 +2837,19 @@ def native_phase(card, synthetic_ms):
 # ---------------------------------------------------------------------------
 
 DP_WORLD = 2
-DP_FORGET_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "8",
+DP_FORGET_ARGV = ["-d", "synthetic", *CUT_MODEL_FLAGS, "--lora_rank", "8",
                   "-b", "48", "-e", "5", "--lr", "1e-2", "--warmup-epochs",
                   "0", "--BND", "110", "--beta", "0.15", "--alpha", "0.01",
                   "--alpha_epoch", "0", "--compute_dtype", "bfloat16"]
-DP_CL_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "8", "-b",
+DP_CL_ARGV = ["-d", "synthetic", *CUT_MODEL_FLAGS, "--lora_rank", "8", "-b",
               "48", "-e", "1", "--lr", "1e-2", "--warmup-epochs", "0",
               "--BND", "110", "--alpha", "0.01", "--one_stage",
               "--num_tasks", "2", "--num_of_first_cls", "90",
               "--per_forget_cls", "10", "--structure_mode", "prox",
               "--cl_beta_list", "0.15", "0.2", "--average_weight",
               "--ema_epoch", "0", "--compute_dtype", "bfloat16"]
-DP_PRETRAIN_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "--lora_rank", "0",
-                    "-b", "480", "-e", "2", "--lr", "3e-4",
+DP_PRETRAIN_ARGV = ["-d", "synthetic", *CUT_MODEL_FLAGS, "--lora_rank",
+                    "0", "-b", "480", "-e", "2", "--lr", "3e-4",
                     "--compute_dtype", "bfloat16"]
 # path -> (CLI module, argv, --grad_accum of each rank); the one-process
 # reference runs --grad_accum DP_WORLD times that, so its micro-batches
@@ -2695,6 +3059,7 @@ def dp_rank_main(rank, world, port, outdir):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
+    share_datasets()
     import torch.distributed as dist
     dist.init_process_group("gloo", rank=rank, world_size=world)
     try:
@@ -3297,6 +3662,7 @@ def layout_rank_main(rank, world, port, outdir, *names):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
+    share_datasets()
     import torch.distributed as dist
     dist.init_process_group("gloo", rank=rank, world_size=world)
     try:
@@ -3596,6 +3962,7 @@ def main():
     bw, peak, fp32_peak = card_rates(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    share_datasets()
 
     t0 = time.perf_counter()
     builds = build_all()
@@ -3623,6 +3990,7 @@ def main():
     layout_launches = layout_phase(card, dp_refs)
     del dp_refs
     baseline_launches = baseline_phase()
+    integration_launches = integration_phase()
     baseline_bench(card)
     eval_launches = eval_phase(card)
     for row in rows:
@@ -3643,7 +4011,9 @@ def main():
             **{f"layout_{path}": counts[name]
                for path, counts in layout_launches.items()},
             **{path: counts[name] for path, counts in
-               eval_launches.items()}}
+               eval_launches.items()},
+            **{path: counts[name] for path, counts in
+               integration_launches.items()}}
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)

@@ -19,12 +19,16 @@ Modes:
                  by a task's training.
   --few_shot     the run_cl_forget.sh few-shot recipe (4 images a class).
 
-The pretrained base is cached as a port checkpoint at ``PRETRAIN_CKPT``
-(default ``flagship_pretrained.pth`` in the temporary directory; the
-unsaturated one with ``_unsat`` before the suffix) and reused when it
-exists. Reports pretrain test accuracy, and per task forget_before,
-forget_after, remain_after, old_acc_before (after the boundary, before
-training), old_acc and best_H, and the wall time.
+The pretrained base comes from tools/flagship.pretrained_base: cached
+as a port checkpoint at ``PRETRAIN_CKPT`` (default
+``flagship_pretrained.pth`` in the temporary directory; the unsaturated
+one with ``_unsat`` before the suffix) and reused when it exists, or read
+from a ``.msgpack`` the JAX package's scripts wrote there. Reports
+pretrain test accuracy, and per task forget_before, forget_after,
+remain_after, old_acc_before (after the boundary, before training),
+old_acc and best_H, and the wall time, to ``--out``, else to
+``integration_cl_report[_unsat][_keep][_fs].json`` in the temporary
+directory.
 """
 from __future__ import annotations
 
@@ -35,25 +39,15 @@ import os
 import tempfile
 import time
 
-import torch
-
-from gslora_tpu_torch.checkpoints.io import load_params, save_params
-from gslora_tpu_torch.config import (DataConfig, ForgetConfig, LoraConfig,
-                                     OptimConfig, RunConfig, ViTConfig)
-from gslora_tpu_torch.data.pipeline import BatchLoader
+from gslora_tpu_torch.config import (DataConfig, ForgetConfig, OptimConfig,
+                                     RunConfig)
 from gslora_tpu_torch.data.splits import make_order_list
-from gslora_tpu_torch.data.synthetic import synthetic_face_dataset
-from gslora_tpu_torch.engine.continual import detached, \
-    run_continual_forgetting
-from gslora_tpu_torch.engine.evaluate import eval_accuracy, make_eval_step
+from gslora_tpu_torch.engine.continual import run_continual_forgetting
 from gslora_tpu_torch.engine.loop import resolve_device
-from gslora_tpu_torch.engine.pretrain import pretrain
-from gslora_tpu_torch.models.vit import init_vit_params
+from gslora_tpu_torch.tools import flagship
 
-MODEL = ViTConfig(image_size=112, patch_size=8, dim=512, depth=6, heads=8,
-                  dim_head=64, mlp_dim=2048, num_class=100, dropout=0.1,
-                  emb_dropout=0.1, head_type="CosFace")
-LORA = LoraConfig(rank=8)
+EPOCHS = 12
+EVAL_BS = 250
 
 
 def forget_config(head_type: str, few_shot: bool) -> ForgetConfig:
@@ -75,6 +69,68 @@ def forget_config(head_type: str, few_shot: bool) -> ForgetConfig:
     return fcfg
 
 
+def run_config(model, few_shot: bool, num_tasks: int, device: str,
+               epochs: int = EPOCHS,
+               compute_dtype: str = "bfloat16") -> RunConfig:
+    """The script's run: lr 1e-2, batch 48 (4 few-shot), merged LoRA, one
+    fused forward of the forget and remain batches, the first
+    ``num_tasks`` tasks of :func:`forget_config`."""
+    return RunConfig(
+        model=model, lora=flagship.LORA,
+        optim=OptimConfig(lr=1e-2, warmup_epochs=0, epochs=epochs),
+        forget=dataclasses.replace(forget_config(model.head_type, few_shot),
+                                   num_tasks=num_tasks),
+        data=DataConfig(batch_size=4 if few_shot else flagship.BS),
+        num_epoch=epochs, ver_freq=10_000, compute_dtype=compute_dtype,
+        lora_apply="merged", fused_batch=True, device=device)
+
+
+def default_out(unsaturated: bool, boundary: str, few_shot: bool) -> str:
+    tag = ("_unsat" if unsaturated else "") + \
+        ("_keep" if boundary == "keep" else "") + \
+        ("_fs" if few_shot else "")
+    return os.path.join(tempfile.gettempdir(),
+                        f"integration_cl_report{tag}.json")
+
+
+def run(params, train, test, model, *, unsaturated: bool,
+        boundary: str = "merge_reinit", few_shot: bool = False,
+        num_tasks: int = 4, device: str = "cuda", epochs: int = EPOCHS,
+        compute_dtype: str = "bfloat16", out: str | None = None,
+        t0: float | None = None) -> dict:
+    """The script's run from the base ``params``: its test accuracy, then
+    ``num_tasks`` tasks of the recipe; writes and returns the report.
+    ``t0``: when the run began (the wall time counts from it)."""
+    t0 = time.time() if t0 is None else t0
+    dev = resolve_device(device)
+    acc = flagship.accuracy(params, test, model, dev, EVAL_BS,
+                            mask_padding=dev.type != "cpu",
+                            compute_dtype=flagship.dtype(compute_dtype))
+    print("pretrain test acc", acc, flush=True)
+    cfg = run_config(model, few_shot, num_tasks, str(dev), epochs,
+                     compute_dtype)
+    order = make_order_list(100, seed=1337)
+    res = run_continual_forgetting(cfg, params, train, test, order,
+                                   boundary=boundary)
+    report = {"pretrain_test_acc": acc,
+              "head": model.head_type, "noise": flagship.noise(unsaturated),
+              "boundary": boundary, "few_shot": few_shot,
+              "device": flagship.device_name(dev),
+              "tasks": [
+                  {"task": t.task,
+                   "forget_before": t.result.forget_acc_before,
+                   "forget_after": t.result.forget_acc,
+                   "remain_after": t.result.remain_acc,
+                   "old_acc_before": t.old_acc_before,
+                   "old_acc": t.old_acc,
+                   "best_H": t.result.best_h} for t in res.tasks],
+              "wallclock_s": round(time.time() - t0, 1)}
+    print(json.dumps(report, indent=2), flush=True)
+    with open(out or default_out(unsaturated, boundary, few_shot), "w") as f:
+        json.dump(report, f)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--unsaturated", action="store_true")
@@ -84,78 +140,16 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
-    device = resolve_device(a.device)
-
-    model = MODEL
-    ckpt = os.environ.get("PRETRAIN_CKPT", os.path.join(
-        tempfile.gettempdir(), "flagship_pretrained.pth"))
-    noise, pre_epochs = 1.0, 25
-    if a.unsaturated:
-        model = dataclasses.replace(model, head_type="Softmax")
-        root, ext = os.path.splitext(ckpt)
-        ckpt = f"{root}_unsat{ext}"
-        noise, pre_epochs = 2.4, 12
-
+    resolve_device(a.device)
+    model = flagship.model_config(a.unsaturated)
     t0 = time.time()
-    train = synthetic_face_dataset(num_classes=100, per_class=24,
-                                   image_size=112, seed=0, noise=noise)
-    test = synthetic_face_dataset(num_classes=100, per_class=5,
-                                  image_size=112, seed=77, noise=noise)
-    params = init_vit_params(torch.Generator().manual_seed(0), model, LORA)
-    if os.path.exists(ckpt):
-        params = load_params(ckpt)
-        print("loaded pretrained", ckpt, flush=True)
-    else:
-        pre_cfg = RunConfig(
-            model=dataclasses.replace(model, remat=True), lora=LORA,
-            optim=OptimConfig(lr=3e-4, warmup_epochs=2, epochs=pre_epochs),
-            data=DataConfig(batch_size=240), device=a.device)
-        state, _ = pretrain(pre_cfg, params,
-                            lambda: BatchLoader(train, 240, seed=3),
-                            epochs=pre_epochs, compute_dtype=torch.bfloat16)
-        params = detached(state.params)
-        save_params(ckpt, params)
-        print("pretrained + saved", round(time.time() - t0, 1), "s",
-              flush=True)
-    ev = make_eval_step(model, LORA, compute_dtype=torch.bfloat16)
-    acc = eval_accuracy(ev, detached(params, device),
-                        BatchLoader(test, 250, shuffle=False, prefetch=0,
-                                    mask_padding=device.type != "cpu"))
-    print("pretrain test acc", acc, flush=True)
-
-    cfg = RunConfig(
-        model=model, lora=LORA,
-        optim=OptimConfig(lr=1e-2, warmup_epochs=0, epochs=12),
-        forget=forget_config(model.head_type, a.few_shot),
-        data=DataConfig(batch_size=4 if a.few_shot else 48),
-        num_epoch=12, ver_freq=10_000, compute_dtype="bfloat16",
-        lora_apply="merged", fused_batch=True, device=a.device)
-    order = make_order_list(100, seed=1337)
-    out = run_continual_forgetting(cfg, params, train, test, order,
-                                   boundary=a.boundary)
-    report = {"pretrain_test_acc": acc,
-              "head": model.head_type, "noise": noise,
-              "boundary": a.boundary, "few_shot": a.few_shot,
-              "device": torch.cuda.get_device_name(device)
-              if device.type == "cuda" else "cpu",
-              "tasks": [
-                  {"task": t.task,
-                   "forget_before": t.result.forget_acc_before,
-                   "forget_after": t.result.forget_acc,
-                   "remain_after": t.result.remain_acc,
-                   "old_acc_before": t.old_acc_before,
-                   "old_acc": t.old_acc,
-                   "best_H": t.result.best_h} for t in out.tasks],
-              "wallclock_s": round(time.time() - t0, 1)}
-    print(json.dumps(report, indent=2), flush=True)
-    tag = ("_unsat" if a.unsaturated else "") + \
-        ("_keep" if a.boundary == "keep" else "") + \
-        ("_fs" if a.few_shot else "")
-    with open(a.out or os.path.join(tempfile.gettempdir(),
-                                    f"integration_cl_report{tag}.json"),
-              "w") as f:
-        json.dump(report, f)
-    return report
+    train, test = flagship.stand_in(model, flagship.noise(a.unsaturated))
+    params = flagship.pretrained_base(
+        model, train, flagship.pretrain_epochs(a.unsaturated), a.device,
+        flagship.checkpoint_path(a.unsaturated))
+    return run(params, train, test, model, unsaturated=a.unsaturated,
+               boundary=a.boundary, few_shot=a.few_shot, device=a.device,
+               out=a.out, t0=t0)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Import hygiene of the port: gslora_tpu_torch and chip_smoke.py use
 neither JAX nor the JAX package. The import check runs in a subprocess,
 because this test process has JAX loaded already (tests/conftest.py)."""
+import ast
 import os
 import re
 import subprocess
@@ -110,3 +111,34 @@ def test_dcp_io_is_the_ports_own():
     assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
                          r"orbax|gslora_tpu)\b|\bgslora_tpu\.", source,
                          re.M)
+
+
+def test_integration_tools_are_the_ports_own():
+    """The flagship integration tools (tools/flagship and the ports of
+    scripts/integration_*.py) are walked by the import check, import
+    neither JAX nor the JAX package nor scripts/ when imported alone, and
+    name none of them."""
+    tools = ["flagship", "integration_synthetic", "integration_baselines",
+             "integration_baselines_cl", "integration_continual"]
+    code = IMPORT_ALL.replace(
+        "print(len(names), bad)",
+        "print(sorted(n for n in names if '.tools.' in n))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    walked = {n.rsplit(".", 1)[1] for n in ast.literal_eval(out.stdout)}
+    assert set(tools) <= walked, sorted(walked)
+    alone = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         + "".join(f"import gslora_tpu_torch.tools.{t}\n" for t in tools)
+         + "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+           "('jax', 'jaxlib', 'flax', 'optax', 'gslora_tpu', 'scripts')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert alone.returncode == 0, alone.stderr
+    assert alone.stdout.strip() == "[]"
+    for t in tools:
+        source = (PORT / "tools" / f"{t}.py").read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
+                             r"gslora_tpu|scripts)\b|\bgslora_tpu\.|"
+                             r"\bscripts\.\w", source, re.M), t

@@ -1,0 +1,257 @@
+"""Set-up shared by tests/test_torch_integration_*.py: the integration
+scripts' tiny model (scripts/integration_baselines_cl.py --tiny: 16 px,
+dim 64, depth 2, 2 heads x 32, mlp 128, dropout 0) on their synthetic
+stand-in (100 classes, 24 and 5 images a class), one base for both
+packages, and each script's composition rebuilt from the JAX package's
+functions.
+
+The JAX scripts set ``jax_default_prng_impl = "rbg"`` when imported, and
+scripts/integration_synthetic.py runs its whole body then, so no test
+imports them: each composition below follows its script line by line
+(cited), in fp32 and with every epoch count cut to ``n_ep``. JAX is
+imported inside the functions."""
+import torch
+
+from torch_baselines_setup import np_tree
+
+TINY = dict(image_size=16, patch_size=8, dim=64, depth=2, heads=2,
+            dim_head=32, mlp_dim=128, num_class=100, dropout=0.0,
+            emb_dropout=0.0)
+
+
+def tiny_model(C, head="Softmax"):
+    return C.ViTConfig(**TINY, head_type=head)
+
+
+def stand_in(pkg, noise):
+    """The scripts' (train, test) in package ``pkg`` at the tiny size."""
+    if pkg == "jax":
+        from gslora_tpu.data.synthetic import synthetic_face_dataset
+    else:
+        from gslora_tpu_torch.data.synthetic import synthetic_face_dataset
+    return (synthetic_face_dataset(num_classes=100, per_class=24,
+                                   image_size=16, seed=0, noise=noise),
+            synthetic_face_dataset(num_classes=100, per_class=5,
+                                   image_size=16, seed=77, noise=noise))
+
+
+def trained_base(head, noise, epochs=10, seed=0):
+    """One base for both packages (numpy leaves): the JAX init of
+    ``seed`` (torch_baselines_setup.np_tree, rank-8 LoRA), pretrained
+    ``epochs`` epochs by the port in fp32 on the CPU (bs 240, lr 1e-3),
+    so the forget runs start from a model that tells the classes apart
+    (43 % test accuracy on the unsaturated stand-in, chance 1 %)."""
+    import gslora_tpu_torch.config as tc
+    from gslora_tpu_torch.data.pipeline import BatchLoader
+    from gslora_tpu_torch.engine.pretrain import pretrain
+    from gslora_tpu_torch.models.convert import params_from_jax, \
+        params_to_jax
+
+    tree = np_tree(seed, rank=8, model={**TINY, "head_type": head})
+    cfg = tc.RunConfig(model=tiny_model(tc, head), lora=tc.LoraConfig(8),
+                       optim=tc.OptimConfig(lr=1e-3, warmup_epochs=0,
+                                            epochs=epochs),
+                       data=tc.DataConfig(batch_size=240), device="cpu")
+    train, _ = stand_in("torch", noise)
+    state, _ = pretrain(cfg, params_from_jax(tree),
+                        lambda: BatchLoader(train, 240, seed=3),
+                        epochs=epochs, compute_dtype=torch.float32)
+    return params_to_jax(state.params)
+
+
+def jax_tree(tree):
+    import jax
+    import jax.numpy as jnp
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def jax_accuracy(params, test, model, batch_size, mask_padding):
+    import jax.numpy as jnp
+    from gslora_tpu.config import LoraConfig
+    from gslora_tpu.data.pipeline import BatchLoader
+    from gslora_tpu.engine.evaluate import eval_accuracy, make_eval_step
+    ev = make_eval_step(model, LoraConfig(rank=8), compute_dtype=jnp.float32)
+    return eval_accuracy(ev, params, BatchLoader(
+        test, batch_size, shuffle=False, prefetch=0,
+        mask_padding=mask_padding))
+
+
+def jax_single_task(method, params, fresh, train, test, model, bs, n_ep):
+    """scripts/integration_baselines.py:97-290 for one method: the
+    pretrain accuracy and the method's accuracies; ``fresh``: Retrain's
+    start (the script draws it from jax.random.key(11), :240-241)."""
+    import jax.numpy as jnp
+    from gslora_tpu.baselines.distill import run_distill_task
+    from gslora_tpu.baselines.lirf import run_lirf_task
+    from gslora_tpu.baselines.regularization import (
+        estimate_importance, run_regularization_task)
+    from gslora_tpu.baselines.scrub import run_scrub_task
+    from gslora_tpu.config import (BaselineConfig, DataConfig, ForgetConfig,
+                                   LoraConfig, OptimConfig, RunConfig)
+    from gslora_tpu.data.folders import ConcatDataset
+    from gslora_tpu.data.pipeline import BatchLoader, CyclingLoader
+    from gslora_tpu.data.splits import (make_order_list, random_relabel,
+                                        ratio_subset, split_by_class_window)
+    from gslora_tpu.engine.loop import ForgetData, run_forget_training
+
+    lora = LoraConfig(rank=8)
+    pre_acc = jax_accuracy(params, test, model, 240, True)  # :95-98
+    order = make_order_list(100, seed=1337)  # :101-106
+    remain_tr, forget_tr = split_by_class_window(train, order, 0, 80, 80, 100)
+    remain_te, forget_te = split_by_class_window(test, order, 0, 80, 80, 100)
+    forget_sub = ratio_subset(forget_tr, 0.4, 1337)
+    remain_sub = ratio_subset(remain_tr, 0.4, 1337)
+    relabeled = random_relabel(forget_sub, 100, seed=1337)
+    tbf = lambda: BatchLoader(forget_te, 240, shuffle=False,  # noqa: E731
+                              prefetch=0, mask_padding=True)
+    tbr = lambda: BatchLoader(remain_te, 240, shuffle=False,  # noqa: E731
+                              prefetch=0, mask_padding=True)
+
+    def cfg(lr=1e-4, **bkw):
+        return RunConfig(
+            model=model, lora=lora,
+            optim=OptimConfig(opt="adamw", lr=lr, warmup_epochs=0,
+                              epochs=n_ep),
+            forget=ForgetConfig(num_of_first_cls=80, per_forget_cls=20),
+            baseline=BaselineConfig(method=method, **bkw),
+            data=DataConfig(batch_size=bs), num_epoch=n_ep, ver_freq=10_000,
+            compute_dtype="float32")
+
+    if method == "gs_lora":  # :116-140
+        c = RunConfig(
+            model=model, lora=lora,
+            optim=OptimConfig(opt="adamw", lr=1e-2, warmup_epochs=0,
+                              epochs=n_ep),
+            forget=ForgetConfig(num_of_first_cls=80, per_forget_cls=20,
+                                bnd=110.0 if model.head_type == "CosFace"
+                                else 10.0,
+                                beta=0.15, alpha=1e-4, alpha_epoch=0),
+            data=DataConfig(batch_size=bs), num_epoch=n_ep, ver_freq=10_000,
+            compute_dtype="float32", lora_apply="merged", fused_batch=True)
+        res = run_forget_training(c, params, ForgetData(
+            train_forget=forget_sub, train_remain=remain_sub,
+            test_forget=forget_te, test_remain=remain_te))
+        out = {"forget_acc_before": res.forget_acc_before,
+               "forget_acc": res.forget_acc, "remain_acc": res.remain_acc,
+               "best_h": res.best_h}
+    elif method in ("lwf", "der", "der_plus", "fdr"):  # :142-168
+        fl = BatchLoader(relabeled, bs, seed=4, mask_padding=True)
+        rl = BatchLoader(remain_sub, bs, seed=5, mask_padding=True)
+        out = run_distill_task(
+            cfg(lwf_lambda_kd=0.5, lwf_lambda_remain=1.0, der_lambda=0.1,
+                der_plus_lambda=0.1, fdr_lambda=0.1),
+            params, params, lambda: iter(fl), CyclingLoader(rl), tbf, tbr)
+    elif method == "lirf":  # :170-196
+        fl = BatchLoader(relabeled, bs, seed=6, mask_padding=True)
+        rl = BatchLoader(remain_sub, bs, seed=7, mask_padding=True)
+        out = run_lirf_task(cfg(), params, lambda: iter(fl),
+                            CyclingLoader(rl), tbf, tbr)
+    elif method in ("ewc", "mas", "l2"):  # :198-224
+        lam = {"ewc": 10.0, "mas": 5.0, "l2": 0.1}[method]
+        imp = estimate_importance(
+            method, params,
+            BatchLoader(remain_sub, bs, shuffle=False, prefetch=0,
+                        mask_padding=True), model, lora, jnp.float32)
+        fl = BatchLoader(relabeled, bs, seed=1, mask_padding=True)
+        out = run_regularization_task(
+            cfg(**{method + "_lambda": lam}), params, lambda: iter(fl), tbf,
+            tbr, lam=lam, anchors=[params], importances=[imp])
+    elif method in ("retrain", "replay"):  # :226-264
+        if method == "retrain":
+            start, lr = fresh, 3e-4
+            tl = BatchLoader(remain_sub, bs, seed=8, mask_padding=True)
+        else:
+            start, lr = params, 1e-4
+            tl = BatchLoader(ConcatDataset(relabeled, remain_sub), bs,
+                             seed=9, mask_padding=True)
+        out = run_regularization_task(cfg(lr=lr), start, lambda: iter(tl),
+                                      tbf, tbr, lam=0.0, anchors=[],
+                                      importances=[])
+    else:  # scrub, :266-290
+        fl_true = BatchLoader(forget_sub, bs, seed=2, mask_padding=True)
+        rl = BatchLoader(remain_sub, bs, seed=3, mask_padding=True)
+        out = run_scrub_task(
+            cfg(scrub_superepoch=n_ep, sgda_learning_rate=5e-4,
+                sgda_gamma=0.99, sgda_alpha=0.001),
+            params, lambda: iter(fl_true), lambda: iter(rl), tbf, tbr)
+    return pre_acc, {k: out[k] for k in ("forget_acc_before", "forget_acc",
+                                         "remain_acc", "best_h")}
+
+
+def jax_continual_baselines(methods, params, train, test, model, bs,
+                            num_tasks, n_ep):
+    """scripts/integration_baselines_cl.py:98-160: the pretrain accuracy
+    and, per method, run_baseline_continual's per-task results."""
+    from gslora_tpu.cli.train_forget_cl import run_baseline_continual
+    from gslora_tpu.config import (BaselineConfig, DataConfig, ForgetConfig,
+                                   LoraConfig, OptimConfig, RunConfig)
+    from gslora_tpu.data.splits import make_order_list
+    from gslora_tpu.metrics.logging import MetricLogger
+
+    pre_acc = jax_accuracy(params, test, model, 240, True)
+    order = make_order_list(100, seed=1337)
+    recipes = {  # :112-144, epochs cut to n_ep
+        "lwf": BaselineConfig(method="lwf", lwf_lambda_kd=0.5,
+                              lwf_lambda_remain=1.0),
+        "lirf": BaselineConfig(method="lirf"),
+        "ewc": BaselineConfig(method="ewc", ewc_lambda=10.0),
+        "scrub": BaselineConfig(method="scrub", scrub_superepoch=n_ep,
+                                sgda_learning_rate=5e-4, sgda_gamma=0.99,
+                                sgda_alpha=0.001),
+    }
+    results = {}
+    for m in methods:
+        cfg = RunConfig(
+            model=model, lora=LoraConfig(rank=8),
+            optim=OptimConfig(opt="adamw", lr=1e-4, warmup_epochs=0,
+                              epochs=n_ep),
+            forget=ForgetConfig(num_of_first_cls=80, per_forget_cls=10,
+                                num_tasks=num_tasks, data_ratio=0.4),
+            baseline=recipes[m], data=DataConfig(batch_size=bs),
+            num_epoch=n_ep, ver_freq=10_000, compute_dtype="float32")
+        results[m], _ = run_baseline_continual(cfg, params, train, test,
+                                               order, MetricLogger(),
+                                               workdir=None)
+    return pre_acc, results
+
+
+def jax_synthetic(params, train, test, model, unsaturated, bs, n_ep):
+    """scripts/integration_synthetic.py:82-116: the pretrain accuracy
+    (batches of 250, no padding) and the forget run at the full recipe."""
+    from gslora_tpu.config import (DataConfig, ForgetConfig, LoraConfig,
+                                   OptimConfig, RunConfig)
+    from gslora_tpu.data.splits import (make_order_list, ratio_subset,
+                                        split_by_class_window)
+    from gslora_tpu.engine.loop import ForgetData, run_forget_training
+
+    acc = jax_accuracy(params, test, model, 250, False)
+    order = make_order_list(100, seed=1337)
+    remain_tr, forget_tr = split_by_class_window(train, order, 0, 90, 90, 100)
+    remain_te, forget_te = split_by_class_window(test, order, 0, 90, 90, 100)
+    data = ForgetData(train_forget=ratio_subset(forget_tr, 0.5, seed=1337),
+                      train_remain=ratio_subset(remain_tr, 0.5, seed=1337),
+                      test_forget=forget_te, test_remain=remain_te)
+    cfg = RunConfig(
+        model=model, lora=LoraConfig(rank=8),
+        optim=OptimConfig(lr=1e-2, warmup_epochs=0, epochs=n_ep),
+        forget=ForgetConfig(bnd=10.0 if unsaturated else 110.0, beta=0.15,
+                            alpha=0.01, warmup_alpha=True, big_alpha=0.01,
+                            alpha_epoch=10, prototype=True, pro_f_weight=0.1,
+                            pro_r_weight=0.0, bnd_pro=18.0,
+                            average_weight=True, ema_epoch=12,
+                            ema_decay=0.9),
+        data=DataConfig(batch_size=bs), num_epoch=n_ep, ver_freq=30,
+        compute_dtype="float32", lora_apply="merged")
+    res = run_forget_training(cfg, params, data)
+    return {"pretrain_test_acc": acc, "head": model.head_type,
+            "noise": 2.4 if unsaturated else 1.0,
+            "forget_acc_before": res.forget_acc_before,
+            "forget_acc_after": res.forget_acc,
+            "remain_acc_after": res.remain_acc, "best_H_mean": res.best_h,
+            "norm_list": list(res.norm_list)}
+
+
+def assert_close(got, want, what):
+    """An accuracy (the same predictions) or an H-mean, to float
+    rounding."""
+    assert abs(got - want) <= 1e-6, (what, got, want)
