@@ -7,9 +7,9 @@ JAX or of the JAX package, and catches nothing: any failure ends it with a
 non-zero exit code and without the final result line.
 
 1. Set-up: prints the card's name and power limit, builds every CUDA
-   kernel of the port from gslora_tpu_torch/csrc (attention.cu and
-   group_lasso.cu, one nvcc each, started together) and prints the build
-   times.
+   kernel of the port from gslora_tpu_torch/csrc (attention.cu,
+   attention_fp32.cu and group_lasso.cu, one nvcc each, started together)
+   and prints the build times.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card, at every shape the driven paths give it (K1: train, eval, fused
    and prototype batches, derived from the paths' configs, each at its
@@ -32,7 +32,14 @@ non-zero exit code and without the final result line.
    one layer and shrinks the others, the flagship also on the prox's
    streamed path; then their cluster size, the clusters the card holds
    at once, the launch floor (an empty kernel of group_lasso.cu through
-   the same ctypes path) and their times at both LoRA shapes.
+   the same ctypes path) and their times at both LoRA shapes. Then K1 in
+   fp32 (csrc/attention_fp32.cu, slice 16) against its fp32 plain version
+   at every shape the fp32 phase gives it and at the same edges, held to
+   plain_mismatch's fp32 limits; its occupancy at (197, 64) and (256,
+   128); at the flagship shape its warm and L2-cold times, the backward's
+   two launches apart, the plain version's and SDPA's in fp32 (no TF32),
+   its bound from the fp32 peak outside the tensor cores, beside the bf16
+   kernel's times.
 3. Model check: the flagship model's and ViT-B/16's embeddings, logits
    and LoRA gradients (bf16, dropout off, 4 images) with attention
    through the kernels against the same with the kernels' plain version
@@ -215,7 +222,15 @@ non-zero exit code and without the final result line.
    [0, 100], K1's counts per tool against those its recipe and data
    imply, K2 and K3 at 0, and that no file appeared in the working tree;
    prints each tool's wall and peak memory.
-15. Prints the kernels line, then the result line.
+15. fp32 phase (slice 16, right after the continual phase): the main
+   path's train_forget and the continual phase's train_forget_cl recipes
+   with --compute_dtype float32, each checked as its bf16 run (finite
+   metrics and losses, checkpoints, K1's counts derived from the flags,
+   K2 once per continual step), every K1 launch on the fp32 kernel, none
+   on the bf16 one and no call of the plain attention on the card;
+   prints the phase's wall.
+16. Prints the kernels line (the bf16 and the fp32 K1 in rows of their
+   own), then the result line.
 """
 from __future__ import annotations
 
@@ -327,7 +342,7 @@ PEAKS = [("H200", 4.8e12, 989e12, 67e12),
          ("H100 PCIe", 2.0e12, 756e12, 51e12),
          ("H100 NVL", 3.9e12, 835e12, 60e12),
          ("H100", 3.35e12, 989e12, 67e12)]
-SOURCES = ("attention", "group_lasso")
+SOURCES = ("attention", "attention_fp32", "group_lasso")
 # The flagship FFN LoRA: L, r, d, m (rank 8 on ViT-P8S8, depth 6)
 LORA_SHAPE = (6, 8, 512, 2048)
 
@@ -350,27 +365,29 @@ def build_all():
         return dict(zip(SOURCES, pool.map(timed, SOURCES)))
 
 
-def inputs(bh, n, d, seed, bias=False):
-    """q, k, v, g of N(0, 1); ``bias``: q and k also carry one offset per
-    channel of N(0, 1), as ViT-B/16's qkv bias puts in front of K1."""
+def inputs(bh, n, d, seed, bias=False, dtype=torch.bfloat16):
+    """q, k, v, g of N(0, 1) in ``dtype``; ``bias``: q and k also carry one
+    offset per channel of N(0, 1), as ViT-B/16's qkv bias puts in front of
+    K1."""
     g = torch.Generator().manual_seed(seed)
     ts = [torch.randn(bh, n, d, generator=g) for _ in range(4)]
     if bias:
         for t in ts[:2]:
             t += torch.randn(d, generator=g)
-    return [t.to(DEV, torch.bfloat16) for t in ts]
+    return [t.to(DEV, dtype) for t in ts]
 
 
 def max_err(got, want, names, what):
     """Largest abs error of the kernel's outputs; raises unless each is
-    within the tolerance of ops/attention.plain_mismatch."""
+    within the tolerance of ops/attention.plain_mismatch for its dtype."""
     stats = {n: A.plain_mismatch(a, b) for n, a, b in zip(names, got, want)}
     print(f"kernel vs plain {what}: " + json.dumps(stats), flush=True)
     bad = {n: m for n, m in stats.items() if not m["ok"]}
     if bad:
+        max_tol, l2_tol = A.TOLERANCES[want[0].dtype]
         raise AssertionError(f"{what}: kernel disagrees with the plain "
-                             f"version beyond max_rel {A.MAX_TOL}, rel_l2 "
-                             f"{A.L2_TOL}: {bad}")
+                             f"version beyond max_rel {max_tol}, rel_l2 "
+                             f"{l2_tol}: {bad}")
     return max(m["max_abs"] for m in stats.values())
 
 
@@ -379,6 +396,27 @@ def attention_scale(model) -> float:
     dim_head**-0.5 for ViT-B/16 (models/vit.py)."""
     return (model.dim if model.attn_scale == "dim" else model.dim_head) \
         ** -0.5
+
+
+def recipe_shapes(argv):
+    """(batch x heads, tokens, scale) of a CLI recipe's attentions: its
+    train and eval batches; the forget recipes' (MAIN_ARGV, CL_ARGV, in
+    any compute dtype) fused batch too, and the prototypes' batch where
+    the recipe has prototypes."""
+    cfg = config_from_args(build_parser().parse_args(argv))
+    bs, m = cfg.data.batch_size, cfg.model
+    batches = [bs, bs * cfg.data.test_batch_scale]
+    if in_dtype(argv, "bfloat16") in (MAIN_ARGV, CL_ARGV):
+        batches += [2 * bs, PROTO_BATCH]
+    elif cfg.forget.prototype:
+        batches.append(PROTO_BATCH)
+    return {(b * m.heads, m.seq_len, attention_scale(m)) for b in batches}
+
+
+def in_dtype(argv, dtype):
+    """``argv`` with its --compute_dtype set to ``dtype``."""
+    i = argv.index("--compute_dtype")
+    return [*argv[:i + 1], dtype, *argv[i + 2:]]
 
 
 def path_shapes():
@@ -394,15 +432,7 @@ def path_shapes():
     shapes = set()
     for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV, IMAGENET_ARGV,
                  BASELINE_ARGV, EVAL_BASE_ARGV):
-        cfg = config_from_args(build_parser().parse_args(argv))
-        bs, m = cfg.data.batch_size, cfg.model
-        batches = [bs, bs * cfg.data.test_batch_scale]
-        if argv in (MAIN_ARGV, CL_ARGV):
-            batches += [2 * bs, PROTO_BATCH]
-        elif cfg.forget.prototype:
-            batches.append(PROTO_BATCH)
-        shapes.update((b * m.heads, m.seq_len, attention_scale(m))
-                      for b in batches)
+        shapes.update(recipe_shapes(argv))
     # a rank of the data-parallel phase: its rows of the train and eval
     # batches, and its micro-batches under --grad_accum (the one-process
     # references' micro-batches are the ranks' rows)
@@ -444,11 +474,13 @@ EDGE_SHAPES = [(6, 17, 64), (3, 70, 64), (7, 63, 64), (7, 64, 64),
                (3, A.KERNEL_MAX_N, 128)]
 
 
-def k1_bounds(bh, n, d, bw, peak):
+def k1_bounds(bh, n, d, bw, peak, elem=2):
     """Least time of K1 forward and backward at (bh, n, d): bytes (4 and 7
-    bf16 (bh, n, d) tensors, each read or written once) against products
-    (2 and 5 sets of 2 bh n^2 d FLOPs) at the card's rates; (ms, which)."""
-    tensor_bytes, matmul = bh * n * d * 2, 2 * bh * n * n * d
+    (bh, n, d) tensors of ``elem`` bytes an element, each read or written
+    once) against products (2 and 5 sets of 2 bh n^2 d FLOPs) at the
+    card's rates (``peak``: bf16 tensor cores for bf16, fp32 outside the
+    tensor cores for fp32); (ms, which)."""
+    tensor_bytes, matmul = bh * n * d * elem, 2 * bh * n * n * d
     out = {}
     for name, nt, nm in (("fwd", 4, 2), ("bwd", 7, 5)):
         t_bytes = nt * tensor_bytes / bw * 1e3
@@ -458,19 +490,19 @@ def k1_bounds(bh, n, d, bw, peak):
     return out
 
 
-def kernel_phase(bw, peak):
-    """K1 forward and backward against the plain version at every shape
-    the driven paths give it and at the tile edges; warm and L2-cold times
-    at each path shape; plain, library and the backward's two launches at
-    the flagship shape; occupancy of the three kernels."""
+def k1_errors(path, path_seed, edge_seed, dtype=torch.bfloat16):
+    """K1 forward and backward in ``dtype`` against the plain version at
+    the (bh, n, scale) shapes ``path`` (d = 64) and at EDGE_SHAPES, inputs
+    seeded from ``path_seed`` and ``edge_seed`` on; raises past
+    plain_mismatch's limits; the largest abs error of each direction."""
     errs = {"fwd": 0.0, "bwd": 0.0}
     shapes = [(bh, n, HEAD_DIM, scale, seed)
-              for seed, (bh, n, scale) in enumerate(path_shapes(), 3)]
+              for seed, (bh, n, scale) in enumerate(path, path_seed)]
     shapes += [(bh, n, d, SCALE, seed) for seed, (bh, n, d) in
-               enumerate(EDGE_SHAPES, 20)]
+               enumerate(EDGE_SHAPES, edge_seed)]
     for bh, n, d, scale, seed in shapes:
-        q, k, v, g = inputs(bh, n, d, seed, bias=scale != SCALE)
-        where = f"{(bh, n, d)} scale {scale:.4f}"
+        q, k, v, g = inputs(bh, n, d, seed, bias=scale != SCALE, dtype=dtype)
+        where = f"{(bh, n, d)} {dtype} scale {scale:.4f}"
         o = A.attention_fwd_kernel(q, k, v, scale)
         torch.cuda.synchronize()
         errs["fwd"] = max(errs["fwd"], max_err(
@@ -481,6 +513,16 @@ def kernel_phase(bw, peak):
         errs["bwd"] = max(errs["bwd"], max_err(
             grads, A.attention_bwd_plain(q, k, v, g, scale),
             ["dq", "dk", "dv"], f"attention backward at {where}"))
+        del q, k, v, g, o, grads
+    return errs
+
+
+def kernel_phase(bw, peak):
+    """K1 forward and backward against the plain version at every shape
+    the driven paths give it and at the tile edges; warm and L2-cold times
+    at each path shape; plain, library and the backward's two launches at
+    the flagship shape; occupancy of the three kernels."""
+    errs = k1_errors(path_shapes(), 3, 20)
 
     occupancy = A.kernel_info(N_TOKENS, HEAD_DIM)
     print(f"attention kernels at n={N_TOKENS}, d={HEAD_DIM}: " +
@@ -559,6 +601,7 @@ def kernel_phase(bw, peak):
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "bound_peak": "bf16 tensor cores",
             "library_ms": t["library_ms"],
             "shape": [bh, n, d],
             "cold_ms": by_shape[key][flagship]["cold_ms"],
@@ -574,6 +617,92 @@ def kernel_phase(bw, peak):
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]})",
               flush=True)
+    return rows
+
+
+def fp32_kernel_phase(bw, fp32_peak, bf16_rows):
+    """The fp32 K1 (csrc/attention_fp32.cu) against its plain version at
+    every shape the fp32 runs give it (:func:`fp32_path_shapes`) and at
+    EDGE_SHAPES; its occupancy; at the flagship shape its warm and L2-cold
+    times, the backward's two launches apart, the plain version's and
+    SDPA's in fp32 (no TF32) as the library yardstick, beside the bf16
+    kernel's times of this run (``bf16_rows``)."""
+    f32 = torch.float32
+    errs = k1_errors(fp32_path_shapes(), 40, 60, f32)
+
+    occupancy = {f"{n}x{d}": A.kernel_info(n, d, f32)
+                 for n, d in ((N_TOKENS, HEAD_DIM), (A.KERNEL_MAX_N, 128))}
+    print("fp32 attention kernels (blocks per SM, registers, spills, "
+          "shared memory): " + json.dumps(occupancy), flush=True)
+
+    bh, n, d = FLAGSHIP_BH, N_TOKENS, HEAD_DIM
+    q, k, v, g = inputs(bh, n, d, 3, dtype=f32)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, g4 = (t.reshape(bh // 8, 8, n, d) for t in (q, k, v, g))
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
+    out_l = sdpa(ql, kl, vl, scale=SCALE)
+    with torch.no_grad():
+        _, stats = A.attention_bwd_rows_kernel(q, k, v, g, SCALE)
+        split = {"rows_ms": cuda_ms(
+                     lambda: A.attention_bwd_rows_kernel(q, k, v, g, SCALE)),
+                 "keys_ms": cuda_ms(
+                     lambda: A.attention_bwd_keys_kernel(q, k, v, g, stats,
+                                                         SCALE))}
+
+        def fwd():
+            return A.attention_fwd_kernel(q, k, v, SCALE)
+
+        def bwd():
+            return A.attention_bwd_kernel(q, k, v, g, SCALE)
+
+        times = {
+            "fwd": {"ms": cuda_ms(fwd), "cold_ms": cuda_cold_ms(fwd),
+                    "plain_ms": cuda_ms(
+                        lambda: A.attention_fwd_plain(q, k, v, SCALE),
+                        iters=20),
+                    "library_ms": cuda_ms(
+                        lambda: sdpa(q4, k4, v4, scale=SCALE))},
+            "bwd": {"ms": cuda_ms(bwd), "cold_ms": cuda_cold_ms(bwd),
+                    "plain_ms": cuda_ms(
+                        lambda: A.attention_bwd_plain(q, k, v, g, SCALE),
+                        iters=20)}}
+    times["bwd"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out_l, (ql, kl, vl), g4, retain_graph=True))
+    del out_l, ql, kl, vl
+    bounds = k1_bounds(bh, n, d, bw, fp32_peak, elem=4)
+    bf16 = {row["name"]: row for row in bf16_rows}
+    rows = []
+    for key, line in (("fwd", ":149"), ("bwd", ":179")):
+        t, name = times[key], f"attention_{key}_fp32"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gslora_tpu_torch/csrc/attention_fp32.cu",
+            "replaces": "gslora_tpu/ops/attention.py" + line,
+            "launches": None,
+            "max_abs_err": errs[key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "bound_peak": "fp32 outside the tensor cores",
+            "library_ms": t["library_ms"],
+            "shape": [bh, n, d], "dtype": "float32",
+            "cold_ms": t["cold_ms"],
+            "occupancy": {shape: {kn: occ[kn] for kn in occ
+                                  if kn.startswith("forward" if key == "fwd"
+                                                   else "backward")}
+                          for shape, occ in occupancy.items()},
+        })
+        if key == "bwd":
+            rows[-1]["split_ms"] = split
+        b = bf16[f"attention_{key}"]
+        print(f"{name} at ({bh}, {n}, {d}): kernel {t['ms']:.5f} ms "
+              f"(L2-cold {t['cold_ms']:.5f}), plain {t['plain_ms']:.4f} ms, "
+              f"SDPA fp32 {t['library_ms']:.5f} ms, bound "
+              f"{bounds[key][0]:.5f} ms ({bounds[key][1]}, fp32 peak); the "
+              f"bf16 kernel {b['ms']:.5f} ms (L2-cold {b['cold_ms']:.5f})",
+              flush=True)
+    print(f"fp32 attention backward at ({bh}, {n}, {d}): rows launch "
+          f"{split['rows_ms']:.5f} ms, keys launch {split['keys_ms']:.5f} ms",
+          flush=True)
     return rows
 
 
@@ -845,9 +974,31 @@ def read_counts():
             "group_scale": G.SCALE_LAUNCHES}
 
 
-def main_path_phase():
+def by_dtype(launches, argv, what):
+    """The run's counts with K1's split by the kernel's dtype
+    (attention_fwd / attention_bwd the bf16 kernel's, attention_*_fp32 the
+    fp32 kernel's); raises unless every K1 launch ran in the run's compute
+    dtype. Read right after :func:`read_counts`."""
+    out = {**launches,
+           "attention_fwd": A.FWD_BY_DTYPE[torch.bfloat16],
+           "attention_bwd": A.BWD_BY_DTYPE[torch.bfloat16],
+           "attention_fwd_fp32": A.FWD_BY_DTYPE[torch.float32],
+           "attention_bwd_fp32": A.BWD_BY_DTYPE[torch.float32]}
+    dtype = argv[argv.index("--compute_dtype") + 1]
+    other = ("attention_fwd", "attention_bwd") if dtype == "float32" else \
+        ("attention_fwd_fp32", "attention_bwd_fp32")
+    if any(out[k] for k in other):
+        raise AssertionError(f"{what}: {dtype} compute launched the other "
+                             f"dtype's kernel: {out}")
+    return out
+
+
+def main_path_phase(argv=MAIN_ARGV, what="main path"):
+    """train_forget at ``argv`` (the flagship forget recipe, 1 epoch):
+    finite metrics and losses, K1's counts as the path implies; the
+    counts with K1's split by dtype (:func:`by_dtype`)."""
     with tempfile.TemporaryDirectory() as out:
-        argv = MAIN_ARGV + ["--outdir", out]
+        argv = argv + ["--outdir", out]
         want_fwd, want_bwd = expected_launches(argv)
         torch.cuda.synchronize()
         reset_counts()
@@ -856,28 +1007,30 @@ def main_path_phase():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        split = by_dtype(launches, argv, what)
         with open(os.path.join(out, "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
     for key in ("forget_acc", "remain_acc", "best_H_mean",
                 "forget_acc_before"):
         if not math.isfinite(report[key]):
-            raise AssertionError(f"main path: {key} = {report[key]}")
+            raise AssertionError(f"{what}: {key} = {report[key]}")
     losses = [(k, v) for rec in logged for k, v in rec.items()
               if k.startswith("loss_")]
     if not losses or not all(math.isfinite(v) for _, v in losses):
-        raise AssertionError(f"main path: missing or non-finite losses "
+        raise AssertionError(f"{what}: missing or non-finite losses "
                              f"{losses[:8]}")
     want = {"attention_fwd": want_fwd, "attention_bwd": want_bwd,
             "group_prox": 0, "group_norms": 0, "group_scale": 0}
     if launches != want:
-        raise AssertionError(f"main path launched {launches}; the path "
+        raise AssertionError(f"{what} launched {launches}; the path "
                              f"implies {want}")
-    print(f"main path: train_forget depth 6 dim 512 bs 24, 1 epoch on the "
-          f"card in {wall:.1f} s; forget_acc {report['forget_acc']:.2f} "
-          f"remain_acc {report['remain_acc']:.2f} best_H "
-          f"{report['best_H_mean']:.3f}; {len(losses)} finite logged "
-          f"losses; launches {launches}", flush=True)
-    return launches
+    dtype = argv[argv.index("--compute_dtype") + 1]
+    print(f"{what}: train_forget depth 6 dim 512 bs 24, {dtype} compute, "
+          f"1 epoch on the card in {wall:.1f} s; forget_acc "
+          f"{report['forget_acc']:.2f} remain_acc {report['remain_acc']:.2f} "
+          f"best_H {report['best_H_mean']:.3f}; {len(losses)} finite "
+          f"logged losses; launches {split}", flush=True)
+    return split
 
 
 def bench_setup():
@@ -1282,11 +1435,12 @@ def cl_launches(cfg, train, test, miss=0):
             "group_prox": prox, "group_norms": 0, "group_scale": 0}
 
 
-def continual_phase():
-    """The CL CLI on the card: GS-LoRA++ with the prox step and EMA over
-    2 tasks at flagship width; wall time per task from the report."""
+def continual_phase(argv=CL_ARGV, what="continual"):
+    """The CL CLI on the card at ``argv``: GS-LoRA++ with the prox step and
+    EMA over 2 tasks at flagship width; wall time per task from the
+    report; the counts with K1's split by dtype (:func:`by_dtype`)."""
     with tempfile.TemporaryDirectory() as out:
-        argv = CL_ARGV + ["--outdir", out]
+        argv = argv + ["--outdir", out]
         want = expected_cl_launches(argv)
         torch.cuda.synchronize()
         reset_counts()
@@ -1295,14 +1449,15 @@ def continual_phase():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        split = by_dtype(launches, argv, what)
         with open(os.path.join(out, "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
         missing = [t for t in range(2) if not os.path.exists(os.path.join(
             out, "task-level", f"Backbone_task_{t}.pth"))]
     if missing:
-        raise AssertionError(f"continual: no checkpoint of tasks {missing}")
+        raise AssertionError(f"{what}: no checkpoint of tasks {missing}")
     if [r["task"] for r in report] != [0, 1]:
-        raise AssertionError(f"continual: report of tasks "
+        raise AssertionError(f"{what}: report of tasks "
                              f"{[r['task'] for r in report]}")
     for r in report:
         vals = [r[k] for k in ("forget_acc_before", "forget_acc",
@@ -1310,25 +1465,79 @@ def continual_phase():
         if r["task"] == 1:
             vals.append(r["old_acc"])
         if not all(v is not None and math.isfinite(v) for v in vals):
-            raise AssertionError(f"continual: task {r['task']}: {r}")
+            raise AssertionError(f"{what}: task {r['task']}: {r}")
     losses = [v for rec in logged for k, v in rec.items()
               if k.startswith("loss_")]
     ema = [rec for rec in logged if "Test forget-ema Accuracy" in rec]
     if not losses or not all(math.isfinite(v) for v in losses) or \
             len(ema) != 2:
-        raise AssertionError(f"continual: losses {losses[:8]}, EMA evals "
+        raise AssertionError(f"{what}: losses {losses[:8]}, EMA evals "
                              f"{len(ema)}")
     if launches != want:
-        raise AssertionError(f"continual path launched {launches}; the "
+        raise AssertionError(f"{what} launched {launches}; the "
                              f"path implies {want}")
     per_task = [r["time_to_forget_s"] for r in report]
-    print("continual " + json.dumps({
-        "recipe": "train_forget_cl GS-LoRA++, prox, EMA, prototypes, "
-                  "depth 6 dim 512 bs 24, 2 tasks x 1 epoch, bf16 compute",
+    dtype = argv[argv.index("--compute_dtype") + 1]
+    print(f"{what} " + json.dumps({
+        "recipe": f"train_forget_cl GS-LoRA++, prox, EMA, prototypes, "
+                  f"depth 6 dim 512 bs 24, 2 tasks x 1 epoch, {dtype} "
+                  f"compute",
         "wall_s": wall, "time_to_forget_s": per_task,
         "old_acc_task1": report[1]["old_acc"],
         "norm_list_task1": report[1]["norm_list"],
-        "launches": launches}), flush=True)
+        "launches": split}), flush=True)
+    return split
+
+
+# The forget recipes in fp32 compute (slice 16: K1 on fp32 slices)
+FP32_ARGVS = {"train_forget_fp32": in_dtype(MAIN_ARGV, "float32"),
+              "train_forget_cl_fp32": in_dtype(CL_ARGV, "float32")}
+
+
+def fp32_path_shapes():
+    """(batch x heads, tokens, scale) of the fp32 phase's attentions."""
+    return sorted(set().union(*map(recipe_shapes, FP32_ARGVS.values())))
+
+
+@contextlib.contextmanager
+def plain_attention_on_card():
+    """Counts the plain attention's calls on CUDA tensors (forward,
+    backward) while open."""
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = A.attention_fwd_plain, A.attention_bwd_plain
+
+    def counted(key, fn):
+        def call(q, *args):
+            calls[key] += int(q.is_cuda)
+            return fn(q, *args)
+        return call
+
+    A.attention_fwd_plain = counted("fwd", fwd)
+    A.attention_bwd_plain = counted("bwd", bwd)
+    try:
+        yield calls
+    finally:
+        A.attention_fwd_plain, A.attention_bwd_plain = fwd, bwd
+
+
+def fp32_path_phase():
+    """train_forget and train_forget_cl (--one_stage, prox) at the forget
+    recipes' flags in fp32 compute, each held as its bf16 run is (finite
+    metrics and losses, K1's counts as the flags imply, K2 once per
+    continual step), every K1 launch on the fp32 kernel, none through the
+    plain attention on the card. The counts per run, K1's by dtype."""
+    t0 = time.perf_counter()
+    with plain_attention_on_card() as plain:
+        launches = {
+            "train_forget_fp32": main_path_phase(
+                FP32_ARGVS["train_forget_fp32"], "fp32 main path"),
+            "train_forget_cl_fp32": continual_phase(
+                FP32_ARGVS["train_forget_cl_fp32"], "fp32 continual")}
+    if plain != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"fp32 paths: the plain attention ran on the "
+                             f"card {plain}")
+    print(f"fp32 phase in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(launches), flush=True)
     return launches
 
 
@@ -3969,7 +4178,9 @@ def main():
     print(f"built kernels in {time.perf_counter() - t0:.1f} s: " +
           ", ".join(f"{k} {v:.1f} s" for k, v in builds.items()), flush=True)
 
-    rows = kernel_phase(bw, peak) + group_phase(bw, fp32_peak)
+    k1_rows = kernel_phase(bw, peak)
+    k1_fp32_rows = fp32_kernel_phase(bw, fp32_peak, k1_rows)
+    rows = k1_rows + group_phase(bw, fp32_peak) + k1_fp32_rows
     model_check(ViTConfig(dropout=0.0, emb_dropout=0.0))
     model_check(ViTConfig.vit_b16())
     lirf_check()
@@ -3978,6 +4189,7 @@ def main():
     # step's tensors count in a later one's peak memory
     profiler_phase([("bench recipe step", *bench_phase(card), 5)], card)
     cl_launches = continual_phase()
+    fp32_launches = fp32_path_phase()
     imagenet_launches = imagenet_phase()
     profiler_phase([("ViT-B/16 forget step", *imagenet_bench(card), 2)],
                    card)
@@ -3995,8 +4207,14 @@ def main():
     eval_launches = eval_phase(card)
     for row in rows:
         # each kernel's count from the path it serves: K1 the single-step
-        # main path, K2 the continual path; K3 is on neither
+        # main path (in fp32 for the fp32 kernel), K2 the continual path;
+        # K3 is on neither
         name = row["name"]
+        if name.endswith("_fp32"):
+            row["launches"] = fp32_launches["train_forget_fp32"][name]
+            row["launches_by_path"] = {path: counts[name] for path, counts
+                                       in fp32_launches.items()}
+            continue
         own = main_launches if name.startswith("attention") else cl_launches
         row["launches"] = own[name]
         row["launches_by_path"] = {
@@ -4013,7 +4231,9 @@ def main():
             **{path: counts[name] for path, counts in
                eval_launches.items()},
             **{path: counts[name] for path, counts in
-               integration_launches.items()}}
+               integration_launches.items()},
+            **{path: counts[name] for path, counts in
+               fp32_launches.items()}}
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)

@@ -15,8 +15,9 @@ Reference quirks kept: erf GELU, (p1 p2 c) patch layout, attention scale
 dim**-0.5 (vit_face.py:346).
 
 Attention (``ViTConfig.attn_impl``): "auto" and "pallas" go to the fused
-attention of ops/attention.py (the CUDA kernel for tensors on the card,
-its plain version on the CPU); "dpa" goes to that plain version on any
+attention of ops/attention.py (for tensors on the card the CUDA kernel of
+the compute dtype, bf16 or fp32; its plain version on the CPU; any other
+dtype on the card raises); "dpa" goes to that plain version on any
 device (fp32 scores, as ``jax.nn.dot_product_attention``); "xla" and
 "bnhd" run the JAX model's einsums, whose scores are rounded to the
 compute dtype before the fp32 softmax. Dropout draws from an explicit

@@ -6,20 +6,24 @@ Port of ``gslora_tpu/ops/attention.py``. The TPU kernel computes one
 residuals in device memory):
 
   fwd:  dots = q kᵀ · scale (fp32); p = softmax_fp32(dots);
-        o = bf16(p) v (fp32 accumulation)
-  bwd:  recompute p, then dv = bf16(p)ᵀ g, dp = g vᵀ,
+        o = cast(p) v (fp32 accumulation)
+  bwd:  recompute p, then dv = cast(p)ᵀ g, dp = g vᵀ,
         ddots = p * (dp - rowsum(dp ⊙ p)),
-        dq = bf16(ddots) k · scale, dk = bf16(ddots)ᵀ q · scale
+        dq = cast(ddots) k · scale, dk = cast(ddots)ᵀ q · scale
 
-On the card both directions run in ``csrc/attention.cu`` (CUDA C++ for
-sm_90a with wgmma and TMA, bound with ctypes; the source notes its
-design and bound). The backward is two launches: a rows kernel (dq and the
-row statistics m, l, 1/l, D = rowsum(dp ⊙ p) of each query row) and a keys
-kernel (dk, dv from those statistics); ``BWD_LAUNCHES`` counts the pair
-once. The plain version below computes the same function with the same
-rounding points in eager PyTorch; it runs for tensors on the CPU and is
-what the kernel is held against on the card. There is no fallback: a CUDA
-tensor goes to the kernel, or the wrapper raises.
+where cast rounds to the input dtype: bf16 under the bf16 compute dtype,
+nothing under fp32. On the card both directions run in hand-written CUDA
+C++ for sm_90a, bound with ctypes, one library per dtype with the same C
+interface: ``csrc/attention.cu`` for bfloat16 (wgmma and TMA) and
+``csrc/attention_fp32.cu`` for float32 (FFMA on the CUDA cores); each
+source notes its design and bound. The backward is two launches: a rows
+kernel (dq and the row statistics m, l, 1/l, D = rowsum(dp ⊙ p) of each
+query row) and a keys kernel (dk, dv from those statistics);
+``BWD_LAUNCHES`` counts the pair once. The plain version below computes the
+same function with the same rounding points in eager PyTorch; it runs for
+tensors on the CPU and is what the kernel is held against on the card.
+There is no fallback: a CUDA tensor goes to the kernel of its dtype, or the
+wrapper raises.
 """
 from __future__ import annotations
 
@@ -28,38 +32,59 @@ from typing import Tuple
 
 import torch
 
-# Launch counts of the two kernels (plain versions are not counted).
+# Launch counts of the two kernels, over both dtypes (plain versions are
+# not counted), and the same counts by the inputs' dtype.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+FWD_BY_DTYPE = dict.fromkeys(KERNEL_DTYPES, 0)
+BWD_BY_DTYPE = dict.fromkeys(KERNEL_DTYPES, 0)
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # Longest sequence the kernels take: a 64-row query tile keeps its whole
-# score row, padded to a multiple of 16 keys, in registers.
+# score row on chip (bf16: padded to 16 keys, in registers; fp32: padded to
+# 64 keys, in shared memory).
 KERNEL_MAX_N = 256
 # fp32 row statistics the backward's first launch leaves for its second, one
 # plane each: m, l, 1 / l and D = rowsum(dp ⊙ p)
 STATS = ("m", "l", "inv_l", "D")
-_LIB = None
+# The source of each dtype's kernels (csrc/<name>.cu); both export the same
+# C interface.
+SOURCES = {torch.bfloat16: "attention", torch.float32: "attention_fp32"}
+_LIBS = {}
 
-# How far a kernel output (bf16) may sit from the plain version's. Both
-# round at the same points and differ only in the order of fp32 sums, so
-# an element moves by one bf16 ulp, and rarely. Each output is held to its
-# own size: max|a - b| <= MAX_TOL * max|b| (four ulps of its largest
-# element) and ||a - b|| <= L2_TOL * ||b||.
-MAX_TOL = 2.0 ** -6
-L2_TOL = 2e-3
+# How far a kernel output may sit from the plain version's, by dtype. Each
+# output is held to its own size: max|a - b| <= max_rel * max|b| and
+# ||a - b|| <= l2 * ||b||.
+# bf16: both round at the same points and differ only in the order of fp32
+# sums, so an element moves by one bf16 ulp, and rarely: four ulps of the
+# largest element (2^-6) and 2e-3.
+# fp32: nothing is rounded below fp32, so the two differ by the order of
+# fp32 sums and a few ulps of exp. At the flagship's n and d the plain
+# version itself sits about 1e-6 (max) and 4e-7 (L2) from a float64 one,
+# also at n = 256, d = 128, so two correct fp32 computations differ by
+# about twice that; 2^-16 (1.5e-5) and 1e-5 leave some 10x room. Any
+# rounding below fp32 lands an order of magnitude above: TF32 operands
+# move the outputs by ~3e-4 to 2e-3, p rounded to bf16 by ~2e-3, the whole
+# bf16 path by ~4e-3, all of which the bf16 limits would pass
+# (tests/test_torch_attention.py plants each).
+TOLERANCES = {torch.bfloat16: (2.0 ** -6, 2e-3),
+              torch.float32: (2.0 ** -16, 1e-5)}
 
 
 def reset_launch_counts() -> None:
     global FWD_LAUNCHES, BWD_LAUNCHES
     FWD_LAUNCHES = 0
     BWD_LAUNCHES = 0
+    for counts in (FWD_BY_DTYPE, BWD_BY_DTYPE):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def plain_mismatch(got: torch.Tensor, want: torch.Tensor) -> dict:
     """Error of a kernel output against the plain version's: max abs,
-    that over max |want|, relative L2, and whether both are within
-    MAX_TOL and L2_TOL."""
+    that over max |want|, relative L2, and whether both are within the
+    limits of ``want``'s dtype (``TOLERANCES``)."""
+    max_tol, l2_tol = TOLERANCES[want.dtype]
     a, b = got.detach().float(), want.detach().float()
     diff = (a - b).abs()
     max_abs, max_ref = float(diff.max()), float(b.abs().max())
@@ -67,7 +92,7 @@ def plain_mismatch(got: torch.Tensor, want: torch.Tensor) -> dict:
                    torch.linalg.vector_norm(b).clamp_min(1e-30))
     max_rel = max_abs / max(max_ref, 1e-30)
     return {"max_abs": max_abs, "max_rel": max_rel, "rel_l2": rel_l2,
-            "ok": max_rel <= MAX_TOL and rel_l2 <= L2_TOL}
+            "ok": max_rel <= max_tol and rel_l2 <= l2_tol}
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +170,12 @@ def attention_bwd_plain(q, k, v, g, scale: float
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    """The kernel library, built from csrc/attention.cu at first use."""
-    global _LIB
-    if _LIB is None:
+def _lib(dtype: torch.dtype):
+    """The kernel library of ``dtype``, built from its source at first
+    use."""
+    if dtype not in _LIBS:
         from gslora_tpu_torch.ops.cuda_build import load
-        lib = load("attention")
+        lib = load(SOURCES[dtype])
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gslora_attn_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, cf, vp]
         lib.gslora_attn_bwd_rows.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
@@ -165,11 +190,11 @@ def _lib():
             fn.restype = ci
         if (lib.gslora_attn_max_n(), lib.gslora_attn_stats()) != \
                 (KERNEL_MAX_N, len(STATS)):
-            raise RuntimeError("csrc/attention.cu and ops/attention.py "
-                               "disagree on the longest sequence or the "
-                               "row statistics")
-        _LIB = lib
-    return _LIB
+            raise RuntimeError(f"csrc/{SOURCES[dtype]}.cu and "
+                               f"ops/attention.py disagree on the longest "
+                               f"sequence or the row statistics")
+        _LIBS[dtype] = lib
+    return _LIBS[dtype]
 
 
 def _check_kernel_args(*ts: torch.Tensor) -> None:
@@ -181,10 +206,10 @@ def _check_kernel_args(*ts: torch.Tensor) -> None:
         if not t.is_cuda or t.device != q.device:
             raise ValueError("attention kernel: every tensor must be on the "
                              "same CUDA device")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"attention kernel takes bfloat16, got "
-                             f"{t.dtype}; use compute_dtype bfloat16 on the "
-                             f"card, or attn_impl='xla' for the einsums")
+        if t.dtype not in KERNEL_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"attention kernel takes bfloat16 or float32, "
+                             f"every tensor in one dtype; got {t.dtype} "
+                             f"beside {q.dtype}")
         if t.shape != q.shape:
             raise ValueError(f"attention kernel: shape mismatch "
                              f"{tuple(t.shape)} vs {tuple(q.shape)}")
@@ -197,9 +222,8 @@ def _check_kernel_args(*ts: torch.Tensor) -> None:
                          f"{KERNEL_HEAD_DIMS}, got {d}")
     if not 1 <= n <= KERNEL_MAX_N or bh < 1:
         raise ValueError(f"attention kernel takes 1 <= n <= {KERNEL_MAX_N} "
-                         f"tokens (a query tile's score row lives in "
-                         f"registers) and at least one slice, got bh={bh}, "
-                         f"n={n}")
+                         f"tokens (a query tile's score row stays on chip) "
+                         f"and at least one slice, got bh={bh}, n={n}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -213,15 +237,17 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def attention_fwd_kernel(q, k, v, scale: float) -> torch.Tensor:
-    """Launch the forward kernel on the current stream."""
+    """Launch the forward kernel of the inputs' dtype on the current
+    stream."""
     global FWD_LAUNCHES
     _check_kernel_args(q, k, v)
     bh, n, d = q.shape
     o = torch.empty_like(q)
-    _raise_on(_lib().gslora_attn_fwd(q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), o.data_ptr(), bh, n, d,
-                                     float(scale), _stream(q)), "forward")
+    _raise_on(_lib(q.dtype).gslora_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, n, d,
+        float(scale), _stream(q)), "forward")
     FWD_LAUNCHES += 1
+    FWD_BY_DTYPE[q.dtype] += 1
     return o
 
 
@@ -236,7 +262,7 @@ def attention_bwd_rows_kernel(q, k, v, g, scale: float):
     dq = torch.empty_like(q)
     stats = torch.empty(len(STATS), bh, n, dtype=torch.float32,
                         device=q.device)
-    _raise_on(_lib().gslora_attn_bwd_rows(
+    _raise_on(_lib(q.dtype).gslora_attn_bwd_rows(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         dq.data_ptr(), stats.data_ptr(), bh, n, d, float(scale),
         _stream(q)), "backward rows")
@@ -254,7 +280,7 @@ def attention_bwd_keys_kernel(q, k, v, g, stats, scale: float):
                          f"contiguous ({len(STATS)}, {bh}, {n}) float32 "
                          f"tensor on {q.device}")
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _raise_on(_lib().gslora_attn_bwd_keys(
+    _raise_on(_lib(q.dtype).gslora_attn_bwd_keys(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         stats.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, n, d,
         float(scale), _stream(q)), "backward keys")
@@ -262,23 +288,25 @@ def attention_bwd_keys_kernel(q, k, v, g, stats, scale: float):
 
 
 def attention_bwd_kernel(q, k, v, g, scale: float):
-    """Launch the recompute backward (rows, then keys) on the current
-    stream; one count in ``BWD_LAUNCHES``."""
+    """Launch the recompute backward (rows, then keys) of the inputs' dtype
+    on the current stream; one count in ``BWD_LAUNCHES``."""
     global BWD_LAUNCHES
     dq, stats = attention_bwd_rows_kernel(q, k, v, g, scale)
     dk, dv = attention_bwd_keys_kernel(q, k, v, g, stats, scale)
     BWD_LAUNCHES += 1
+    BWD_BY_DTYPE[q.dtype] += 1
     return dq, dk, dv
 
 
 KERNEL_NAMES = ("forward", "backward rows", "backward keys")
 
 
-def kernel_info(n: int, d: int) -> dict:
-    """For each of the three kernels at (n, d): blocks resident per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
-    spill (local) bytes per thread, shared memory per block."""
-    lib, out = _lib(), (ctypes.c_int * 4)()
+def kernel_info(n: int, d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """For each of the three kernels of ``dtype`` at (n, d): blocks
+    resident per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and spill (local) bytes per thread, shared memory per
+    block."""
+    lib, out = _lib(dtype), (ctypes.c_int * 4)()
     info = {}
     for which, name in enumerate(KERNEL_NAMES):
         _raise_on(lib.gslora_attn_kernel_info(which, n, d, out), name)

@@ -7,14 +7,17 @@ fused_attention``, which runs its Pallas kernel in interpret mode on the
 CPU (as tests/test_pallas_attention.py runs it). Inputs come from a numpy
 seed, both sides fp32. Also on the CPU: the tolerance the kernel is held
 to (``plain_mismatch``) passes a reordering of the sums and rejects
-planted faults at the flagship's n, d and scale.
+planted faults at the flagship's n, d and scale, in bf16 and in fp32
+(where rounding below fp32 anywhere is a fault); and that the model sends
+fp32 attention to the kernel path (``FusedAttention`` with plain=False)
+under attn_impl "auto".
 
-Card cases (marker ``cuda``): the CUDA kernels (csrc/attention.cu) against
-the plain version in bf16, at the flagship shape, at ragged shapes and on
-the edges of the 64-row tiles and 16-key blocks up to the longest
-sequence; the backward's row statistics against
-``attention_bwd_stats_plain``; the length limit; and that two launches
-repeat bit for bit. They skip without a GPU. JAX is imported only inside
+Card cases (marker ``cuda``): the CUDA kernels (csrc/attention.cu for
+bf16, csrc/attention_fp32.cu for fp32) against the plain version in each
+dtype, at the flagship shape, at ragged shapes and on the edges of the
+64-row tiles and 16-key blocks up to the longest sequence; the backward's
+row statistics against ``attention_bwd_stats_plain``; the length limit;
+the refusal of other dtypes; and that two launches repeat bit for bit. They skip without a GPU. JAX is imported only inside
 the CPU cases, so on a machine with a card and without JAX they run as
 ``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``.
 """
@@ -153,12 +156,14 @@ def test_launch_counts_untouched_on_cpu():
 # n, d and scale, where the values are small (|dq| ~ 0.03 rms)
 # ---------------------------------------------------------------------------
 
+DTYPES = [torch.bfloat16, torch.float32]
 
-def _flagship_bf16(bh=16, seed=3):
-    """bf16 inputs at n=197, d=64 (the outputs' size, and so the check's
-    power, does not depend on bh)."""
+
+def _flagship_inputs(dtype, bh=16, seed=3):
+    """Inputs at n=197, d=64 (the outputs' size, and so the check's power,
+    does not depend on bh)."""
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(bh, 197, 64, generator=g).to(torch.bfloat16)
+    return [torch.randn(bh, 197, 64, generator=g).to(dtype)
             for _ in range(4)]
 
 
@@ -171,11 +176,12 @@ def _all_ok(got, want):
     return all(A.plain_mismatch(a, b)["ok"] for a, b in zip(got, want))
 
 
-def test_mismatch_check_accepts_reordered_sums():
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_mismatch_check_accepts_reordered_sums(dtype):
     """Permuting the keys (k and v rows together) and the head dim (every
     tensor's columns) leaves the function as it is and reorders the fp32
     sums, which is all a correct kernel changes: the check passes it."""
-    q, k, v, g = _flagship_bf16()
+    q, k, v, g = _flagship_inputs(dtype)
     keys = torch.randperm(197, generator=torch.Generator().manual_seed(0))
     cols = torch.randperm(64, generator=torch.Generator().manual_seed(1))
     o, dq, dk, dv = _plain_outputs(q[..., cols], k[:, keys][..., cols],
@@ -188,11 +194,18 @@ def test_mismatch_check_accepts_reordered_sums():
     assert _all_ok(got, want)
 
 
+def _tf32(t):
+    """t rounded to TF32 (10 mantissa bits, to nearest), what single-pass
+    TF32 tensor cores read."""
+    bits = t.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def _faulty_outputs(fault, q, k, v, g):
     """What a kernel with a planted fault would return."""
     o, dq, dk, dv = _plain_outputs(q, k, v, g)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     if fault == "no_rowsum":  # ddots = p * dp, without the fp32 rowsum
-        qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
         p = torch.softmax(torch.einsum("xid,xjd->xij", qf, kf)
                           * FLAGSHIP_SCALE, dim=-1)
         dd = (p * torch.einsum("xid,xjd->xij", gf, vf)).to(q.dtype).float()
@@ -207,16 +220,64 @@ def _faulty_outputs(fault, q, k, v, g):
                   for t in (k, v))
         o, dq, dk, dv = _plain_outputs(q, kp, vp, g)
         dk, dv = dk[:, :-1], dv[:, :-1]
+    elif fault == "tf32_operands":  # products on single-pass TF32
+        o, dq, dk, dv = _plain_outputs(*(_tf32(t) for t in (q, k, v, g)))
+    elif fault == "p_bf16":  # p rounded to bf16 before p v and pᵀ g
+        p = torch.softmax(torch.einsum("xid,xjd->xij", qf, kf)
+                          * FLAGSHIP_SCALE, dim=-1)
+        pb = p.to(torch.bfloat16).float()
+        o = torch.einsum("xij,xjd->xid", pb, vf)
+        dv = torch.einsum("xij,xid->xjd", pb, gf)
+    elif fault == "bf16_path":  # the bf16 kernel's function, cast back
+        o, dq, dk, dv = (t.to(q.dtype) for t in _plain_outputs(
+            *(t.to(torch.bfloat16) for t in (q, k, v, g))))
     return [o, dq, dk, dv]
 
 
-@pytest.mark.parametrize("fault", ["no_rowsum", "dq_scale_1pct",
-                                   "unmasked_pad_key"])
-def test_mismatch_check_rejects_planted_faults(fault):
-    q, k, v, g = _flagship_bf16()
+FAULTS = ["no_rowsum", "dq_scale_1pct", "unmasked_pad_key"]
+# rounding below fp32: faults of the fp32 kernel only (the bf16 kernel
+# rounds there by design)
+FP32_FAULTS = ["tf32_operands", "p_bf16", "bf16_path"]
+
+
+@pytest.mark.parametrize("dtype,fault", [
+    *((torch.bfloat16, f) for f in FAULTS),
+    *((torch.float32, f) for f in FAULTS + FP32_FAULTS)],
+    ids=lambda x: str(x).replace("torch.", ""))
+def test_mismatch_check_rejects_planted_faults(dtype, fault):
+    q, k, v, g = _flagship_inputs(dtype)
     want = _plain_outputs(q, k, v, g)
     assert _all_ok(want, want)
     assert not _all_ok(_faulty_outputs(fault, q, k, v, g), want)
+
+
+def test_model_sends_fp32_attention_to_the_kernel_path(monkeypatch):
+    """Under attn_impl "auto" an fp32 model's attention goes through
+    FusedAttention with plain=False, as bf16's does: on the card that is
+    the fp32 kernel (a CPU tensor takes the plain version inside it)."""
+    from gslora_tpu_torch.config import LoraConfig, ViTConfig
+    from gslora_tpu_torch.models.vit import init_vit_params, vit_apply
+
+    calls = []
+    apply = A.FusedAttention.apply
+
+    def spy(q, k, v, scale, plain):
+        calls.append((q.dtype, plain))
+        return apply(q, k, v, scale, plain)
+
+    monkeypatch.setattr(A.FusedAttention, "apply", spy)
+    model = ViTConfig(image_size=16, patch_size=8, dim=32, depth=2, heads=2,
+                      dim_head=16, mlp_dim=64, num_class=5, dropout=0.0,
+                      emb_dropout=0.0, head_type="Softmax")
+    assert model.attn_impl == "auto"
+    lora = LoraConfig(rank=2)
+    params = init_vit_params(torch.Generator().manual_seed(0), model, lora)
+    images = torch.from_numpy(np.random.RandomState(0).rand(
+        2, 3, 16, 16).astype(np.float32))
+    logits, _ = vit_apply(params, images, torch.tensor([0, 1]), model, lora,
+                          compute_dtype=torch.float32)
+    assert torch.isfinite(logits).all()
+    assert calls == [(torch.float32, False)] * model.depth
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +292,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _card_inputs(bh, n, d, device, seed=0):
+def _card_inputs(bh, n, d, device, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return [torch.randn(bh, n, d, generator=g).to(device, torch.bfloat16)
+    return [torch.randn(bh, n, d, generator=g).to(device, dtype)
             for _ in range(4)]
 
 
@@ -245,6 +306,7 @@ def _assert_matches_plain(got, want, names, where):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("bh,n,d", [
     (384, 197, 64), (6, 17, 64), (5, 1, 64), (3, 33, 16), (2, 70, 32),
     (2, 40, 128),
@@ -253,25 +315,27 @@ def _assert_matches_plain(got, want, names, where):
     (7, 63, 64), (7, 64, 64), (7, 65, 64), (5, 128, 64), (5, 129, 64),
     (5, 49, 64), (5, 193, 64), (5, 208, 64), (4, 232, 64),
     (4, A.KERNEL_MAX_N, 64), (3, A.KERNEL_MAX_N, 128)])
-def test_kernel_matches_plain(cuda_device, bh, n, d):
-    q, k, v, g = _card_inputs(bh, n, d, cuda_device)
+def test_kernel_matches_plain(cuda_device, bh, n, d, dtype):
+    q, k, v, g = _card_inputs(bh, n, d, cuda_device, dtype=dtype)
     o = A.attention_fwd_kernel(q, k, v, FLAGSHIP_SCALE)
     torch.cuda.synchronize()
     got = A.attention_bwd_kernel(q, k, v, g, FLAGSHIP_SCALE)
     torch.cuda.synchronize()
     _assert_matches_plain([o, *got], _plain_outputs(q, k, v, g),
-                          ("o", "dq", "dk", "dv"), (bh, n, d))
+                          ("o", "dq", "dk", "dv"), (bh, n, d, dtype))
 
 
 @pytest.mark.cuda
-def test_autograd_goes_through_kernels(cuda_device):
-    q, k, v, g = _card_inputs(4, 197, 64, cuda_device, seed=1)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_autograd_goes_through_kernels(cuda_device, dtype):
+    q, k, v, g = _card_inputs(4, 197, 64, cuda_device, seed=1, dtype=dtype)
     q, k, v = (t.requires_grad_(True) for t in (q, k, v))
     A.reset_launch_counts()
     out = A.fused_attention(q, k, v, FLAGSHIP_SCALE)
     out.backward(g)
     torch.cuda.synchronize()
     assert (A.FWD_LAUNCHES, A.BWD_LAUNCHES) == (1, 1)
+    assert (A.FWD_BY_DTYPE[dtype], A.BWD_BY_DTYPE[dtype]) == (1, 1)
     ref = A.attention_bwd_plain(q.detach(), k.detach(), v.detach(), g,
                                 FLAGSHIP_SCALE)
     _assert_matches_plain([q.grad, k.grad, v.grad], ref,
@@ -281,8 +345,8 @@ def test_autograd_goes_through_kernels(cuda_device):
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
     q, k, v, _ = _card_inputs(2, 17, 64, cuda_device)
-    with pytest.raises(ValueError, match="bfloat16"):
-        A.attention_fwd_kernel(q.float(), k.float(), v.float(), 0.1)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        A.attention_fwd_kernel(q.half(), k.half(), v.half(), 0.1)
     with pytest.raises(ValueError, match="head dims"):
         A.attention_fwd_kernel(q[..., :8].contiguous(),
                                k[..., :8].contiguous(),
@@ -299,10 +363,11 @@ def test_kernel_refuses_one_past_the_longest_sequence(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernel_repeats_bit_for_bit(cuda_device):
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_kernel_repeats_bit_for_bit(cuda_device, dtype):
     """No atomics and a fixed order of every sum: a second launch on the
     same inputs gives the same bits."""
-    q, k, v, g = _card_inputs(96, 197, 64, cuda_device, seed=2)
+    q, k, v, g = _card_inputs(96, 197, 64, cuda_device, seed=2, dtype=dtype)
     first = [A.attention_fwd_kernel(q, k, v, FLAGSHIP_SCALE),
              *A.attention_bwd_kernel(q, k, v, g, FLAGSHIP_SCALE)]
     second = [A.attention_fwd_kernel(q, k, v, FLAGSHIP_SCALE),
@@ -313,19 +378,21 @@ def test_kernel_repeats_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("bh,n,d", [(384, 197, 64), (5, 65, 32)])
-def test_backward_row_statistics_match_plain(cuda_device, bh, n, d):
+def test_backward_row_statistics_match_plain(cuda_device, bh, n, d, dtype):
     """The rows kernel's m, l and D against attention_bwd_stats_plain on the
-    same bf16 inputs: fp32 values that differ only in the order of sums,
-    each held to 1e-4 of its largest magnitude; its 1 / l is the correctly
+    same inputs: fp32 values that differ only in the order of sums, each
+    held to 1e-4 of its largest magnitude; its 1 / l is the correctly
     rounded reciprocal of its l."""
-    q, k, v, g = _card_inputs(bh, n, d, cuda_device, seed=5)
+    q, k, v, g = _card_inputs(bh, n, d, cuda_device, seed=5, dtype=dtype)
     _, stats = A.attention_bwd_rows_kernel(q, k, v, g, FLAGSHIP_SCALE)
     torch.cuda.synchronize()
     got = dict(zip(A.STATS, stats))
     want = A.attention_bwd_stats_plain(q, k, v, g, FLAGSHIP_SCALE)
     for name, b in zip(("m", "l", "D"), want):
         err = float((got[name] - b).abs().max())
-        print(f"row statistics {name} at {(bh, n, d)}: max abs {err}")
+        print(f"row statistics {name} at {(bh, n, d, dtype)}: max abs "
+              f"{err}")
         assert err <= 1e-4 * float(b.abs().max()), name
     assert torch.equal(got["inv_l"], 1.0 / got["l"])
