@@ -312,6 +312,7 @@ from gslora_tpu_torch.ops import quant as Q  # noqa: E402
 from gslora_tpu_torch.parallel import sharding  # noqa: E402
 from gslora_tpu_torch.parallel.mesh import (active_mesh,  # noqa: E402
                                             make_mesh)
+from gslora_tpu_torch.tools import attention_bench as AB  # noqa: E402
 from gslora_tpu_torch.tools import bench_inference as BI  # noqa: E402
 from gslora_tpu_torch.tools import flagship  # noqa: E402
 from gslora_tpu_torch.tools import integration_baselines as IB  # noqa: E402
@@ -336,21 +337,21 @@ N_TOKENS, HEAD_DIM = 197, 64
 MODEL_TOL = 3e-2
 
 # Published dense rates (NVIDIA data sheets): bytes/s of device memory,
-# bf16 tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores, keyed
-# by a substring of the card's name.
-PEAKS = [("H200", 4.8e12, 989e12, 67e12),
-         ("H100 PCIe", 2.0e12, 756e12, 51e12),
-         ("H100 NVL", 3.9e12, 835e12, 60e12),
-         ("H100", 3.35e12, 989e12, 67e12)]
+# bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores and TF32
+# tensor-core FLOP/s, keyed by a substring of the card's name.
+PEAKS = [("H200", 4.8e12, 989e12, 67e12, 495e12),
+         ("H100 PCIe", 2.0e12, 756e12, 51e12, 378e12),
+         ("H100 NVL", 3.9e12, 835e12, 60e12, 418e12),
+         ("H100", 3.35e12, 989e12, 67e12, 495e12)]
 SOURCES = ("attention", "attention_fp32", "group_lasso")
 # The flagship FFN LoRA: L, r, d, m (rank 8 on ViT-P8S8, depth 6)
 LORA_SHAPE = (6, 8, 512, 2048)
 
 
 def card_rates(name: str):
-    for key, bw, flops, fp32_flops in PEAKS:
+    for key, *rates in PEAKS:
         if key in name:
-            return bw, flops, fp32_flops
+            return tuple(rates)
     raise RuntimeError(f"no published rates for card {name!r}")
 
 
@@ -466,28 +467,12 @@ def path_shapes():
     return sorted(shapes)
 
 
-# Two ragged shapes, and the edges of K1's 64-row tiles and 16-key blocks
-# up to the longest sequence: (bh, n, d)
+# Two ragged shapes, and the edges of K1's 64-row tiles (128-row blocks in
+# fp32) and 16-key blocks (8 in fp32) up to the longest sequence: (bh, n, d)
 EDGE_SHAPES = [(6, 17, 64), (3, 70, 64), (7, 63, 64), (7, 64, 64),
                (7, 65, 64), (5, 128, 64), (5, 129, 64), (5, 193, 64),
                (5, 208, 64), (4, 232, 64), (4, A.KERNEL_MAX_N, 64),
                (3, A.KERNEL_MAX_N, 128)]
-
-
-def k1_bounds(bh, n, d, bw, peak, elem=2):
-    """Least time of K1 forward and backward at (bh, n, d): bytes (4 and 7
-    (bh, n, d) tensors of ``elem`` bytes an element, each read or written
-    once) against products (2 and 5 sets of 2 bh n^2 d FLOPs) at the
-    card's rates (``peak``: bf16 tensor cores for bf16, fp32 outside the
-    tensor cores for fp32); (ms, which)."""
-    tensor_bytes, matmul = bh * n * d * elem, 2 * bh * n * n * d
-    out = {}
-    for name, nt, nm in (("fwd", 4, 2), ("bwd", 7, 5)):
-        t_bytes = nt * tensor_bytes / bw * 1e3
-        t_ops = nm * matmul / peak * 1e3
-        out[name] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
-    return out
 
 
 def k1_errors(path, path_seed, edge_seed, dtype=torch.bfloat16):
@@ -536,7 +521,7 @@ def kernel_phase(bw, peak):
         name = f"{bh}x{n}x{HEAD_DIM}" + (
             "" if scale == SCALE else f"@{scale:.4f}")
         q, k, v, g = inputs(bh, n, HEAD_DIM, 7, bias=scale != SCALE)
-        bounds = k1_bounds(bh, n, HEAD_DIM, bw, peak)
+        bounds = AB.bf16_bounds(bh, n, HEAD_DIM, bw, peak)
         # library yardsticks at the same shape: SDPA forward, and its
         # backward alone over one recorded forward
         ql, kl, vl = (t[None].clone().requires_grad_(True)
@@ -550,7 +535,8 @@ def kernel_phase(bw, peak):
                                                            scale), None)):
                 by_shape[key][name] = {
                     "scale": scale, "ms": cuda_ms(fn),
-                    "cold_ms": cuda_cold_ms(fn), "bound_ms": bounds[key][0],
+                    "cold_ms": cuda_cold_ms(fn),
+                    "bound_ms": bounds[key]["bound_ms"],
                     "library_ms": cuda_ms(lib) if lib else None}
         by_shape["bwd"][name]["library_ms"] = cuda_ms(
             lambda: torch.autograd.grad(out_l, (ql, kl, vl), g[None],
@@ -588,7 +574,7 @@ def kernel_phase(bw, peak):
           f"{split['rows_ms']:.4f} ms, keys launch {split['keys_ms']:.4f} "
           f"ms", flush=True)
     flagship = f"{bh}x{n}x{d}"
-    bounds = k1_bounds(bh, n, d, bw, peak)
+    bounds = AB.bf16_bounds(bh, n, d, bw, peak)
     rows = []
     for name, line, t in (("attention_fwd", ":149", fwd),
                           ("attention_bwd", ":179", bwd)):
@@ -600,7 +586,7 @@ def kernel_phase(bw, peak):
             "launches": None,
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            **bounds[key],
             "bound_peak": "bf16 tensor cores",
             "library_ms": t["library_ms"],
             "shape": [bh, n, d],
@@ -615,18 +601,21 @@ def kernel_phase(bw, peak):
         print(f"{name} at ({bh}, {n}, {d}) bf16: kernel {t['ms']:.4f} ms "
               f"(L2-cold {rows[-1]['cold_ms']:.4f}), plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-              f"bound {bounds[key][0]:.4f} ms ({bounds[key][1]})",
+              f"bound {bounds[key]['bound_ms']:.4f} ms "
+              f"({bounds[key]['bound_by']})",
               flush=True)
     return rows
 
 
-def fp32_kernel_phase(bw, fp32_peak, bf16_rows):
+def fp32_kernel_phase(bw, fp32_peak, tf32_peak, bf16_rows):
     """The fp32 K1 (csrc/attention_fp32.cu) against its plain version at
     every shape the fp32 runs give it (:func:`fp32_path_shapes`) and at
     EDGE_SHAPES; its occupancy; at the flagship shape its warm and L2-cold
     times, the backward's two launches apart, the plain version's and
     SDPA's in fp32 (no TF32) as the library yardstick, beside the bf16
-    kernel's times of this run (``bf16_rows``)."""
+    kernel's times of this run (``bf16_rows``). Its bound is three TF32
+    passes on the tensor cores (the kernel's design), with the bound at
+    the fp32 rate outside them beside it."""
     f32 = torch.float32
     errs = k1_errors(fp32_path_shapes(), 40, 60, f32)
 
@@ -669,7 +658,7 @@ def fp32_kernel_phase(bw, fp32_peak, bf16_rows):
     times["bwd"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         out_l, (ql, kl, vl), g4, retain_graph=True))
     del out_l, ql, kl, vl
-    bounds = k1_bounds(bh, n, d, bw, fp32_peak, elem=4)
+    bounds = AB.fp32_bounds(bh, n, d, bw, tf32_peak, fp32_peak)
     bf16 = {row["name"]: row for row in bf16_rows}
     rows = []
     for key, line in (("fwd", ":149"), ("bwd", ":179")):
@@ -681,8 +670,9 @@ def fp32_kernel_phase(bw, fp32_peak, bf16_rows):
             "launches": None,
             "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-            "bound_peak": "fp32 outside the tensor cores",
+            **bounds[key],
+            "bound_peak": "three TF32 passes on the tensor cores",
+            "share_of_bound": bounds[key]["bound_ms"] / t["ms"],
             "library_ms": t["library_ms"],
             "shape": [bh, n, d], "dtype": "float32",
             "cold_ms": t["cold_ms"],
@@ -697,8 +687,10 @@ def fp32_kernel_phase(bw, fp32_peak, bf16_rows):
         print(f"{name} at ({bh}, {n}, {d}): kernel {t['ms']:.5f} ms "
               f"(L2-cold {t['cold_ms']:.5f}), plain {t['plain_ms']:.4f} ms, "
               f"SDPA fp32 {t['library_ms']:.5f} ms, bound "
-              f"{bounds[key][0]:.5f} ms ({bounds[key][1]}, fp32 peak); the "
-              f"bf16 kernel {b['ms']:.5f} ms (L2-cold {b['cold_ms']:.5f})",
+              f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']}, "
+              f"three TF32 passes; share {rows[-1]['share_of_bound']:.3f}), "
+              f"FFMA bound {rows[-1]['bound_ffma_ms']:.5f} ms; the bf16 "
+              f"kernel {b['ms']:.5f} ms (L2-cold {b['cold_ms']:.5f})",
               flush=True)
     print(f"fp32 attention backward at ({bh}, {n}, {d}): rows launch "
           f"{split['rows_ms']:.5f} ms, keys launch {split['keys_ms']:.5f} ms",
@@ -4168,7 +4160,7 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     card = smi.splitlines()[0]
-    bw, peak, fp32_peak = card_rates(torch.cuda.get_device_name(0))
+    bw, peak, fp32_peak, tf32_peak = card_rates(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     share_datasets()
@@ -4179,7 +4171,7 @@ def main():
           ", ".join(f"{k} {v:.1f} s" for k, v in builds.items()), flush=True)
 
     k1_rows = kernel_phase(bw, peak)
-    k1_fp32_rows = fp32_kernel_phase(bw, fp32_peak, k1_rows)
+    k1_fp32_rows = fp32_kernel_phase(bw, fp32_peak, tf32_peak, k1_rows)
     rows = k1_rows + group_phase(bw, fp32_peak) + k1_fp32_rows
     model_check(ViTConfig(dropout=0.0, emb_dropout=0.0))
     model_check(ViTConfig.vit_b16())

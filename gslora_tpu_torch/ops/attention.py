@@ -15,8 +15,8 @@ where cast rounds to the input dtype: bf16 under the bf16 compute dtype,
 nothing under fp32. On the card both directions run in hand-written CUDA
 C++ for sm_90a, bound with ctypes, one library per dtype with the same C
 interface: ``csrc/attention.cu`` for bfloat16 (wgmma and TMA) and
-``csrc/attention_fp32.cu`` for float32 (FFMA on the CUDA cores); each
-source notes its design and bound. The backward is two launches: a rows
+``csrc/attention_fp32.cu`` for float32 (three-pass TF32 on the tensor
+cores: wgmma and TMA); each source notes its design and bound. The backward is two launches: a rows
 kernel (dq and the row statistics m, l, 1/l, D = rowsum(dp ⊙ p) of each
 query row) and a keys kernel (dk, dv from those statistics);
 ``BWD_LAUNCHES`` counts the pair once. The plain version below computes the
@@ -42,8 +42,8 @@ BWD_BY_DTYPE = dict.fromkeys(KERNEL_DTYPES, 0)
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # Longest sequence the kernels take: a 64-row query tile keeps its whole
-# score row on chip (bf16: padded to 16 keys, in registers; fp32: padded to
-# 64 keys, in shared memory).
+# score row on chip, in registers (bf16: padded to 16 keys; fp32: padded to
+# 8 keys).
 KERNEL_MAX_N = 256
 # fp32 row statistics the backward's first launch leaves for its second, one
 # plane each: m, l, 1 / l and D = rowsum(dp ⊙ p)
@@ -65,9 +65,12 @@ _LIBS = {}
 # also at n = 256, d = 128, so two correct fp32 computations differ by
 # about twice that; 2^-16 (1.5e-5) and 1e-5 leave some 10x room. Any
 # rounding below fp32 lands an order of magnitude above: TF32 operands
-# move the outputs by ~3e-4 to 2e-3, p rounded to bf16 by ~2e-3, the whole
-# bf16 path by ~4e-3, all of which the bf16 limits would pass
-# (tests/test_torch_attention.py plants each).
+# move the outputs by ~3e-4 to 2e-3, and so does TF32 on the tensor cores
+# in one pass (hi·hi, ~4e-4 to 8e-4) or two (lo·hi dropped, ~3e-4 to
+# 4e-4); p rounded to bf16 by ~2e-3, the whole bf16 path by ~4e-3, all of
+# which the bf16 limits would pass (tests/test_torch_attention.py plants
+# each). Three passes (lo·hi + hi·lo + hi·hi, the fp32 kernel's design)
+# land near 1e-6, as a correct fp32 computation does.
 TOLERANCES = {torch.bfloat16: (2.0 ** -6, 2e-3),
               torch.float32: (2.0 ** -16, 1e-5)}
 

@@ -201,6 +201,53 @@ def _tf32(t):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _tf32_product(eq, a, b, passes):
+    """einsum(eq, a, b) as fp32 K1's tensor cores take it: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), and the product summed
+    in fp32 as (lo_a hi_b + hi_a lo_b) + hi_a hi_b, the small terms first
+    (three passes); two passes drop lo_a hi_b, one keeps hi_a hi_b alone."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if passes == 1:
+        return out
+    cross = torch.einsum(eq, a_hi, b_lo)
+    if passes == 3:
+        cross = torch.einsum(eq, a_lo, b_hi) + cross
+    return cross + out
+
+
+def _tf32_outputs(q, k, v, g, passes):
+    """o, dq, dk, dv with every product of the forward and backward (p and
+    ddots split too) on ``passes``-pass TF32, everything else in fp32."""
+    def mm(eq, a, b):
+        return _tf32_product(eq, a, b, passes)
+
+    p = torch.softmax(mm("xid,xjd->xij", q, k) * FLAGSHIP_SCALE, dim=-1)
+    dp = mm("xid,xjd->xij", g, v)
+    dd = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    return [mm("xij,xjd->xid", p, v),
+            mm("xij,xjd->xid", dd, k) * FLAGSHIP_SCALE,
+            mm("xij,xid->xjd", dd, q) * FLAGSHIP_SCALE,
+            mm("xij,xid->xjd", p, g)]
+
+
+@pytest.mark.parametrize("bh,n,d", [(16, 197, 64), (16, 256, 128),
+                                    (6, 17, 64)])
+def test_three_pass_tf32_passes_fp32_limits(bh, n, d):
+    """The fp32 kernel's arithmetic, emulated: every product on three TF32
+    passes lands near 1e-6 of the plain fp32 version, inside the fp32
+    limits of plain_mismatch at the flagship's n and d, the longest
+    sequence at d = 128 and a ragged shape."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v, g = (torch.randn(bh, n, d, generator=gen) for _ in range(4))
+    got = _tf32_outputs(q, k, v, g, passes=3)
+    want = _plain_outputs(q, k, v, g)
+    for a, b in zip(got, want):
+        m = A.plain_mismatch(a, b)
+        assert m["ok"] and m["max_rel"] < 1e-5 and m["rel_l2"] < 5e-6, m
+
+
 def _faulty_outputs(fault, q, k, v, g):
     """What a kernel with a planted fault would return."""
     o, dq, dk, dv = _plain_outputs(q, k, v, g)
@@ -222,6 +269,8 @@ def _faulty_outputs(fault, q, k, v, g):
         dk, dv = dk[:, :-1], dv[:, :-1]
     elif fault == "tf32_operands":  # products on single-pass TF32
         o, dq, dk, dv = _plain_outputs(*(_tf32(t) for t in (q, k, v, g)))
+    elif fault == "tf32_two_pass":  # three-pass TF32 with lo·hi dropped
+        o, dq, dk, dv = _tf32_outputs(qf, kf, vf, gf, passes=2)
     elif fault == "p_bf16":  # p rounded to bf16 before p v and pᵀ g
         p = torch.softmax(torch.einsum("xid,xjd->xij", qf, kf)
                           * FLAGSHIP_SCALE, dim=-1)
@@ -237,7 +286,7 @@ def _faulty_outputs(fault, q, k, v, g):
 FAULTS = ["no_rowsum", "dq_scale_1pct", "unmasked_pad_key"]
 # rounding below fp32: faults of the fp32 kernel only (the bf16 kernel
 # rounds there by design)
-FP32_FAULTS = ["tf32_operands", "p_bf16", "bf16_path"]
+FP32_FAULTS = ["tf32_operands", "tf32_two_pass", "p_bf16", "bf16_path"]
 
 
 @pytest.mark.parametrize("dtype,fault", [
