@@ -1,17 +1,15 @@
-"""The port's baseline integration tools (gslora_tpu_torch/tools/
-integration_baselines.py and integration_baselines_cl.py) against the
-JAX package's compositions of scripts/integration_baselines.py and
-scripts/integration_baselines_cl.py (tests/torch_integration_setup.py),
-from one base, at the scripts' tiny model and data, fp32, dropout 0,
-every epoch count cut to 1.
+"""The port's single-task baseline integration tool (gslora_tpu_torch/
+tools/integration_baselines.py) against the JAX package's composition of
+scripts/integration_baselines.py (tests/torch_integration_setup.py), every
+one of its twelve methods, from one base, at the scripts' tiny model and
+data, fp32, dropout 0, every epoch count cut to 1. The continual tool is
+held in tests/test_torch_integration_baselines_cl.py.
 
 Tolerances: accuracies equal (the same predictions, to float rounding),
-best H-means to 1e-6. Every run takes the scripts' batch of 48 (the
-CL script's --tiny batch of 8 would give SCRUB 840 steps a task)."""
+best H-means to 1e-6. Every run takes the scripts' batch of 48."""
 import json
 import os
 
-import numpy as np
 import pytest
 
 import gslora_tpu.config as jc
@@ -20,12 +18,10 @@ from gslora_tpu_torch.models.convert import params_from_jax
 from gslora_tpu_torch.tools import integration_baselines as B
 from gslora_tpu_torch.tools import integration_baselines_cl as CL
 
-from torch_baselines_setup import assert_reports_match, np_tree, \
-    one_torch_thread
-from torch_integration_setup import (TINY, assert_close,
-                                     jax_continual_baselines,
-                                     jax_single_task, jax_tree, stand_in,
-                                     tiny_model, trained_base)
+from torch_baselines_setup import np_tree, one_torch_thread
+from torch_integration_setup import (TINY, assert_close, jax_single_task,
+                                     jax_tree, stand_in, tiny_model,
+                                     trained_base)
 
 _one_torch_thread = pytest.fixture(autouse=True, scope="module")(
     one_torch_thread)
@@ -54,7 +50,8 @@ def port_single(setup, methods, tmp_path, out=None, **kw):
 
 
 @pytest.mark.parametrize("method", ["gs_lora", "ewc", "lwf", "lirf", "scrub",
-                                    "replay", "retrain"])
+                                    "replay", "retrain", "mas", "l2", "der",
+                                    "der_plus", "fdr"])
 def test_single_task_matches_jax(setup, tmp_path, method):
     """One method of the single-task matrix: the pretrain accuracy and the
     method's forget-before, forget, remain accuracies and best H as the
@@ -71,20 +68,6 @@ def test_single_task_matches_jax(setup, tmp_path, method):
     for key in ("forget_acc_before", "forget_acc", "remain_acc"):
         assert_close(got[key], want[key], (method, key))
     assert_close(got["best_h"], want["best_h"], method)
-
-
-@pytest.mark.parametrize("method", ["mas", "l2", "der", "der_plus", "fdr"])
-def test_other_methods_run_in_the_port(setup, tmp_path, method):
-    """The rest of the matrix through the port alone (their steps and
-    runners are held to JAX's in tests/test_torch_baselines_reg.py and
-    _distill.py; a JAX composition each would cost the file ~15 s of
-    compiles): the script's keys, finite accuracies in [0, 100]."""
-    report = port_single(setup, [method], tmp_path)
-    got = report[method + "_unsat"]
-    assert set(got) == {*B.RESULT_KEYS, "wallclock_s"}
-    for key in ("forget_acc_before", "forget_acc", "remain_acc"):
-        assert 0.0 <= got[key] <= 100.0, (method, key, got[key])
-    assert np.isfinite(got["best_h"])
 
 
 def test_recipes_are_the_scripts():
@@ -130,31 +113,3 @@ def test_reports_merge_where_asked(setup, tmp_path, monkeypatch):
     written = json.loads((temp / "integration_baselines.json").read_text())
     assert set(written) == {"pretrain_test_acc", "l2", "total_wallclock_s"}
     assert os.listdir(work) == []
-
-
-def test_continual_baselines_match_jax(setup, tmp_path):
-    """scrub, lwf, lirf and ewc for 2 tasks with their state across the
-    tasks: every task's results as the JAX composition's, and the report's
-    keys the script's."""
-    methods = ["scrub", "lwf", "lirf", "ewc"]
-    pre, want = jax_continual_baselines(methods, jax_tree(setup["base"]),
-                                        *setup["jax"], tiny_model(jc),
-                                        48, 2, 1)
-    out = tmp_path / "cl.json"
-    report = CL.run(methods, params_from_jax(setup["base"]),
-                    *setup["torch"], tiny_model(tc), 48, "cpu", 2,
-                    recipes=B.with_epochs(CL.RECIPES, 1),
-                    compute_dtype="float32", out=str(out))
-    assert json.loads(out.read_text()) == json.loads(json.dumps(report))
-    assert set(report) == {"pretrain_test_acc", "num_tasks",
-                           "total_wallclock_s", *methods}
-    assert report["num_tasks"] == 2
-    assert_close(report["pretrain_test_acc"], pre, "pretrain")
-    for m in methods:
-        assert set(report[m]) == {"tasks", "wallclock_s"}
-        assert_reports_match(report[m]["tasks"], want[m])
-    # the base tells the classes apart, so the runs have something to
-    # forget
-    assert pre > 10.0
-    assert np.isfinite([t["best_h"] for m in methods
-                        for t in report[m]["tasks"]]).all()

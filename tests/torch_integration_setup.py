@@ -23,16 +23,19 @@ def tiny_model(C, head="Softmax"):
     return C.ViTConfig(**TINY, head_type=head)
 
 
-def stand_in(pkg, noise):
-    """The scripts' (train, test) in package ``pkg`` at the tiny size."""
+def stand_in(pkg, noise, image_size=16):
+    """The scripts' (train, test) in package ``pkg``, at the tiny size
+    unless ``image_size`` says otherwise."""
     if pkg == "jax":
         from gslora_tpu.data.synthetic import synthetic_face_dataset
     else:
         from gslora_tpu_torch.data.synthetic import synthetic_face_dataset
     return (synthetic_face_dataset(num_classes=100, per_class=24,
-                                   image_size=16, seed=0, noise=noise),
+                                   image_size=image_size, seed=0,
+                                   noise=noise),
             synthetic_face_dataset(num_classes=100, per_class=5,
-                                   image_size=16, seed=77, noise=noise))
+                                   image_size=image_size, seed=77,
+                                   noise=noise))
 
 
 def trained_base(head, noise, epochs=10, seed=0):
@@ -181,7 +184,8 @@ def jax_single_task(method, params, fresh, train, test, model, bs, n_ep):
 def jax_continual_baselines(methods, params, train, test, model, bs,
                             num_tasks, n_ep):
     """scripts/integration_baselines_cl.py:98-160: the pretrain accuracy
-    and, per method, run_baseline_continual's per-task results."""
+    and, per method, run_baseline_continual's per-task results. Retrain
+    draws each task's fresh start from cli/common.build_params."""
     from gslora_tpu.cli.train_forget_cl import run_baseline_continual
     from gslora_tpu.config import (BaselineConfig, DataConfig, ForgetConfig,
                                    LoraConfig, OptimConfig, RunConfig)
@@ -198,13 +202,22 @@ def jax_continual_baselines(methods, params, train, test, model, bs,
         "scrub": BaselineConfig(method="scrub", scrub_superepoch=n_ep,
                                 sgda_learning_rate=5e-4, sgda_gamma=0.99,
                                 sgda_alpha=0.001),
+        "der": BaselineConfig(method="der", der_lambda=0.1),
+        "der_plus": BaselineConfig(method="der_plus", der_lambda=0.1,
+                                   der_plus_lambda=0.1),
+        "fdr": BaselineConfig(method="fdr", fdr_lambda=0.1),
+        "mas": BaselineConfig(method="mas", mas_lambda=5.0),
+        "l2": BaselineConfig(method="l2", l2_lambda=0.1),
+        "replay": BaselineConfig(method="replay"),
+        "retrain": BaselineConfig(method="retrain"),
     }
+    lrs = {"retrain": 3e-4}  # :141-142, the rest at the default 1e-4
     results = {}
     for m in methods:
         cfg = RunConfig(
             model=model, lora=LoraConfig(rank=8),
-            optim=OptimConfig(opt="adamw", lr=1e-4, warmup_epochs=0,
-                              epochs=n_ep),
+            optim=OptimConfig(opt="adamw", lr=lrs.get(m, 1e-4),
+                              warmup_epochs=0, epochs=n_ep),
             forget=ForgetConfig(num_of_first_cls=80, per_forget_cls=10,
                                 num_tasks=num_tasks, data_ratio=0.4),
             baseline=recipes[m], data=DataConfig(batch_size=bs),
@@ -255,3 +268,52 @@ def assert_close(got, want, what):
     """An accuracy (the same predictions) or an H-mean, to float
     rounding."""
     assert abs(got - want) <= 1e-6, (what, got, want)
+
+
+FLAGSHIP = dict(image_size=112, patch_size=8, dim=512, depth=6, heads=8,
+                dim_head=64, mlp_dim=2048, num_class=100, dropout=0.1,
+                emb_dropout=0.1)
+
+
+def jax_flagship_base(path):
+    """scripts/integration_synthetic.py:49-90 with --unsaturated, in fp32
+    on the CPU: the flagship (Softmax head) from the JAX seed-0 init,
+    pretrained 12 epochs on the noise-2.4 stand-in (remat, AdamW lr 3e-4,
+    2 warm-up epochs, BatchLoader(train, 240, seed=3)) and saved at
+    ``path`` with save_pytree; a base already at ``path`` is read
+    instead. Returns the tree with numpy leaves. Over an hour on an
+    8-core CPU."""
+    import dataclasses
+    import os
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from gslora_tpu.checkpoints.io import load_pytree, save_pytree
+    from gslora_tpu.config import (DataConfig, LoraConfig, OptimConfig,
+                                   RunConfig, ViTConfig)
+    from gslora_tpu.data.pipeline import BatchLoader
+    from gslora_tpu.data.synthetic import synthetic_face_dataset
+    from gslora_tpu.engine.pretrain import pretrain
+    from gslora_tpu.models.vit import init_vit_params
+
+    model = ViTConfig(**FLAGSHIP, head_type="Softmax")
+    lora = LoraConfig(rank=8)
+    params = init_vit_params(jax.random.key(0), model, lora,
+                             param_dtype=jnp.float32)
+    if os.path.exists(path):
+        params = load_pytree(path, params)
+    else:
+        train = synthetic_face_dataset(num_classes=100, per_class=24,
+                                       image_size=112, seed=0, noise=2.4)
+        cfg = RunConfig(model=dataclasses.replace(model, remat=True),
+                        lora=lora,
+                        optim=OptimConfig(lr=3e-4, warmup_epochs=2,
+                                          epochs=12),
+                        data=DataConfig(batch_size=240))
+        state, _ = pretrain(cfg, params,
+                            lambda: BatchLoader(train, 240, seed=3),
+                            epochs=12, compute_dtype=jnp.float32)
+        params = state.params
+        save_pytree(path, params)
+    return jax.tree.map(np.asarray, params)
