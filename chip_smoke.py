@@ -79,8 +79,15 @@ non-zero exit code and without the final result line.
    bit, keep it and move the LoRA; export_torch of its result to a
    reference-named .pth that -r loads back bit for bit; pair verification
    (perform_val) of its result on the card. K1 counts equal what each run
-   implies (expected_pretrain_launches). Then the pretrain step alone at
-   bs 480, without and with remat: ms/step, images/s, peak memory.
+   implies (expected_pretrain_launches). Then remat with dropout on the
+   card's generator (slice 19, remat_dropout_check): one pretrain loss
+   at the flagship width, depth 2, dropout 0.1, 48 images, dropout drawn
+   from a CUDA generator at seed 3, in bf16 (K1) and fp32 (fp32 K1),
+   without remat twice and with it: the gradients with remat equal those
+   without bit for bit (or within the two runs' difference, printed),
+   the generator ends in the same state, 2 x depth attention blocks run
+   under remat and depth without. Then the pretrain step alone at bs
+   480, without and with remat: ms/step, images/s, peak memory.
 8. Baseline phase: every baseline of the zoo (Retrain, Replay, L2, EWC,
    MAS, LwF, DER, DER++, FDR, SCRUB, LIRF) through train_forget_cl, 2
    tasks, and train_forget --ewc and --retrain, at the flagship width and
@@ -221,7 +228,10 @@ non-zero exit code and without the final result line.
    report against the JAX script's keys, every accuracy finite and in
    [0, 100], K1's counts per tool against those its recipe and data
    imply, K2 and K3 at 0, and that no file appeared in the working tree;
-   prints each tool's wall and peak memory.
+   prints each tool's wall and peak memory. Then tools/base_split (slice
+   19) once: its recipe arm (torch seed 0, bf16, remat, K1) pretrained
+   1 epoch and one forget run of 1 epoch from it, K1's counts of the
+   call and of each part against those derived, its walls printed.
 15. fp32 phase (slice 16, right after the continual phase): the main
    path's train_forget and the continual phase's train_forget_cl recipes
    with --compute_dtype float32, each checked as its bf16 run (finite
@@ -301,6 +311,7 @@ from gslora_tpu_torch.evaluation.verification import (  # noqa: E402
 from gslora_tpu_torch.models.convert import flatten_tree  # noqa: E402
 from gslora_tpu_torch.losses.classification import (  # noqa: E402
     cross_entropy)
+from gslora_tpu_torch.models import vit as VIT  # noqa: E402
 from gslora_tpu_torch.models.vit import (ViT, _Node,  # noqa: E402
                                          init_vit_params, vit_apply)
 from gslora_tpu_torch.models.vit_imagenet import (  # noqa: E402
@@ -313,6 +324,8 @@ from gslora_tpu_torch.parallel import sharding  # noqa: E402
 from gslora_tpu_torch.parallel.mesh import (active_mesh,  # noqa: E402
                                             make_mesh)
 from gslora_tpu_torch.tools import attention_bench as AB  # noqa: E402
+from gslora_tpu_torch.tools import attention_split as AS  # noqa: E402
+from gslora_tpu_torch.tools import base_split as BS  # noqa: E402
 from gslora_tpu_torch.tools import bench_inference as BI  # noqa: E402
 from gslora_tpu_torch.tools import flagship  # noqa: E402
 from gslora_tpu_torch.tools import integration_baselines as IB  # noqa: E402
@@ -1259,7 +1272,119 @@ def pretrain_phase():
         print("export: reference-named .pth of the LoRA-only result loads "
               "back bit for bit", flush=True)
         verification_check(state, cfg)
+    remat_dropout_check()
     return full, lora
+
+
+REMAT_CHECK_DEPTH = 2
+REMAT_CHECK_IMAGES = 48
+
+
+def remat_dropout_check(depth=REMAT_CHECK_DEPTH, images=REMAT_CHECK_IMAGES):
+    """Remat with dropout on the card's generator (models/vit.
+    _rematerialized replays each layer's dropout masks in the backward by
+    the generator's get_state / set_state): one pretrain loss (CE of the
+    unsaturated flagship's Softmax head, every parameter, rank-8 LoRA
+    with nonzero B) at the flagship's width, ``depth`` layers, dropout
+    and emb_dropout 0.1, ``images`` images, dropout drawn from a
+    torch.Generator on the card at seed 3; in bf16 through K1 and in
+    fp32 through fp32 K1. Without remat twice (the run-to-run difference
+    of the step's kernels on the card), then with remat: remat's
+    gradients equal the first run's bit for bit when the two runs without
+    it are (else within their difference), the generator ends in the
+    same state, the forward runs 2 x depth attention blocks under remat
+    and depth without, and K1 launches 2 x depth (depth) forwards and
+    depth backwards of the dtype's kernel alone; another generator seed
+    gives other gradients (dropout is on). Prints the differences and the
+    wall."""
+    t0 = time.perf_counter()
+    model = dataclasses.replace(flagship.model_config(unsaturated=True),
+                                depth=depth)
+    assert model.dropout == model.emb_dropout == 0.1
+    params = init_vit_params(torch.Generator().manual_seed(0), model,
+                             flagship.LORA)
+    draw = torch.Generator().manual_seed(1)
+    for name in ("B1", "B2"):  # every LoRA leaf gets a gradient
+        b = params["lora"]["ffn"][name]
+        params["lora"]["ffn"][name] = 0.05 * torch.randn(b.shape,
+                                                         generator=draw)
+    inputs = torch.Generator(device=DEV).manual_seed(0)
+    size = model.image_size
+    x = torch.randn(images, 3, size, size, device=DEV, generator=inputs)
+    y = torch.randint(0, model.num_class, (images,), device=DEV,
+                      generator=inputs)
+    calls = []
+    block = VIT._attention_block
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return block(*args, **kwargs)
+
+    def run(remat, dtype, seed=3):
+        net = ViT(params, dataclasses.replace(model, remat=remat),
+                  flagship.LORA).to(DEV)
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        calls.clear()
+        torch.cuda.synchronize()
+        start = AS.k1_launches()
+        logits, _ = net(x, y, train=True, generator=gen, compute_dtype=dtype)
+        grads = torch.autograd.grad(cross_entropy(logits, y),
+                                    list(net.parameters()))
+        torch.cuda.synchronize()
+        return grads, gen.get_state(), len(calls), AS.k1_launches(start)
+
+    def max_diff(a, b):
+        return max(float((u.float() - v.float()).abs().max())
+                   for u, v in zip(a, b))
+
+    out = {}
+    VIT._attention_block = counted
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            plain, again, remat = (run(False, dtype), run(False, dtype),
+                                   run(True, dtype))
+            other = run(False, dtype, seed=4)
+            noise = max_diff(plain[0], again[0])
+            equal = all(torch.equal(u, v)
+                        for u, v in zip(plain[0], remat[0]))
+            err = max_diff(plain[0], remat[0])
+            want = {k: ([2 * depth, depth] if k == name else [0, 0])
+                    for k in remat[3]}
+            if not (equal or (noise > 0 and err <= noise)):
+                raise AssertionError(
+                    f"remat with dropout, {name}: gradients differ from "
+                    f"the run without remat by {err} (two runs without "
+                    f"it: {noise})")
+            if not (torch.equal(plain[1], remat[1])
+                    and torch.equal(plain[1], again[1])):
+                raise AssertionError(f"remat with dropout, {name}: the "
+                                     f"generator ends elsewhere")
+            if (plain[2], remat[2]) != (depth, 2 * depth):
+                raise AssertionError(
+                    f"remat with dropout, {name}: {plain[2]} / {remat[2]} "
+                    f"attention blocks without / with remat")
+            if remat[3] != want or plain[3] != {
+                    k: [v[0] // 2, v[1]] for k, v in want.items()}:
+                raise AssertionError(
+                    f"remat with dropout, {name}: K1 launched "
+                    f"{plain[3]} / {remat[3]} without / with remat")
+            if all(torch.equal(u, v) for u, v in zip(plain[0], other[0])):
+                raise AssertionError(f"remat with dropout, {name}: another "
+                                     f"generator seed gives the same "
+                                     f"gradients")
+            out[name] = {"bit_equal": equal, "remat_max_diff": err,
+                         "no_remat_run_to_run": noise,
+                         "blocks": [plain[2], remat[2]],
+                         "launches": [plain[3][name], remat[3][name]],
+                         "other_seed_max_diff": max_diff(plain[0],
+                                                         other[0])}
+    finally:
+        VIT._attention_block = block
+    print("remat_dropout " + json.dumps({
+        "recipe": f"pretrain loss, flagship width, depth {depth}, "
+                  f"{images} images, dropout 0.1, cuda generator seed 3",
+        **out, "wall_s": time.perf_counter() - t0}), flush=True)
 
 
 def verification_check(state, cfg, n_pairs=300):
@@ -2079,6 +2204,18 @@ def integration_single_launches(model, recipes, bs, train, test):
             "group_norms": 0, "group_scale": 0}
 
 
+_STAND_IN = []
+
+
+def flagship_stand_in():
+    """tools/flagship's unsaturated stand-in (2400 + 500 images at 112
+    px), built once for the phases that use it."""
+    if not _STAND_IN:
+        _STAND_IN.extend(flagship.stand_in(
+            flagship.model_config(unsaturated=True), flagship.noise(True)))
+    return tuple(_STAND_IN)
+
+
 def integration_phase():
     """The four flagship integration tools through their run functions on
     the card (tools/integration_synthetic --unsaturated, all twelve
@@ -2096,7 +2233,7 @@ def integration_phase():
     dev = str(DEV)
     cwd_files = tree_files(os.getcwd())
     model = flagship.model_config(unsaturated=True)
-    train, test = flagship.stand_in(model, flagship.noise(True))
+    train, test = flagship_stand_in()
     depth = model.depth
     batches = lambda n, b: -(-n // b)  # noqa: E731
     pre_steps = batches(len(train), flagship.PRETRAIN_BS)
@@ -2193,6 +2330,76 @@ def integration_phase():
         "wall_s": time.perf_counter() - t_phase, "runs": summary}),
         flush=True)
     return launches
+
+
+def base_split_phase():
+    """tools/base_split once on the card: the recipe's arm (torch seed 0,
+    bf16, remat, K1) pretrained 1 epoch at the flagship's width and depth,
+    then one forget run of the unsaturated recipe cut to 1 epoch from that
+    base. K1's counts of the whole call against those the recipe and data
+    imply (as integration_phase derives them: 2 x depth forward and depth
+    backward launches a pretrain step under remat, 'depth' a batch of the
+    base's test and forget-class evals, forget_run_launches for the
+    forget run), the report's pretrain and forget-run counts each against
+    its part, K2 and K3 at 0; finite accuracies in [0, 100]. Prints the
+    walls; returns the counts."""
+    t0 = time.perf_counter()
+    model = flagship.model_config(unsaturated=True)
+    train, test = flagship_stand_in()
+    data = IS.forget_data(train, test)
+    depth = model.depth
+    batches = lambda n, b: -(-n // b)  # noqa: E731
+    steps = batches(len(train), flagship.PRETRAIN_BS)
+    pre = [2 * depth * steps, depth * steps]
+    forget = forget_run_launches(IS.run_config(model, True, str(DEV),
+                                               epochs=1), data)
+    evals = depth * (batches(len(test), IS.EVAL_BS) +
+                     batches(len(data.test_forget), IS.EVAL_BS))
+    want = {**forget,
+            "attention_fwd": pre[0] + evals + forget["attention_fwd"],
+            "attention_bwd": pre[1] + forget["attention_bwd"]}
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "base_split.json")
+        torch.cuda.synchronize()
+        reset_counts()
+        report = BS.run_split(model, train, test, arms=["torch0_bf16"],
+                              seeds=1, pretrain_epochs=1, epochs=1,
+                              device=str(DEV), out=out)
+        torch.cuda.synchronize()
+        got = read_counts()
+        with open(out) as fh:
+            if json.load(fh) != json.loads(json.dumps(report)):
+                raise AssertionError("base_split: the report file differs "
+                                     "from the report")
+    base = report["bases"]["torch0_bf16"]
+    (run,) = base["runs"]
+    if got != want:
+        raise AssertionError(f"base_split launched {got}; its recipe and "
+                             f"data imply {want}")
+    if base["k1_launches"] != {"bfloat16": pre, "float32": [0, 0]}:
+        raise AssertionError(f"base_split pretrain launched "
+                             f"{base['k1_launches']}; it implies {pre}")
+    if run["k1_launches"] != {"bfloat16": [forget["attention_fwd"],
+                                           forget["attention_bwd"]],
+                              "float32": [0, 0]}:
+        raise AssertionError(f"base_split forget run launched "
+                             f"{run['k1_launches']}; it implies {forget}")
+    accs = [base["pretrain_test_acc"], base["forget_classes_acc"]] + [
+        run[k] for k in ("forget_acc_before", *AS.METRICS)]
+    if not all(0.0 <= a <= 100.0 for a in accs) or \
+            not math.isfinite(base["final_loss"]):
+        raise AssertionError(f"base_split: accuracies {accs}, final loss "
+                             f"{base['final_loss']}")
+    print("base_split " + json.dumps({
+        "recipe": "tools/base_split, arm torch0_bf16, 1 pretrain epoch, "
+                  "one forget run of 1 epoch, depth 6 dim 512",
+        "card": report["card"], "pretrain_wall_s": base["pretrain_wall_s"],
+        "forget_wall_s": run["wallclock_s"],
+        "pretrain_test_acc": base["pretrain_test_acc"],
+        "final_loss": base["final_loss"], "run": {
+            k: run[k] for k in ("forget_acc_before", *AS.METRICS)},
+        "launches": got, "wall_s": time.perf_counter() - t0}), flush=True)
+    return got
 
 
 def lirf_check():
@@ -4195,6 +4402,7 @@ def main():
     del dp_refs
     baseline_launches = baseline_phase()
     integration_launches = integration_phase()
+    split_launches = base_split_phase()
     baseline_bench(card)
     eval_launches = eval_phase(card)
     for row in rows:
@@ -4224,6 +4432,7 @@ def main():
                eval_launches.items()},
             **{path: counts[name] for path, counts in
                integration_launches.items()},
+            "base_split": split_launches[name],
             **{path: counts[name] for path, counts in
                fp32_launches.items()}}
 

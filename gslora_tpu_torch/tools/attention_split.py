@@ -40,15 +40,21 @@ IMPLS = ("auto", "dpa")
 METRICS = ("forget_acc_after", "remain_acc_after", "best_H_mean")
 
 
-def _sync(dev):
+def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
-def _launches():
-    return {str(dt).replace("torch.", ""): [A.FWD_BY_DTYPE[dt],
-                                            A.BWD_BY_DTYPE[dt]]
-            for dt in A.KERNEL_DTYPES}
+def k1_launches(since=None):
+    """K1's forward and backward launches by dtype name, counted from
+    ``since`` (an earlier reading) when given; the counters are never
+    reset here, so a caller can count around a whole run too."""
+    now = {str(dt).replace("torch.", ""): [A.FWD_BY_DTYPE[dt],
+                                           A.BWD_BY_DTYPE[dt]]
+           for dt in A.KERNEL_DTYPES}
+    if since is None:
+        return now
+    return {k: [a - b for a, b in zip(v, since[k])] for k, v in now.items()}
 
 
 def one_run(params, data, model, *, dtype, impl, seed, epochs, device,
@@ -58,12 +64,12 @@ def one_run(params, data, model, *, dtype, impl, seed, epochs, device,
     dev = resolve_device(device)
     cfg = IS.run_config(dataclasses.replace(model, attn_impl=impl), True,
                         str(dev), epochs, bs, dtype)
-    A.reset_launch_counts()
-    _sync(dev)
+    sync(dev)
+    start = k1_launches()
     t0 = time.perf_counter()
     res = run_forget_training(cfg, params, data, seed_offset=seed)
-    _sync(dev)
-    launches = _launches()
+    sync(dev)
+    launches = k1_launches(since=start)
     if dev.type == "cuda":
         used = {k for k, v in launches.items() if any(v)}
         want = {dtype} if impl == "auto" else set()

@@ -81,6 +81,29 @@ def checkpoint_path(unsaturated: bool, tiny: bool = False) -> str:
     return path
 
 
+def pretrain_recipe(model: ViTConfig, train, epochs: int, device: str,
+                    init, compute_dtype=torch.bfloat16, remat: bool = True,
+                    attn_impl: str | None = None):
+    """The scripts' pretrain from the parameter tree ``init`` on
+    ``device``: every parameter trains, AdamW at lr 3e-4 with the timm
+    schedule over ``epochs`` (2 warm-up epochs), bs 240 in the order of
+    ``BatchLoader(train, 240, seed=3)``, dropout as ``model`` has it, the
+    dropout generator at seed 0. The recipe runs remat in bf16 with
+    ``model``'s attention; ``compute_dtype``, ``remat`` and ``attn_impl``
+    (when given) change them. Returns (the trained tree on the CPU, the
+    last step's metrics as floats)."""
+    cfg = RunConfig(
+        model=dataclasses.replace(model, remat=remat,
+                                  attn_impl=attn_impl or model.attn_impl),
+        lora=LORA, optim=OptimConfig(lr=3e-4, warmup_epochs=2, epochs=epochs),
+        data=DataConfig(batch_size=PRETRAIN_BS), device=device)
+    state, metrics = pretrain(cfg, init,
+                              lambda: BatchLoader(train, PRETRAIN_BS, seed=3),
+                              epochs=epochs, compute_dtype=compute_dtype)
+    return detached(state.params, torch.device("cpu")), \
+        {k: float(v) for k, v in metrics.items()}
+
+
 def pretrained_base(model: ViTConfig, train, epochs: int, device: str,
                     path: str):
     """The base at ``path`` (CPU tensors), or one pretrained with the
@@ -100,15 +123,9 @@ def pretrained_base(model: ViTConfig, train, epochs: int, device: str,
             print("loaded pretrained", candidate, flush=True)
             return params
     t0 = time.time()
-    params = init_vit_params(torch.Generator().manual_seed(0), model, LORA)
-    cfg = RunConfig(
-        model=dataclasses.replace(model, remat=True), lora=LORA,
-        optim=OptimConfig(lr=3e-4, warmup_epochs=2, epochs=epochs),
-        data=DataConfig(batch_size=PRETRAIN_BS), device=device)
-    state, _ = pretrain(cfg, params,
-                        lambda: BatchLoader(train, PRETRAIN_BS, seed=3),
-                        epochs=epochs, compute_dtype=torch.bfloat16)
-    params = detached(state.params, torch.device("cpu"))
+    params, _ = pretrain_recipe(
+        model, train, epochs, device,
+        init_vit_params(torch.Generator().manual_seed(0), model, LORA))
     save_params(save_to, params)
     print("pretrained + saved", save_to, round(time.time() - t0, 1), "s",
           flush=True)
