@@ -222,7 +222,9 @@ non-zero exit code and without the final result line.
    (single-step GS-LoRA with the alpha warm-up, prototypes and EMA), all
    twelve methods of integration_baselines --unsaturated, the four
    default methods of integration_baselines_cl for 2 tasks, and
-   integration_continual --unsaturated for its 4 tasks, from one base at
+   integration_continual --unsaturated for its 4 tasks in each of its
+   modes (merge + reinit, --boundary keep, and --few_shot at
+   batch 4 with 4 images a class), from one base at
    $PRETRAIN_CKPT in a temporary directory (the first tool pretrains it
    for 1 epoch and says so, the others say they loaded it). Checks each
    report against the JAX script's keys, every accuracy finite and in
@@ -476,8 +478,20 @@ def path_shapes():
     shapes.update((b * m.heads, m.seq_len, attention_scale(m)) for b in
                   (flagship.BS, 2 * flagship.BS, IB.EVAL_BS, IS.EVAL_BS,
                    IC.EVAL_BS, flagship.PRETRAIN_BS, PROTO_BATCH))
+    shapes.update(few_shot_shapes())
     shapes.update(eval_surface_shapes())
     return sorted(shapes)
+
+
+def few_shot_shapes():
+    """(batch x heads, tokens, scale) that only integration_continual
+    --few_shot launches: its stream of 4 images, the fused pair and its
+    test batch; run in bf16 and, in the full recipe's fp32 arm, fp32."""
+    m = flagship.model_config(unsaturated=True)
+    data = IC.run_config(m, True, 4, "cpu").data
+    return {(b * m.heads, m.seq_len, attention_scale(m)) for b in
+            (data.batch_size, 2 * data.batch_size,
+             data.batch_size * data.test_batch_scale)}
 
 
 # Two ragged shapes, and the edges of K1's 64-row tiles (128-row blocks in
@@ -1613,7 +1627,8 @@ FP32_ARGVS = {"train_forget_fp32": in_dtype(MAIN_ARGV, "float32"),
 
 def fp32_path_shapes():
     """(batch x heads, tokens, scale) of the fp32 phase's attentions."""
-    return sorted(set().union(*map(recipe_shapes, FP32_ARGVS.values())))
+    return sorted(set().union(*map(recipe_shapes, FP32_ARGVS.values()),
+                              few_shot_shapes()))
 
 
 @contextlib.contextmanager
@@ -2056,10 +2071,14 @@ BASELINE_CL_KEYS = {"pretrain_test_acc", "num_tasks", "total_wallclock_s",
                     *INTEGRATION_CL_METHODS}
 BASELINE_CL_TASK_KEYS = {"task", "forget_acc_before", "forget_acc",
                          "remain_acc", "open_acc", "best_h", "old_acc"}
+# the JAX script's keys, and the port's base_change (the base's largest
+# change over the run) and per task its wall and kernel launches
 CONTINUAL_KEYS = {"pretrain_test_acc", "head", "noise", "boundary",
-                  "few_shot", "device", "tasks", "wallclock_s"}
+                  "few_shot", "device", "tasks", "wallclock_s",
+                  "base_change"}
 CONTINUAL_TASK_KEYS = {"task", "forget_before", "forget_after",
-                       "remain_after", "old_acc_before", "old_acc", "best_H"}
+                       "remain_after", "old_acc_before", "old_acc", "best_H",
+                       "wall_s", "launches"}
 ACCURACY_KEYS = {"pretrain_test_acc", "pretrain_test_acc_unsat",
                  "forget_acc_before", "forget_acc", "remain_acc",
                  "forget_acc_after", "remain_acc_after", "forget_before",
@@ -2138,6 +2157,25 @@ def check_integration_report(name, report, file):
     for where, v in report_values(report, H_KEYS):
         if v is None or not math.isfinite(v):
             raise AssertionError(f"{name}: H-mean {where} = {v}")
+
+
+def check_continual_report(name, report, got, base_eval):
+    """integration_continual's own measurements against the run's: its
+    tasks' launches add up to the run's ``got`` less the base's eval
+    (``base_eval`` K1 forwards), and the base ends moved by the folds
+    under merge + reinit and as loaded under keep."""
+    tasks = report["tasks"]
+    summed = {k: sum(t["launches"][k] for t in tasks)
+              for k in tasks[0]["launches"]}
+    want = {**dict.fromkeys(summed, 0), **got,
+            "attention_fwd": got["attention_fwd"] - base_eval}
+    if summed != want:
+        raise AssertionError(f"{name}: its tasks report {summed} launches; "
+                             f"the run launched {want} in them")
+    if (report["base_change"] == 0.0) != (report["boundary"] == "keep"):
+        raise AssertionError(f"{name}: the base changed by "
+                             f"{report['base_change']} under "
+                             f"{report['boundary']}")
 
 
 def tree_files(root):
@@ -2221,7 +2259,8 @@ def integration_phase():
     the card (tools/integration_synthetic --unsaturated, all twelve
     methods of tools/integration_baselines --unsaturated, the CL script's
     four default methods for 2 tasks, tools/integration_continual
-    --unsaturated for its 4 tasks), every epoch count cut to 1, from one
+    --unsaturated for its 4 tasks in each of its modes: merge + reinit,
+    --boundary keep and --few_shot), every epoch count cut to 1, from one
     base at $PRETRAIN_CKPT in a temporary directory: the first tool
     pretrains it (1 epoch of the scripts' recipe), the others load it.
     Each run's K1 counts against those its recipe and data imply, K2 and
@@ -2265,10 +2304,11 @@ def integration_phase():
             test)[k] for m in INTEGRATION_CL_METHODS)
             for k in read_counts()}
         cl_want["attention_fwd"] += depth * batches(len(test), IB.EVAL_BS)
-        continual_want = cl_launches(
-            IC.run_config(model, False, 4, dev, epochs=1), train, test)
-        continual_want["attention_fwd"] += depth * batches(len(test),
-                                                           IC.EVAL_BS)
+        continual_want, few_shot_want = (cl_launches(
+            IC.run_config(model, few_shot, 4, dev, epochs=1), train, test)
+            for few_shot in (False, True))
+        for want in (continual_want, few_shot_want):
+            want["attention_fwd"] += depth * batches(len(test), IC.EVAL_BS)
         runs = [
             ("integration_synthetic", synthetic_want, lambda: IS.run(
                 base(), train, test, model, unsaturated=True,
@@ -2286,6 +2326,17 @@ def integration_phase():
             ("integration_continual", continual_want, lambda: IC.run(
                 base(), train, test, model, unsaturated=True, num_tasks=4,
                 device=dev, epochs=1, out=out("integration_continual"))),
+            # keep: no fold between tasks (a fold launches no K1, so the
+            # counts are merge + reinit's); few-shot: batch 4, 4 images a
+            # class
+            ("integration_continual_keep", dict(continual_want),
+             lambda: IC.run(base(), train, test, model, unsaturated=True,
+                            boundary="keep", num_tasks=4, device=dev,
+                            epochs=1, out=out("integration_continual_keep"))),
+            ("integration_continual_fs", few_shot_want, lambda: IC.run(
+                base(), train, test, model, unsaturated=True, few_shot=True,
+                num_tasks=4, device=dev, epochs=1,
+                out=out("integration_continual_fs"))),
         ]
         try:
             for i, (name, want, fn) in enumerate(runs):
@@ -2314,6 +2365,13 @@ def integration_phase():
                     "wall_s": wall,
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "launches": got}
+                if name.startswith("integration_continual"):
+                    check_continual_report(
+                        name, report, got,
+                        depth * batches(len(test), IC.EVAL_BS))
+                    summary[name].update(
+                        base_change=report["base_change"],
+                        task_walls_s=[t["wall_s"] for t in report["tasks"]])
         finally:
             if saved_env is None:
                 os.environ.pop("PRETRAIN_CKPT", None)

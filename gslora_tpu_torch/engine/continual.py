@@ -18,8 +18,9 @@ mode only, as in JAX) each stage folds and reinits its own layers.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -38,6 +39,8 @@ from gslora_tpu_torch.engine.prototypes import calculate_prototypes
 from gslora_tpu_torch.lora.core import reinit_lora
 from gslora_tpu_torch.metrics.logging import MetricLogger
 from gslora_tpu_torch.models.convert import flatten_tree
+from gslora_tpu_torch.ops import attention as A
+from gslora_tpu_torch.ops import group_lasso as G
 from gslora_tpu_torch.parallel import sharding
 from gslora_tpu_torch.parallel.mesh import data_parallel_size, set_active
 from gslora_tpu_torch.parallel.multihost import process_sharded_loader
@@ -54,6 +57,28 @@ class TaskResult:
     # this task trains: separates what the fold (merge + reinit) does to
     # previously forgotten classes from what this task's training does
     old_acc_before: Optional[float] = None
+    # seconds from the task's start (before the fold) to its end (after
+    # the old-class eval and the snapshot), the device synchronized
+    wall_s: Optional[float] = None
+    # the kernels' launches in those seconds (:func:`kernel_launches`)
+    launches: Optional[Dict[str, int]] = None
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The kernels' launch counters: K1 forward and backward in bf16
+    (``attention_*``) and fp32 (``attention_*_fp32``), and the group
+    kernels. Plain versions count nothing, so on the CPU all stay 0."""
+    return {"attention_fwd": A.FWD_BY_DTYPE[torch.bfloat16],
+            "attention_bwd": A.BWD_BY_DTYPE[torch.bfloat16],
+            "attention_fwd_fp32": A.FWD_BY_DTYPE[torch.float32],
+            "attention_bwd_fp32": A.BWD_BY_DTYPE[torch.float32],
+            "group_prox": G.PROX_LAUNCHES, "group_norms": G.NORMS_LAUNCHES,
+            "group_scale": G.SCALE_LAUNCHES}
+
+
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 @dataclass
@@ -157,6 +182,8 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
                                       uint8_transfer=u8)
 
     for task in range(f.num_tasks):
+        _synchronize(device)
+        t0, launched = time.perf_counter(), kernel_launches()
         if task > 0 and boundary == "merge_reinit":
             # task boundary: fold LoRA into the base, fresh LoRA
             # (reference merged-save + reload + reinit, cl.py:523-536)
@@ -221,8 +248,12 @@ def run_continual_forgetting(cfg: RunConfig, params, train_ds: Dataset,
                 extra={"task": task, "best_h": res.best_h,
                        "forget_acc": res.forget_acc,
                        "remain_acc": res.remain_acc, "old_acc": old_acc})
-        out.tasks.append(TaskResult(task=task, result=res, old_acc=old_acc,
-                                    old_acc_before=old_acc_before))
+        _synchronize(device)
+        out.tasks.append(TaskResult(
+            task=task, result=res, old_acc=old_acc,
+            old_acc_before=old_acc_before, wall_s=time.perf_counter() - t0,
+            launches={k: v - launched[k]
+                      for k, v in kernel_launches().items()}))
 
     out.final_params = sharding.gather_tree(mesh, params)
     return out

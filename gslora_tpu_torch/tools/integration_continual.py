@@ -6,7 +6,9 @@ forgotten.
 
     python3 -m gslora_tpu_torch.tools.integration_continual \
         [--unsaturated] [--boundary merge_reinit|keep] [--few_shot] \
-        [--out report.json] [--device cpu]
+        [--compute_dtype bfloat16|float32] [--epochs 12] [--dropout 0.1] \
+        [--attn_impl auto|dpa] [--metrics_dir DIR] [--out report.json] \
+        [--device cpu]
 
 Modes:
   --unsaturated  pretrain the unsaturated base the baseline zoo uses
@@ -18,6 +20,13 @@ Modes:
                  old-class resurfacing caused by the fold from that caused
                  by a task's training.
   --few_shot     the run_cl_forget.sh few-shot recipe (4 images a class).
+  --compute_dtype, --epochs, --dropout, --attn_impl  arms of the recipe
+                 (bf16 compute, 12 epochs a task, the model's dropout
+                 0.1 and its fused attention, K1 on the card): the
+                 compute dtype, the epochs a task, the dropout (and the
+                 embedding's), the attention (dpa: K1's plain version).
+  --metrics_dir  write the task loop's metrics (every 5th step's losses,
+                 the evals, the LoRA group norms) to DIR/metrics.jsonl.
 
 The pretrained base comes from tools/flagship.pretrained_base: cached
 as a port checkpoint at ``PRETRAIN_CKPT`` (default
@@ -28,7 +37,10 @@ pretrain test accuracy, and per task forget_before, forget_after,
 remain_after, old_acc_before (after the boundary, before training),
 old_acc and best_H, and the wall time, to ``--out``, else to
 ``integration_cl_report[_unsat][_keep][_fs].json`` in the temporary
-directory.
+directory. Beyond the JAX script's keys the report holds, per task, the
+task's wall and the kernels' launches in it (engine/continual.TaskResult),
+and ``base_change``, the largest change of a base weight over the run:
+0 under ``keep``, which trains the adapters alone.
 """
 from __future__ import annotations
 
@@ -44,6 +56,8 @@ from gslora_tpu_torch.config import (DataConfig, ForgetConfig, OptimConfig,
 from gslora_tpu_torch.data.splits import make_order_list
 from gslora_tpu_torch.engine.continual import run_continual_forgetting
 from gslora_tpu_torch.engine.loop import resolve_device
+from gslora_tpu_torch.metrics.logging import MetricLogger
+from gslora_tpu_torch.models.convert import flatten_tree
 from gslora_tpu_torch.tools import flagship
 
 EPOCHS = 12
@@ -93,14 +107,23 @@ def default_out(unsaturated: bool, boundary: str, few_shot: bool) -> str:
                         f"integration_cl_report{tag}.json")
 
 
+def base_change(start, final) -> float:
+    """The largest |final - start| over the base's weights."""
+    start, final = flatten_tree(start["base"]), flatten_tree(final["base"])
+    return max(float((final[k].detach().cpu().float() -
+                      start[k].detach().cpu().float()).abs().max())
+               for k in start)
+
+
 def run(params, train, test, model, *, unsaturated: bool,
         boundary: str = "merge_reinit", few_shot: bool = False,
         num_tasks: int = 4, device: str = "cuda", epochs: int = EPOCHS,
         compute_dtype: str = "bfloat16", out: str | None = None,
-        t0: float | None = None) -> dict:
+        t0: float | None = None, metrics_dir: str | None = None) -> dict:
     """The script's run from the base ``params``: its test accuracy, then
     ``num_tasks`` tasks of the recipe; writes and returns the report.
-    ``t0``: when the run began (the wall time counts from it)."""
+    ``t0``: when the run began (the wall time counts from it);
+    ``metrics_dir``: where the task loop's metrics.jsonl goes."""
     t0 = time.time() if t0 is None else t0
     dev = resolve_device(device)
     acc = flagship.accuracy(params, test, model, dev, EVAL_BS,
@@ -111,6 +134,7 @@ def run(params, train, test, model, *, unsaturated: bool,
                      compute_dtype)
     order = make_order_list(100, seed=1337)
     res = run_continual_forgetting(cfg, params, train, test, order,
+                                   logger=MetricLogger(outdir=metrics_dir),
                                    boundary=boundary)
     report = {"pretrain_test_acc": acc,
               "head": model.head_type, "noise": flagship.noise(unsaturated),
@@ -123,7 +147,10 @@ def run(params, train, test, model, *, unsaturated: bool,
                    "remain_after": t.result.remain_acc,
                    "old_acc_before": t.old_acc_before,
                    "old_acc": t.old_acc,
-                   "best_H": t.result.best_h} for t in res.tasks],
+                   "best_H": t.result.best_h,
+                   "wall_s": t.wall_s, "launches": t.launches}
+                  for t in res.tasks],
+              "base_change": base_change(params, res.final_params),
               "wallclock_s": round(time.time() - t0, 1)}
     print(json.dumps(report, indent=2), flush=True)
     with open(out or default_out(unsaturated, boundary, few_shot), "w") as f:
@@ -137,6 +164,12 @@ def main(argv=None):
     ap.add_argument("--boundary", default="merge_reinit",
                     choices=["merge_reinit", "keep"])
     ap.add_argument("--few_shot", action="store_true")
+    ap.add_argument("--compute_dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--epochs", type=int, default=EPOCHS)
+    ap.add_argument("--dropout", type=float, default=None)
+    ap.add_argument("--attn_impl", default=None, choices=["auto", "dpa"])
+    ap.add_argument("--metrics_dir", default=None)
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
@@ -147,9 +180,16 @@ def main(argv=None):
     params = flagship.pretrained_base(
         model, train, flagship.pretrain_epochs(a.unsaturated), a.device,
         flagship.checkpoint_path(a.unsaturated))
+    # the arm's model: the base's, with the dropout and attention asked for
+    if a.dropout is not None:
+        model = dataclasses.replace(model, dropout=a.dropout,
+                                    emb_dropout=a.dropout)
+    if a.attn_impl is not None:
+        model = dataclasses.replace(model, attn_impl=a.attn_impl)
     return run(params, train, test, model, unsaturated=a.unsaturated,
                boundary=a.boundary, few_shot=a.few_shot, device=a.device,
-               out=a.out, t0=t0)
+               epochs=a.epochs, compute_dtype=a.compute_dtype, out=a.out,
+               t0=t0, metrics_dir=a.metrics_dir)
 
 
 if __name__ == "__main__":

@@ -38,49 +38,24 @@ import tempfile
 
 import numpy as np
 import pytest
-import torch
 
 import gslora_tpu.config as jc
 import gslora_tpu_torch.config as tc
-from gslora_tpu_torch.models.convert import params_from_jax, params_to_jax
-from gslora_tpu_torch.models.vit import vit_embed
+from gslora_tpu_torch.models.convert import params_from_jax
 from gslora_tpu_torch.tools import flagship
 from gslora_tpu_torch.tools import integration_baselines as B
 from gslora_tpu_torch.tools import integration_synthetic as S
 
-from torch_baselines_setup import np_tree
-from torch_integration_setup import (FLAGSHIP, assert_close,
-                                     jax_flagship_base, jax_single_task,
-                                     jax_synthetic, jax_tree, stand_in)
+from torch_integration_setup import (DEPTH_1, assert_close,
+                                     class_mean_base, jax_flagship_base,
+                                     jax_single_task, jax_synthetic,
+                                     jax_tree, stand_in)
 
 NOISE = 2.4  # the unsaturated stand-in
-DEPTH_1 = {**FLAGSHIP, "depth": 1, "dropout": 0.0, "emb_dropout": 0.0}
-HEAD_SCALE = 100.0  # test CE ~2.7 nats: the class means differ in little
 
 
 def model(C, **over):
     return C.ViTConfig(**{**DEPTH_1, **over}, head_type="Softmax")
-
-
-def class_mean_base(train):
-    """The JAX seed-0 init (numpy leaves) with its Softmax head set to
-    the nearest class mean of the port's fp32 embeddings of each class's
-    mean training image: logits s (e - m) . (mu_c - m) - s |mu_c - m|^2
-    / 2, m the mean of the mu_c."""
-    tree = np_tree(0, rank=8, model={**DEPTH_1, "head_type": "Softmax"})
-    params = params_from_jax(tree)
-    means = np.stack([train.images[train.labels == c].mean(0)
-                      for c in range(100)])
-    with torch.no_grad():
-        mu = vit_embed(params, torch.from_numpy(means), model(tc),
-                       tc.LoraConfig(8), compute_dtype=torch.float32)
-    m = mu.mean(0)
-    centred = mu - m
-    params["base"]["head"] = {
-        "weight": HEAD_SCALE * centred,
-        "bias": -HEAD_SCALE * ((centred * centred).sum(1) / 2
-                               + centred @ m)}
-    return params_to_jax(params)
 
 
 @pytest.fixture(scope="module")

@@ -13,8 +13,6 @@ tests/test_training_parity.py)."""
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,7 +22,6 @@ import gslora_tpu.engine.continual as jcont
 from gslora_tpu.checkpoints.io import save_pytree
 from gslora_tpu.data.splits import make_order_list
 import gslora_tpu_torch.config as tc
-import gslora_tpu_torch.engine.continual as tcont
 from gslora_tpu_torch.models.convert import flatten_tree, params_from_jax
 from gslora_tpu_torch.models.vit import init_vit_params
 from gslora_tpu_torch.tools import flagship
@@ -35,8 +32,8 @@ from gslora_tpu_torch.tools import integration_synthetic as S
 
 from torch_baselines_setup import one_torch_thread
 from torch_integration_setup import (assert_close, jax_accuracy,
-                                     jax_synthetic, jax_tree, stand_in,
-                                     tiny_model, trained_base)
+                                     jax_synthetic, jax_tree, patch_reinit,
+                                     stand_in, tiny_model, trained_base)
 
 _one_torch_thread = pytest.fixture(autouse=True, scope="module")(
     one_torch_thread)
@@ -91,34 +88,12 @@ def test_synthetic_matches_jax(setup, clean_dirs):
     assert S.default_out(False) == str(temp / "integration_report.json")
 
 
-def _np_reinit(lora_tree):
-    """One LoRA reinit for both packages at the task boundary (JAX keys
-    and torch generators draw different numbers): A uniform in
-    +-sqrt(6 / (51 fan_in)), B = 0, seeded by the tensor's name."""
-    out = {}
-    for pos, sub in lora_tree.items():
-        out[pos] = {}
-        for name, arr in sub.items():
-            shape = tuple(arr.shape)
-            if name.startswith("A"):
-                rng = np.random.RandomState(sum(map(ord, pos + name)))
-                b = np.sqrt(6.0 / (51.0 * shape[-1]))
-                out[pos][name] = rng.uniform(-b, b, shape).astype(np.float32)
-            else:
-                out[pos][name] = np.zeros(shape, np.float32)
-    return out
-
-
 def test_continual_matches_jax(setup, clean_dirs, monkeypatch):
     """scripts/integration_continual.py:92-145 (--unsaturated, 2 of its
     4 tasks, 1 epoch): every task's report as the JAX run's; the report
     goes to --out."""
     work, temp = clean_dirs
-    monkeypatch.setattr(jcont, "reinit_lora", lambda key, tree: jax.tree.map(
-        jnp.asarray, _np_reinit(tree)))
-    monkeypatch.setattr(tcont, "reinit_lora", lambda gen, tree: {
-        pos: {k: torch.from_numpy(v) for k, v in sub.items()}
-        for pos, sub in _np_reinit(tree).items()})
+    patch_reinit(monkeypatch)
     model = tiny_model(jc)
     params = jax_tree(setup["base"])
     acc = jax_accuracy(params, setup["jax"][1], model, 250, False)
@@ -142,8 +117,10 @@ def test_continual_matches_jax(setup, clean_dirs, monkeypatch):
                    device="cpu", epochs=1, compute_dtype="float32",
                    out=str(out))
     assert json.loads(out.read_text()) == json.loads(json.dumps(report))
+    # the JAX script's keys and the port's base_change
     assert set(report) == {"pretrain_test_acc", "head", "noise", "boundary",
-                           "few_shot", "device", "tasks", "wallclock_s"}
+                           "few_shot", "device", "tasks", "wallclock_s",
+                           "base_change"}
     assert_close(report["pretrain_test_acc"], acc, "pretrain")
     assert [t["task"] for t in report["tasks"]] == [0, 1]
     for got, t in zip(report["tasks"], jout.tasks):

@@ -10,6 +10,7 @@ scripts/integration_synthetic.py runs its whole body then, so no test
 imports them: each composition below follows its script line by line
 (cited), in fp32 and with every epoch count cut to ``n_ep``. JAX is
 imported inside the functions."""
+import numpy as np
 import torch
 
 from torch_baselines_setup import np_tree
@@ -264,6 +265,73 @@ def jax_synthetic(params, train, test, model, unsaturated, bs, n_ep):
             "norm_list": list(res.norm_list)}
 
 
+def jax_continual(params, train, test, model, boundary, few_shot, num_tasks,
+                  n_ep, data_ratio=0.4, logger=None, disp_freq=5):
+    """scripts/integration_continual.py:96-118 (--unsaturated): the
+    GS-LoRA++ recipe's ForgetConfig and RunConfig in fp32, every epoch
+    count cut to ``n_ep``, the first ``num_tasks`` tasks, ``data_ratio``
+    in place of the script's 0.4 where a test cuts it; returns
+    run_continual_forgetting's result. ``logger`` gets the step metrics
+    every ``disp_freq`` steps."""
+    import dataclasses
+
+    from gslora_tpu.config import (DataConfig, ForgetConfig, LoraConfig,
+                                   OptimConfig, RunConfig)
+    from gslora_tpu.data.splits import make_order_list
+    from gslora_tpu.engine.continual import run_continual_forgetting
+
+    fcfg = ForgetConfig(num_of_first_cls=80, per_forget_cls=20,
+                        num_tasks=num_tasks, bnd=10.0,
+                        cl_beta_list=(0.3, 0.4, 0.28, 0.2),
+                        alpha=1e-4, alpha_epoch=0,
+                        prototype=True, bnd_pro=50.0,
+                        cl_prof_list=(0.015, 0.06, 0.025, 0.012),
+                        pro_r_weight=0.0, data_ratio=data_ratio)
+    if few_shot:
+        fcfg = dataclasses.replace(fcfg, few_shot=True, few_shot_num=4)
+    cfg = RunConfig(
+        model=model, lora=LoraConfig(rank=8),
+        optim=OptimConfig(lr=1e-2, warmup_epochs=0, epochs=n_ep),
+        forget=fcfg, data=DataConfig(batch_size=4 if few_shot else 48),
+        num_epoch=n_ep, ver_freq=10_000, disp_freq=disp_freq,
+        compute_dtype="float32", lora_apply="merged", fused_batch=True)
+    return run_continual_forgetting(cfg, params, train, test,
+                                    make_order_list(100, seed=1337),
+                                    logger=logger, boundary=boundary)
+
+
+def np_reinit(lora_tree):
+    """One LoRA reinit for both packages at the task boundary (JAX keys
+    and torch generators draw different numbers): A uniform in
+    +-sqrt(6 / (51 fan_in)), B = 0, seeded by the tensor's name."""
+    out = {}
+    for pos, sub in lora_tree.items():
+        out[pos] = {}
+        for name, arr in sub.items():
+            shape = tuple(arr.shape)
+            if name.startswith("A"):
+                rng = np.random.RandomState(sum(map(ord, pos + name)))
+                b = np.sqrt(6.0 / (51.0 * shape[-1]))
+                out[pos][name] = rng.uniform(-b, b, shape).astype(np.float32)
+            else:
+                out[pos][name] = np.zeros(shape, np.float32)
+    return out
+
+
+def patch_reinit(monkeypatch):
+    """Both packages' continual boundary draws :func:`np_reinit`."""
+    import jax
+    import jax.numpy as jnp
+
+    import gslora_tpu.engine.continual as jcont
+    import gslora_tpu_torch.engine.continual as tcont
+    monkeypatch.setattr(jcont, "reinit_lora", lambda key, tree: jax.tree.map(
+        jnp.asarray, np_reinit(tree)))
+    monkeypatch.setattr(tcont, "reinit_lora", lambda gen, tree: {
+        pos: {k: torch.from_numpy(v) for k, v in sub.items()}
+        for pos, sub in np_reinit(tree).items()})
+
+
 def assert_close(got, want, what):
     """An accuracy (the same predictions) or an H-mean, to float
     rounding."""
@@ -273,6 +341,38 @@ def assert_close(got, want, what):
 FLAGSHIP = dict(image_size=112, patch_size=8, dim=512, depth=6, heads=8,
                 dim_head=64, mlp_dim=2048, num_class=100, dropout=0.1,
                 emb_dropout=0.1)
+# the tier-1 cut of the flagship: one layer, dropout 0
+DEPTH_1 = {**FLAGSHIP, "depth": 1, "dropout": 0.0, "emb_dropout": 0.0}
+HEAD_SCALE = 100.0  # test CE ~2.7 nats: the class means differ in little
+
+
+def class_mean_base(train):
+    """The JAX seed-0 init of :data:`DEPTH_1` (numpy leaves) with its
+    Softmax head set to the nearest class mean of the port's fp32
+    embeddings of each class's mean training image: logits s (e - m) .
+    (mu_c - m) - s |mu_c - m|^2 / 2, m the mean of the mu_c. At these
+    widths a port pretrain stays near chance for longer than a tier-1
+    file's budget; this head tells 76.8 % of the stand-in's test images
+    apart."""
+    import gslora_tpu_torch.config as tc
+    from gslora_tpu_torch.models.convert import params_from_jax, \
+        params_to_jax
+    from gslora_tpu_torch.models.vit import vit_embed
+
+    model = {**DEPTH_1, "head_type": "Softmax"}
+    params = params_from_jax(np_tree(0, rank=8, model=model))
+    means = np.stack([train.images[train.labels == c].mean(0)
+                      for c in range(100)])
+    with torch.no_grad():
+        mu = vit_embed(params, torch.from_numpy(means), tc.ViTConfig(**model),
+                       tc.LoraConfig(8), compute_dtype=torch.float32)
+    m = mu.mean(0)
+    centred = mu - m
+    params["base"]["head"] = {
+        "weight": HEAD_SCALE * centred,
+        "bias": -HEAD_SCALE * ((centred * centred).sum(1) / 2
+                               + centred @ m)}
+    return params_to_jax(params)
 
 
 def jax_flagship_base(path):
