@@ -39,13 +39,17 @@ non-zero exit code and without the final result line.
    128); at the flagship shape its warm and L2-cold times, the backward's
    two launches apart, the plain version's and SDPA's in fp32 (no TF32),
    its bound from the fp32 peak outside the tensor cores, beside the bf16
-   kernel's times.
+   kernel's times. From slice 21 the fp32 shapes are those of every fp32
+   run below (fp32_path_shapes: the pretrain's, ViT-B/16's at its scale,
+   the baselines', test_model's 1920 slices, a tp rank's 4 heads, pp's
+   micro-batches, the model checks').
 3. Model check: the flagship model's and ViT-B/16's embeddings, logits
-   and LoRA gradients (bf16, dropout off, 4 images) with attention
-   through the kernels against the same with the kernels' plain version
-   (attn_impl="dpa"), within MODEL_TOL; and one LIRF step at flagship
-   width, whose student gradients run back through the frozen teacher's
-   upper blocks, the same way.
+   and LoRA gradients (dropout off, 4 images) with attention through the
+   kernels against the same with the kernels' plain version
+   (attn_impl="dpa"), within MODEL_TOLS of the compute dtype; and one
+   LIRF step at flagship width, whose student gradients run back through
+   the frozen teacher's upper blocks, the same way: in bf16, then in fp32
+   (fp32 K1, slice 21). K1's launches counted by dtype.
 4. Main path phase: the port's train_forget CLI on the card at the
    flagship width (ViT-P8S8, 112x112, dim 512, 8 heads x 64, CosFace,
    rank-8 FFN LoRA; depth 6), batch 24, one epoch, prototypes on. Checks
@@ -79,7 +83,9 @@ non-zero exit code and without the final result line.
    bit, keep it and move the LoRA; export_torch of its result to a
    reference-named .pth that -r loads back bit for bit; pair verification
    (perform_val) of its result on the card. K1 counts equal what each run
-   implies (expected_pretrain_launches). Then remat with dropout on the
+   implies (expected_pretrain_launches). The same two runs in fp32 compute
+   (slice 21: fp32 K1 in every block's backward and under --remat),
+   held the same way, with their peak memory. Then remat with dropout on the
    card's generator (slice 19, remat_dropout_check): one pretrain loss
    at the flagship width, depth 2, dropout 0.1, 48 images, dropout drawn
    from a CUDA generator at seed 3, in bf16 (K1) and fp32 (fp32 K1),
@@ -97,9 +103,11 @@ non-zero exit code and without the final result line.
    1 SCRUB superepoch. Checks finite accuracies of every task, the task
    snapshots, and K1's counts per run against those its flags and data
    imply (expected_baseline_launches, expected_single_step_launches).
-   Then one step of each baseline family alone (reg with two anchor
-   terms, DER++, SCRUB min, LIRF; 48 images per stream): ms/step from
-   CUDA events and peak memory.
+   Then one of each family in fp32 compute (slice 21: train_forget_cl
+   --ewc, --DER_plus, --SCRUB, --LIRF and train_forget --retrain), held
+   the same way. Then one step of each baseline family alone (reg with
+   two anchor terms, DER++, SCRUB min, LIRF; 48 images per stream):
+   ms/step from CUDA events and peak memory.
 9. Profiler phase, right after each step's timing: five bench-recipe
    steps, two ViT-B/16 forget steps, two pretrain steps (bs 480) and
    three of each baseline step under utils/profiling.trace; prints for
@@ -121,10 +129,12 @@ non-zero exit code and without the final result line.
    beside the bf16 product's; each model's int8 eval against its bf16
    eval: embedding cosine > 0.99, top-1 agreement >= 0.9);
    cli.backbone_probe, 2 epochs (backbone frozen, head trained, no
-   attention backward); recovery (10 forget steps against 6, a
-   save_train_state / restore_train_state round trip and 4 more, within
-   5e-3); run_continual_forgetting(boundary="keep") with the continual
-   phase's config (task 1 starts from task 0's final LoRA); and
+   attention backward); test_model (both products) and backbone_probe
+   again on the same base in fp32 compute (slice 21), test_model's
+   accuracy equal to eval_accuracy's in fp32; recovery (10 forget steps
+   against 6, a save_train_state / restore_train_state round trip and 4
+   more, within 5e-3); run_continual_forgetting(boundary="keep") with
+   the continual phase's config (task 1 starts from task 0's final LoRA); and
    tools/bench_inference's serving points (both models, bf16 and int8:
    images/s, ms per batch, mfu against the card's dense peak, peak
    memory), with the P8S8 bs-240 points traced. K1's counts of every run
@@ -213,7 +223,11 @@ non-zero exit code and without the final result line.
    the data-parallel phase's; train_forget with --lora_pos Attention
    --pp (1 x 2, block 0's attention backward on stage 0 too). Each held
    as the others: launches per rank derived, block-kernel bytes by the
-   rules, LAYOUT_FLOOR_FACTOR times the noise floor.
+   rules, LAYOUT_FLOOR_FACTOR times the noise floor. Slice 21 adds
+   train_forget with --tp --sp and with --pp --pp_micro 2 in fp32 compute
+   (1 x 2, spawn "2f"), against one fp32 process and its fp32 noise
+   floor. No rank and no one-process run calls the plain attention on
+   the card.
 14. Integration phase (slice 15, right after the baseline phase): the
    four flagship integration tools (gslora_tpu_torch/tools/, the ports
    of the JAX package's scripts/integration_*.py) through their run
@@ -240,9 +254,22 @@ non-zero exit code and without the final result line.
    metrics and losses, checkpoints, K1's counts derived from the flags,
    K2 once per continual step), every K1 launch on the fp32 kernel, none
    on the bf16 one and no call of the plain attention on the card;
-   prints the phase's wall.
-16. Prints the kernels line (the bf16 and the fp32 K1 in rows of their
-   own), then the result line.
+   prints the phase's wall. Every fp32 run of the other phases (slice 21)
+   is held the same way (fp32_runs).
+16. Open-set phase (slice 21, in the eval phase, from its base): GS-LoRA's
+   open-set recipes at the flagship's width and depth, bf16, synthetic
+   data, -r the eval base: scripts/run_forget_open.sh's gs_lora arm and
+   its full arm (--lora_rank 0: every parameter trains, so block 0's
+   attention backward runs) through train_forget, 10 epochs, and
+   scripts/run_cl_forget_open.sh through train_forget_cl, 2 tasks of 10
+   epochs. Checks finite forget, remain and open accuracies, the forget
+   accuracy below its value before training in every run and task, both
+   task snapshots of the continual run, K1's counts as derived (the open
+   classes' evals in every round), K2 and K3 at 0; prints each run's wall
+   and peak memory.
+17. Prints the kernels line (the bf16 and the fp32 K1 in rows of their
+   own; each row's launches on every path, fill_launches), then the
+   result line.
 """
 from __future__ import annotations
 
@@ -350,6 +377,13 @@ N_TOKENS, HEAD_DIM = 197, 64
 # relative L2 error of embeddings, logits and LoRA gradients stays far
 # below this bound unless a layout or an index is wrong.
 MODEL_TOL = 3e-2
+# The same in fp32 compute (fp32 K1 against its fp32 plain version, every
+# GEMM in fp32 without TF32): MODEL_TOL over K1's bf16 relative L2 limit
+# (ops/attention.TOLERANCES, 2e-3: 15 times) times K1's fp32 limit (1e-5),
+# 1.5e-4; TF32 anywhere in a block moves these by ~1e-3.
+MODEL_TOLS = {torch.bfloat16: MODEL_TOL,
+              torch.float32: MODEL_TOL / A.TOLERANCES[torch.bfloat16][1]
+              * A.TOLERANCES[torch.float32][1]}
 
 # Published dense rates (NVIDIA data sheets): bytes/s of device memory,
 # bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores and TF32
@@ -371,14 +405,25 @@ def card_rates(name: str):
 
 
 def build_all():
-    """One nvcc per source, all started together; seconds per source."""
+    """One nvcc per source, all started together: each source's future of
+    its build's seconds (:func:`built` waits for them)."""
     def timed(name):
         t0 = time.perf_counter()
         cuda_build.build(name)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        return dict(zip(SOURCES, pool.map(timed, SOURCES)))
+    pool = ThreadPoolExecutor(len(SOURCES))
+    futures = {name: pool.submit(timed, name) for name in SOURCES}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def built(builds, names):
+    """Waits for the builds of ``names`` (:func:`build_all`'s futures; a
+    failed build raises here) and prints their seconds."""
+    secs = {name: builds[name].result() for name in names}
+    print("built " + ", ".join(f"{k} in {v:.1f} s" for k, v in secs.items()),
+          flush=True)
 
 
 def inputs(bh, n, d, seed, bias=False, dtype=torch.bfloat16):
@@ -447,7 +492,8 @@ def path_shapes():
     pretrain and prototype batches."""
     shapes = set()
     for argv in (MAIN_ARGV, CL_ARGV, PRETRAIN_ARGV, IMAGENET_ARGV,
-                 BASELINE_ARGV, EVAL_BASE_ARGV):
+                 BASELINE_ARGV, EVAL_BASE_ARGV,
+                 *(argv for _, argv in OPEN_RUNS.values())):
         shapes.update(recipe_shapes(argv))
     # a rank of the data-parallel phase: its rows of the train and eval
     # batches, and its micro-batches under --grad_accum (the one-process
@@ -458,19 +504,7 @@ def path_shapes():
         shapes.update((b * m.heads, m.seq_len, attention_scale(m)) for b in
                       (local, local // accum,
                        local * cfg.data.test_batch_scale))
-    # a rank of the layout phase: its rows of the train and eval batches
-    # (whole sequences under sp), each cut into M micro-batches under pp;
-    # the one-process references' micro-batches (--grad_accum S·D and
-    # 2·S·D)
-    for name, (_, argv, _, _) in LAYOUT_RUNS.items():
-        cfg = config_from_args(build_parser().parse_args(argv))
-        bs, m, ways = cfg.data.batch_size, cfg.model, layout_ways(name)
-        local = bs // ways
-        micro = (pp_stages(name) or (1, 1))[1]
-        shapes.update((b // micro * m.heads, m.seq_len, attention_scale(m))
-                      for b in (local, local * cfg.data.test_batch_scale))
-        shapes.update((bs // a * m.heads, m.seq_len, attention_scale(m))
-                      for a in (ways, 2 * ways))
+    shapes.update(layout_shapes(LAYOUT_RUNS))
     # the integration tools: the train batch, GS-LoRA's fused batch, the
     # evals of 240 and 250 images, the pretrain batch and the continual
     # prototypes (every loader pads its tail on the card)
@@ -481,6 +515,28 @@ def path_shapes():
     shapes.update(few_shot_shapes())
     shapes.update(eval_surface_shapes())
     return sorted(shapes)
+
+
+def layout_shapes(names):
+    """(batch x heads, tokens, scale) of the layout phase's runs
+    ``names``: a rank's rows of the train and eval batches (whole
+    sequences under sp; a tp rank's half of the heads), each cut into M
+    micro-batches under pp; the one-process references' micro-batches
+    (--grad_accum S·D and 2·S·D)."""
+    shapes = set()
+    for name in names:
+        _, argv, flags, _ = LAYOUT_RUNS[name]
+        cfg = config_from_args(build_parser().parse_args(argv))
+        bs, m, ways = cfg.data.batch_size, cfg.model, layout_ways(name)
+        local = bs // ways
+        micro = (pp_stages(name) or (1, 1))[1]
+        heads = m.heads // layout_shape(name)[2] if "--tp" in flags \
+            else m.heads
+        shapes.update((b // micro * heads, m.seq_len, attention_scale(m))
+                      for b in (local, local * cfg.data.test_batch_scale))
+        shapes.update((bs // a * m.heads, m.seq_len, attention_scale(m))
+                      for a in (ways, 2 * ways))
+    return shapes
 
 
 def few_shot_shapes():
@@ -857,10 +913,11 @@ def rel_err(got, want) -> float:
                  torch.linalg.vector_norm(want).clamp_min(1e-30))
 
 
-def model_check(model):
-    """A model's forward and LoRA gradients (the flagship's, ViT-B/16's),
-    attention through the kernels against the plain attention, same
-    weights and inputs on the card."""
+def model_check(model, dtype=torch.bfloat16):
+    """A model's forward and LoRA gradients (the flagship's, ViT-B/16's)
+    in ``dtype`` compute, attention through the kernels (K1 of that
+    dtype alone) against the plain attention, same weights and inputs on
+    the card, within MODEL_TOLS[dtype]."""
     lora = LoraConfig(rank=8)
     gen = torch.Generator().manual_seed(1)
     params = init_vit_params(gen, model, lora)
@@ -871,25 +928,45 @@ def model_check(model):
     size = model.image_size
     x = torch.randn(4, 3, size, size, generator=gen).to(DEV)
     y = torch.randint(0, model.num_class, (4,), generator=gen).to(DEV)
-    out = {}
+    out, counts = {}, {}
     for impl in ("auto", "dpa"):
         vit = ViT(params, dataclasses.replace(model, attn_impl=impl),
                   lora).to(DEV)
-        logits, emb = vit(x, y, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        start = AS.k1_launches()
+        logits, emb = vit(x, y, compute_dtype=dtype)
         grads = torch.autograd.grad(cross_entropy(logits, y),
                                     list(vit.lora.parameters()))
         out[impl] = [emb, logits, *grads]
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        counts[impl] = AS.k1_launches(start)
     names = ["emb", "logits"] + [n for n, _ in vit.lora.named_parameters()]
     errs = {n: rel_err(a, b) for n, a, b in zip(names, out["auto"],
                                                 out["dpa"])}
-    print(f"model check, dim {model.dim} depth {model.depth} "
-          f"{size}x{size} (kernels vs their plain version, relative L2): " +
-          json.dumps(errs), flush=True)
-    bad = {n: e for n, e in errs.items() if not e <= MODEL_TOL}
+    name, depth, tol = dtype_name(dtype), model.depth, MODEL_TOLS[dtype]
+    print(f"model check, dim {model.dim} depth {depth} {size}x{size}, "
+          f"{name} (kernels vs their plain version, relative L2, limit "
+          f"{tol:.3g}): " + json.dumps(errs), flush=True)
+    # the FFN LoRA's gradient skips block 0's attention backward
+    want = {k: [depth, depth - 1] if k == name else [0, 0]
+            for k in counts["auto"]}
+    if counts != {"auto": want, "dpa": dict.fromkeys(want, [0, 0])}:
+        raise AssertionError(f"model check, {name}: K1 launched {counts}")
+    bad = {n: e for n, e in errs.items() if not e <= tol}
     if bad:
         raise AssertionError(f"model through the kernels disagrees with "
                              f"the plain attention: {bad}")
+
+
+def dtype_name(dtype):
+    """"bfloat16" or "float32": a torch dtype by its --compute_dtype."""
+    return str(dtype).replace("torch.", "")
+
+
+def dtype_tag(dtype):
+    """The suffix of a run's name in ``dtype`` (a --compute_dtype): none
+    in bf16, "_fp32" in fp32."""
+    return "_fp32" if dtype == "float32" else ""
 
 
 MAIN_ARGV = ["-d", "synthetic", "-n", "VIT", "--vit_depth", "6",
@@ -926,10 +1003,12 @@ def forget_run_launches(cfg, data):
     1' backward launches per training forward (the FFN LoRA's gradient
     never needs block 0's attention inputs, so autograd skips that
     backward), 'depth' with an attention LoRA (block 0's qkv LoRA needs
-    them); the forget and remain forwards of a step, or one of both
+    them) or when the base trains (lora_rank 0: the patch embedding
+    needs them); the forget and remain forwards of a step, or one of both
     (fused_batch), with grad_accum as forget_passes says; the test evals
     before training, every ver_freq steps, after each epoch from
-    ema_epoch on (average_weight) and at the end; the prototypes."""
+    ema_epoch on (average_weight) and at the end, the open classes' (with
+    --open_cls_num) as :func:`open_evals` counts them; the prototypes."""
     f, bs = cfg.forget, cfg.data.batch_size
     assert not f.few_shot and f.aug_num == 0
     n_tf, n_tr = len(data.train_forget), len(data.train_remain)
@@ -946,11 +1025,23 @@ def forget_run_launches(cfg, data):
     fwd, bwd = forget_passes(cfg.optim.grad_accum)
     streams = 1 if cfg.fused_batch else 2
     depth = cfg.model.depth
-    per_bwd = depth if cfg.lora.pos == "Attention" else depth - 1
+    per_bwd = depth if cfg.lora.pos == "Attention" or not cfg.lora.rank \
+        else depth - 1
     return {"attention_fwd": depth * (rounds * evals + protos +
+                                      open_evals(cfg, data, steps) +
                                       streams * fwd * steps),
             "attention_bwd": per_bwd * streams * bwd * steps,
             "group_prox": 0, "group_norms": 0, "group_scale": 0}
+
+
+def open_evals(cfg, data, steps):
+    """Eval batches of the open classes in a run of ``steps`` training
+    steps over ``data`` (engine/loop.run_eval: every ver_freq steps and
+    at the end; not before training, not of the EMA); 0 without them."""
+    if data.test_open is None:
+        return 0
+    test_bs = cfg.data.batch_size * cfg.data.test_batch_scale
+    return (steps // cfg.ver_freq + 1) * -(-len(data.test_open) // test_bs)
 
 
 _DATASETS = {}
@@ -988,34 +1079,38 @@ def reset_counts():
 
 
 def read_counts():
-    return {"attention_fwd": A.FWD_LAUNCHES, "attention_bwd": A.BWD_LAUNCHES,
-            "group_prox": G.PROX_LAUNCHES, "group_norms": G.NORMS_LAUNCHES,
-            "group_scale": G.SCALE_LAUNCHES}
+    """Every kernel's launches since :func:`reset_counts`, K1's by the
+    kernel's dtype: attention_fwd / attention_bwd the bf16 kernel's,
+    attention_fwd_fp32 / attention_bwd_fp32 the fp32 kernel's."""
+    return CONT.kernel_launches()
 
 
-def by_dtype(launches, argv, what):
-    """The run's counts with K1's split by the kernel's dtype
-    (attention_fwd / attention_bwd the bf16 kernel's, attention_*_fp32 the
-    fp32 kernel's); raises unless every K1 launch ran in the run's compute
-    dtype. Read right after :func:`read_counts`."""
-    out = {**launches,
-           "attention_fwd": A.FWD_BY_DTYPE[torch.bfloat16],
-           "attention_bwd": A.BWD_BY_DTYPE[torch.bfloat16],
-           "attention_fwd_fp32": A.FWD_BY_DTYPE[torch.float32],
-           "attention_bwd_fp32": A.BWD_BY_DTYPE[torch.float32]}
-    dtype = argv[argv.index("--compute_dtype") + 1]
-    other = ("attention_fwd", "attention_bwd") if dtype == "float32" else \
-        ("attention_fwd_fp32", "attention_bwd_fp32")
-    if any(out[k] for k in other):
-        raise AssertionError(f"{what}: {dtype} compute launched the other "
-                             f"dtype's kernel: {out}")
+def run_dtype(argv):
+    """The --compute_dtype of ``argv`` (the CLIs' default bfloat16)."""
+    return argv[argv.index("--compute_dtype") + 1] \
+        if "--compute_dtype" in argv else "bfloat16"
+
+
+def as_read(want, argv=()):
+    """Derived counts ``want`` (K1's under attention_fwd / attention_bwd,
+    whatever its dtype) as :func:`read_counts` reads them after a run of
+    ``argv``: K1's under the keys of its --compute_dtype's kernel, 0 under
+    the other's."""
+    fwd, bwd = want["attention_fwd"], want["attention_bwd"]
+    out = {**want, "attention_fwd": 0, "attention_bwd": 0,
+           "attention_fwd_fp32": 0, "attention_bwd_fp32": 0}
+    if run_dtype(argv) == "float32":
+        out.update(attention_fwd_fp32=fwd, attention_bwd_fp32=bwd)
+    else:
+        out.update(attention_fwd=fwd, attention_bwd=bwd)
     return out
 
 
 def main_path_phase(argv=MAIN_ARGV, what="main path"):
     """train_forget at ``argv`` (the flagship forget recipe, 1 epoch):
-    finite metrics and losses, K1's counts as the path implies; the
-    counts with K1's split by dtype (:func:`by_dtype`)."""
+    finite metrics and losses, K1's counts as the path implies, every
+    launch on the kernel of the run's compute dtype. Returns the counts
+    (:func:`read_counts`)."""
     with tempfile.TemporaryDirectory() as out:
         argv = argv + ["--outdir", out]
         want_fwd, want_bwd = expected_launches(argv)
@@ -1026,7 +1121,6 @@ def main_path_phase(argv=MAIN_ARGV, what="main path"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
-        split = by_dtype(launches, argv, what)
         with open(os.path.join(out, "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
     for key in ("forget_acc", "remain_acc", "best_H_mean",
@@ -1038,18 +1132,19 @@ def main_path_phase(argv=MAIN_ARGV, what="main path"):
     if not losses or not all(math.isfinite(v) for _, v in losses):
         raise AssertionError(f"{what}: missing or non-finite losses "
                              f"{losses[:8]}")
-    want = {"attention_fwd": want_fwd, "attention_bwd": want_bwd,
-            "group_prox": 0, "group_norms": 0, "group_scale": 0}
+    want = as_read({"attention_fwd": want_fwd, "attention_bwd": want_bwd,
+                    "group_prox": 0, "group_norms": 0, "group_scale": 0},
+                   argv)
     if launches != want:
         raise AssertionError(f"{what} launched {launches}; the path "
                              f"implies {want}")
-    dtype = argv[argv.index("--compute_dtype") + 1]
+    dtype = run_dtype(argv)
     print(f"{what}: train_forget depth 6 dim 512 bs 24, {dtype} compute, "
           f"1 epoch on the card in {wall:.1f} s; forget_acc "
           f"{report['forget_acc']:.2f} remain_acc {report['remain_acc']:.2f} "
           f"best_H {report['best_H_mean']:.3f}; {len(losses)} finite "
-          f"logged losses; launches {split}", flush=True)
-    return split
+          f"logged losses; launches {launches}", flush=True)
+    return launches
 
 
 def bench_setup():
@@ -1198,10 +1293,13 @@ def expected_pretrain_launches(argv):
 def run_pretrain_cli(argv, what):
     """train_pretrain.main on the card with the launch counts read around
     it; checks finite accuracies and logged losses and the counts the
-    path implies; prints the test accuracy of every eval. Returns
-    (report, state, launches)."""
+    path implies, every K1 launch in the run's compute dtype; prints the
+    test accuracy of every eval and the peak of the card's memory.
+    Returns (report, state, launches)."""
     want, steps = expected_pretrain_launches(argv)
+    want = as_read(want, argv)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     report, state = train_pretrain.main(argv, return_state=True)
@@ -1222,7 +1320,9 @@ def run_pretrain_cli(argv, what):
     rates = [rec["images_per_sec"] for rec in logged
              if "images_per_sec" in rec]
     print(f"{what} " + json.dumps({
-        "wall_s": wall, "steps": steps, "report": report,
+        "wall_s": wall, "steps": steps, "compute_dtype": run_dtype(argv),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "report": report,
         "epoch_images_per_sec": rates, "launches": launches,
         "test_accs": [rec["Test Accuracy"] for rec in logged
                       if "Test Accuracy" in rec]}), flush=True)
@@ -1240,16 +1340,20 @@ def assert_same(got, want, what):
                              f"{sorted(set(got) ^ set(want))[:5]}")
 
 
-def pretrain_phase():
-    """The pretrain -> LoRA-only resume -> export chain at flagship width:
-    train_pretrain (every parameter, 20 steps at bs 480, the batch-20 eval
-    saves a checkpoint); train_pretrain --lora_rank 8 -r <it> --remat
-    (the base loads bit for bit and stays, the LoRA moves); export_torch of
-    the result to a reference-named .pth, which -r loads back bit for bit;
-    pair verification of the result on the card."""
+def pretrain_phase(dtype="bfloat16"):
+    """The pretrain -> LoRA-only resume chain at flagship width in
+    ``dtype`` compute: train_pretrain (every parameter, 20 steps at bs
+    480, the batch-20 eval saves a checkpoint); train_pretrain
+    --lora_rank 8 -r <it> --remat (the base loads bit for bit and stays,
+    the LoRA moves). In bf16 then export_torch of the result to a
+    reference-named .pth, which -r loads back bit for bit, pair
+    verification of the result on the card and remat_dropout_check.
+    Returns both runs' counts."""
+    tag = dtype_tag(dtype)
     with tempfile.TemporaryDirectory() as out:
-        argv = PRETRAIN_ARGV + ["--outdir", os.path.join(out, "pretrain")]
-        _, _, full = run_pretrain_cli(argv, "pretrain")
+        argv = in_dtype(PRETRAIN_ARGV, dtype) + [
+            "--outdir", os.path.join(out, "pretrain")]
+        _, _, full = run_pretrain_cli(argv, "pretrain" + tag)
         ckpts = sorted(f for f in os.listdir(os.path.join(out, "pretrain"))
                        if f.startswith("Backbone_VIT_") and
                        "_Batch_20_" in f)
@@ -1258,13 +1362,13 @@ def pretrain_phase():
         ckpt = os.path.join(out, "pretrain", ckpts[0])
         saved = load_params(ckpt)
 
-        argv = PRETRAIN_LORA_ARGV + ["-r", ckpt, "--outdir",
-                                     os.path.join(out, "lora")]
+        argv = in_dtype(PRETRAIN_LORA_ARGV, dtype) + [
+            "-r", ckpt, "--outdir", os.path.join(out, "lora")]
         cfg = config_from_args(build_parser().parse_args(argv))
         start = build_params(cfg)
         assert_same(host_tree(start["base"]), host_tree(saved["base"]),
                     "pretrain resume: loaded base")
-        _, state, lora = run_pretrain_cli(argv, "pretrain_lora_remat")
+        _, state, lora = run_pretrain_cli(argv, "pretrain_lora_remat" + tag)
         final = state.params
         assert_same(host_tree(final["base"]), host_tree(saved["base"]),
                     "LoRA-only pretrain: base after the steps")
@@ -1273,6 +1377,8 @@ def pretrain_phase():
         if still:
             raise AssertionError(f"LoRA-only pretrain: LoRA {still} did "
                                  f"not move")
+        if tag:
+            return full, lora
 
         own = os.path.join(out, "lora_final.pth")
         save_params(own, final)
@@ -1526,7 +1632,8 @@ def cl_launches(cfg, train, test, miss=0):
     after training (task > 0); the prototypes (batches of PROTO_BATCH,
     with prototype); the test forget and remain evals before training,
     every ver_freq steps, after each epoch from ema_epoch on
-    (average_weight) and at the end; two training forwards per step, or
+    (average_weight) and at the end, the open classes' (--open_cls_num)
+    as :func:`open_evals` counts them; two training forwards per step, or
     one of both batches (fused_batch). ``miss`` images scored before and
     after the run (batches of the training batch). 'depth' forward
     launches per forward, 'depth - 1' backward per training forward (FFN
@@ -1534,7 +1641,7 @@ def cl_launches(cfg, train, test, miss=0):
     step under structure_mode prox. One rank of a --dp run launches these
     counts over its rows."""
     f, bs = cfg.forget, cfg.data.batch_size
-    assert f.open_cls_num == 0 and cfg.lora.pos == "FFN"
+    assert cfg.lora.pos == "FFN" and cfg.lora.rank
     f_pass, b_pass = forget_passes(cfg.optim.grad_accum)
     streams = 1 if cfg.fused_batch else 2
     order = make_order_list(cfg.model.num_class, seed=cfg.data.seed)
@@ -1556,7 +1663,8 @@ def cl_launches(cfg, train, test, miss=0):
         protos = batches(len(data.train_forget), PROTO_BATCH) + \
             batches(len(data.train_remain), PROTO_BATCH) \
             if f.prototype else 0
-        fwd += rounds * evals + old_evals + protos + streams * f_pass * n
+        fwd += rounds * evals + old_evals + protos + \
+            open_evals(cfg, data, n) + streams * f_pass * n
         steps += n
     fwd += 2 * batches(miss, bs)
     depth = cfg.model.depth
@@ -1569,10 +1677,11 @@ def cl_launches(cfg, train, test, miss=0):
 def continual_phase(argv=CL_ARGV, what="continual"):
     """The CL CLI on the card at ``argv``: GS-LoRA++ with the prox step and
     EMA over 2 tasks at flagship width; wall time per task from the
-    report; the counts with K1's split by dtype (:func:`by_dtype`)."""
+    report; K1's counts as the path implies, every launch on the kernel
+    of the run's compute dtype. Returns the counts."""
     with tempfile.TemporaryDirectory() as out:
         argv = argv + ["--outdir", out]
-        want = expected_cl_launches(argv)
+        want = as_read(expected_cl_launches(argv), argv)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -1580,7 +1689,6 @@ def continual_phase(argv=CL_ARGV, what="continual"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
-        split = by_dtype(launches, argv, what)
         with open(os.path.join(out, "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
         missing = [t for t in range(2) if not os.path.exists(os.path.join(
@@ -1608,7 +1716,7 @@ def continual_phase(argv=CL_ARGV, what="continual"):
         raise AssertionError(f"{what} launched {launches}; the "
                              f"path implies {want}")
     per_task = [r["time_to_forget_s"] for r in report]
-    dtype = argv[argv.index("--compute_dtype") + 1]
+    dtype = run_dtype(argv)
     print(f"{what} " + json.dumps({
         "recipe": f"train_forget_cl GS-LoRA++, prox, EMA, prototypes, "
                   f"depth 6 dim 512 bs 24, 2 tasks x 1 epoch, {dtype} "
@@ -1616,8 +1724,8 @@ def continual_phase(argv=CL_ARGV, what="continual"):
         "wall_s": wall, "time_to_forget_s": per_task,
         "old_acc_task1": report[1]["old_acc"],
         "norm_list_task1": report[1]["norm_list"],
-        "launches": split}), flush=True)
-    return split
+        "launches": launches}), flush=True)
+    return launches
 
 
 # The forget recipes in fp32 compute (slice 16: K1 on fp32 slices)
@@ -1625,10 +1733,40 @@ FP32_ARGVS = {"train_forget_fp32": in_dtype(MAIN_ARGV, "float32"),
               "train_forget_cl_fp32": in_dtype(CL_ARGV, "float32")}
 
 
+# the layout phase's runs in fp32 compute (slice 21)
+FP32_LAYOUTS = ["forget_tp_sp_fp32", "forget_pp_fp32"]
+
+
 def fp32_path_shapes():
-    """(batch x heads, tokens, scale) of the fp32 phase's attentions."""
-    return sorted(set().union(*map(recipe_shapes, FP32_ARGVS.values()),
-                              few_shot_shapes()))
+    """(batch x heads, tokens, scale) of every attention in fp32 compute:
+    the train, eval and prototype batches of the forget recipes
+    (FP32_ARGVS), the pretrain (the LoRA leg with remat runs the same
+    batches), ViT-B/16 (its train, missing-class and eval batches at its
+    0.125) and the baselines; test_model's, the pair verification's and
+    the probe's (eval_cli_shapes), a layout rank's of FP32_LAYOUTS (a tp
+    rank's 4 heads, pp's micro-batches), the few-shot arm's, and the
+    model and LIRF checks' 4 and 8 images."""
+    recipes = [*FP32_ARGVS.values(), in_dtype(PRETRAIN_ARGV, "float32"),
+               IMAGENET_FP32_ARGV, in_dtype(BASELINE_ARGV, "float32")]
+    shapes = set().union(*map(recipe_shapes, recipes))
+    shapes |= eval_cli_shapes() | layout_shapes(FP32_LAYOUTS) | \
+        few_shot_shapes()
+    for model, images in ((ViTConfig(), 4), (ViTConfig.vit_b16(), 4),
+                          (ViTConfig(), 8)):
+        shapes.add((images * model.heads, model.seq_len,
+                    attention_scale(model)))
+    return sorted(shapes)
+
+
+@contextlib.contextmanager
+def no_plain_attention_on_card(what):
+    """Raises at its end if the plain attention ran on CUDA tensors while
+    it was open (:func:`plain_attention_on_card`)."""
+    with plain_attention_on_card() as plain:
+        yield
+    if plain != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"{what}: the plain attention ran on the card "
+                             f"{plain}")
 
 
 @contextlib.contextmanager
@@ -1652,6 +1790,16 @@ def plain_attention_on_card():
         A.attention_fwd_plain, A.attention_bwd_plain = fwd, bwd
 
 
+def fp32_runs(what, fn, *args):
+    """``fn(*args)``, a phase's runs in fp32 compute, with no call of the
+    plain attention on the card; prints its wall."""
+    t0 = time.perf_counter()
+    with no_plain_attention_on_card(what):
+        out = fn(*args)
+    print(f"{what} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def fp32_path_phase():
     """train_forget and train_forget_cl (--one_stage, prox) at the forget
     recipes' flags in fp32 compute, each held as its bf16 run is (finite
@@ -1659,17 +1807,105 @@ def fp32_path_phase():
     continual step), every K1 launch on the fp32 kernel, none through the
     plain attention on the card. The counts per run, K1's by dtype."""
     t0 = time.perf_counter()
-    with plain_attention_on_card() as plain:
+    with no_plain_attention_on_card("fp32 paths"):
         launches = {
             "train_forget_fp32": main_path_phase(
                 FP32_ARGVS["train_forget_fp32"], "fp32 main path"),
             "train_forget_cl_fp32": continual_phase(
                 FP32_ARGVS["train_forget_cl_fp32"], "fp32 continual")}
-    if plain != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"fp32 paths: the plain attention ran on the "
-                             f"card {plain}")
     print(f"fp32 phase in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(launches), flush=True)
+    return launches
+
+
+# GS-LoRA's open-set recipes (slice 21) at the flagship's width and depth
+# on synthetic data from the eval base (-r), bf16, cut to 10 epochs of
+# their 100 (the continual one to 2 tasks), enough for the forget
+# accuracy to fall:
+# scripts/run_forget_open.sh's gs_lora arm (rank 8, 70 first classes, 30
+# forgotten, 40 open, BND 110, data_ratio 0.1) and full arm (--lora_rank
+# 0 at lr 1e-4: every parameter trains), scripts/run_cl_forget_open.sh
+# (GS-LoRA++, 10 open classes, BND 105, alpha warm-up, prototypes)
+OPEN_FORGET_ARGV = ["-d", "synthetic", *MODEL_FLAGS, "-b", "48", "-e", "10",
+                    "--group_type", "block", "--data_ratio", "0.1",
+                    "--alpha_epoch", "0", "--open_cls_num", "40",
+                    "--warmup-epochs", "0", "--decay-epochs", "100",
+                    "--num_of_first_cls", "70", "--per_forget_cls", "30",
+                    "--min-lr", "1e-5", "--compute_dtype", "bfloat16"]
+OPEN_RUNS = {
+    "forget_open_gs_lora": (train_forget, OPEN_FORGET_ARGV + [
+        "--lr", "1e-2", "--lora_rank", "8", "--BND", "110", "--beta", "0.1",
+        "--alpha", "0"]),
+    "forget_open_full": (train_forget, OPEN_FORGET_ARGV + [
+        "--lr", "1e-4", "--lora_rank", "0"]),
+    "cl_forget_open": (train_forget_cl, [
+        "-d", "synthetic", *MODEL_FLAGS, "--one_stage", "-b", "48", "-e",
+        "10", "--warmup-epochs", "0", "--lr", "1e-2", "--lora_rank", "8",
+        "--decay-epochs", "100", "--num_of_first_cls", "80",
+        "--per_forget_cls", "20", "--num_tasks", "2", "--open_cls_num",
+        "10", "--BND", "105", "--cl_beta_list", "0.14", "0.14", "0.2",
+        "0.15", "--warmup_alpha", "--big_alpha", "0.015", "--alpha_epoch",
+        "30", "--min-lr", "1e-5", "--prototype", "--pro_f_weight", "0.0003",
+        "--pro_r_weight", "0", "--compute_dtype", "bfloat16"]),
+}
+
+
+def open_set_phase(ckpt):
+    """OPEN_RUNS through their CLIs on the card from the checkpoint
+    ``ckpt`` (the eval base): finite forget, remain and open accuracies
+    (and, in the continual run, the old-class accuracy of task 1 and both
+    task snapshots, finite), the forget accuracy below its value before
+    training in every run and task; K1's counts as the flags and data
+    imply (forget_run_launches, cl_launches: the open evals in every
+    round, the full arm's backward through block 0 too), K2 and K3 at 0.
+    Prints each run's wall and peak memory; returns the counts by run."""
+    t_phase = time.perf_counter()
+    launches, summary = {}, {}
+    for name, (cli, argv) in OPEN_RUNS.items():
+        with tempfile.TemporaryDirectory() as out:
+            argv = argv + ["-r", ckpt, "--outdir", out]
+            if cli is train_forget:
+                fwd, bwd = expected_launches(argv)
+                want = {"attention_fwd": fwd, "attention_bwd": bwd,
+                        "group_prox": 0, "group_norms": 0, "group_scale": 0}
+            else:
+                want = expected_cl_launches(argv)
+            torch.cuda.reset_peak_memory_stats()
+            report, got, wall = run_counted(cli.main, argv, want, name)
+            snaps = [] if cli is train_forget else [
+                load_params(os.path.join(out, "task-level",
+                                         f"Backbone_task_{t}.pth"))
+                for t in range(2)]
+        tasks = report if isinstance(report, list) else [report]
+        if cli is train_forget_cl and [r["task"] for r in tasks] != [0, 1]:
+            raise AssertionError(f"{name}: report of tasks {tasks}")
+        for r in tasks:
+            keys = ["forget_acc_before", "forget_acc", "remain_acc",
+                    "open_acc", "best_H_mean"] + (
+                        ["old_acc"] if r.get("task") == 1 else [])
+            if not all(r[k] is not None and math.isfinite(r[k])
+                       for k in keys) or \
+                    not r["forget_acc"] < r["forget_acc_before"]:
+                raise AssertionError(f"{name}: {r}")
+        for snap in snaps:
+            bad = [k for k, v in flatten_tree(snap).items()
+                   if not torch.isfinite(v).all()]
+            if bad:
+                raise AssertionError(f"{name}: non-finite snapshot {bad}")
+        launches[name] = got
+        summary[name] = {
+            "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": got, "accuracies": [{k: r.get(k) for k in (
+                "task", "forget_acc_before", "forget_acc", "remain_acc",
+                "open_acc", "old_acc")} for r in tasks]}
+    print("open_set " + json.dumps({
+        "recipe": "scripts/run_forget_open.sh (gs_lora, full) and "
+                  "scripts/run_cl_forget_open.sh, depth 6 dim 512 bs 48, "
+                  "10 epochs (the continual run 2 tasks), synthetic data, "
+                  "bf16 compute, from the eval base",
+        "wall_s": time.perf_counter() - t_phase, "runs": summary}),
+        flush=True)
     return launches
 
 
@@ -1680,6 +1916,9 @@ IMAGENET_ARGV = ["--one_stage", "-b", "48", "-d", "imagenet100",
                  "--num_tasks", "2", "--num_of_first_cls", "80",
                  "--per_forget_cls", "20", "--cl_beta_list", "0.15", "0.15",
                  "-e", "1", "--compute_dtype", "bfloat16"]
+# ViT-B/16 in fp32 compute (slice 21): one task of the recipe
+IMAGENET_FP32_ARGV = in_dtype(IMAGENET_ARGV, "float32") + ["--num_tasks",
+                                                            "1"]
 # the seeded stand-in for ImageNet-100: images per class in train/ and
 # test/, and the held-out classes with their images
 IMAGENET_FOLDER = {"train": 20, "test": 4, "miss_classes": 3,
@@ -1732,24 +1971,39 @@ def vit_b16_checkpoint(path, model):
     return sd["heads.head.weight"], sd["heads.head.bias"]
 
 
-def imagenet_phase():
+def imagenet_inputs(root):
+    """The seeded ImageNet-100 folder (:func:`imagenet_folder`) and
+    ViT-B/16 checkpoint (:func:`vit_b16_checkpoint`, root/vit_b16.pth)
+    that every ViT-B/16 run of the script reads (the layout phase's ranks
+    through $CHIP_SMOKE_IMAGENET_ROOT): (root, the classes' global
+    indices, the checkpoint's 1000-row head weight and bias)."""
+    _, _, run_idx = imagenet_folder(root)
+    model = config_from_args(build_parser().parse_args(IMAGENET_ARGV)).model
+    return (root, run_idx,
+            *vit_b16_checkpoint(os.path.join(root, "vit_b16.pth"), model))
+
+
+def imagenet_phase(inputs, argv=IMAGENET_ARGV, what="imagenet"):
     """The ImageNet-100 continual path on the card at ViT-B/16's full width
     and depth: train_forget_cl -d imagenet100 -n VIT_B16 -r <torchvision
-    .pth> with the recipe's flags, cut to 2 tasks of 1 epoch, over a
-    seeded JPEG folder with a missing-class root. Checks the head cut to
+    .pth> with the recipe's flags (``argv``: cut to 2 tasks of 1 epoch in
+    bf16, to 1 in fp32), over the seeded JPEG folder with a missing-class
+    root (``inputs``, :func:`imagenet_inputs`). Checks the head cut to
     the 100 classes' rows, finite accuracies, the missing-class accuracy
-    before and after, and K1's counts against the flags."""
+    before and after, and K1's counts against the flags, every launch in
+    the run's compute dtype. Returns the counts."""
     import PIL
-    with tempfile.TemporaryDirectory() as root:
-        data, miss, run_idx = imagenet_folder(root)
-        ckpt = os.path.join(root, "vit_b16.pth")
-        out = os.path.join(root, "out")
-        argv = IMAGENET_ARGV + ["--data_root", data, "--imagenet_miss_root",
-                                miss, "-r", ckpt, "--outdir", out]
+    dtype = run_dtype(argv)
+    root, run_idx, head_w, head_b = inputs
+    with tempfile.TemporaryDirectory() as out:
+        argv = argv + ["--data_root", os.path.join(root, "data"),
+                       "--imagenet_miss_root", os.path.join(root, "miss"),
+                       "-r", os.path.join(root, "vit_b16.pth"),
+                       "--outdir", out]
         model = config_from_args(build_parser().parse_args(argv)).model
-        head_w, head_b = vit_b16_checkpoint(ckpt, model)
-        want = expected_cl_launches(argv)
+        want = as_read(expected_cl_launches(argv), argv)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         report = train_forget_cl.main(argv)
@@ -1765,33 +2019,37 @@ def imagenet_phase():
     if head["weight"].shape != (model.num_class, model.dim) or not (
             torch.equal(head["weight"], head_w[rows]) and
             torch.equal(head["bias"], head_b[rows])):
-        raise AssertionError(f"imagenet: head {tuple(head['weight'].shape)}"
+        raise AssertionError(f"{what}: head {tuple(head['weight'].shape)}"
                              f" is not the checkpoint's rows of the "
                              f"{model.num_class} classes")
+    tasks = config_from_args(build_parser().parse_args(argv)).forget.num_tasks
+    if [r["task"] for r in report] != list(range(tasks)):
+        raise AssertionError(f"{what}: report of tasks {report}")
     for r in report:
         vals = [r[k] for k in ("forget_acc_before", "forget_acc",
                                "remain_acc", "best_H_mean")] + r["norm_list"]
         if r["task"] == 1:
             vals.append(r["old_acc"])
         if not all(v is not None and math.isfinite(v) for v in vals):
-            raise AssertionError(f"imagenet: task {r['task']}: {r}")
+            raise AssertionError(f"{what}: task {r['task']}: {r}")
     missing = {k: v for rec in logged for k, v in rec.items()
                if k.startswith("imagenet-val-miss_")}
     if sorted(missing) != ["imagenet-val-miss_after",
                            "imagenet-val-miss_before"] or not all(
             math.isfinite(v) for v in missing.values()):
-        raise AssertionError(f"imagenet: missing-class evals {missing}")
+        raise AssertionError(f"{what}: missing-class evals {missing}")
     if launches != want:
-        raise AssertionError(f"imagenet path launched {launches}; the "
+        raise AssertionError(f"{what} path launched {launches}; the "
                              f"path implies {want}")
-    print("imagenet " + json.dumps({
-        "recipe": "train_forget_cl -d imagenet100 -n VIT_B16 -r <seeded "
-                  "torchvision .pth>, GS-LoRA, depth 12 dim 768 bs 48, "
-                  "2 tasks x 1 epoch, bf16 compute",
+    print(f"{what} " + json.dumps({
+        "recipe": f"train_forget_cl -d imagenet100 -n VIT_B16 -r <seeded "
+                  f"torchvision .pth>, GS-LoRA, depth 12 dim 768 bs 48, "
+                  f"{tasks} tasks x 1 epoch, {dtype} compute",
         "data": f"seeded JPEG folder (PIL {PIL.__version__}): "
                 f"{IMAGENET_FOLDER}",
         "wall_s": wall, "time_to_forget_s": [r["time_to_forget_s"]
                                              for r in report],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "accuracies": [{k: r[k] for k in ("task", "forget_acc_before",
                                           "forget_acc", "remain_acc",
                                           "old_acc")} for r in report],
@@ -1870,6 +2128,13 @@ BASELINE_ARGV = ["-d", "synthetic", *CUT_MODEL_FLAGS, "--lora_rank", "0",
 BASELINE_FLAGS = ["--retrain", "--replay", "--l2", "--ewc", "--MAS", "--Lwf",
                   "--Der", "--DER_plus", "--FDR", "--SCRUB", "--LIRF"]
 SINGLE_STEP_FLAGS = ["--ewc", "--retrain"]
+BASELINE_RUNS = [("train_forget_cl", flag) for flag in BASELINE_FLAGS] + \
+    [("train_forget", flag) for flag in SINGLE_STEP_FLAGS]
+# one baseline of each family in fp32 compute (slice 21): reg, distill,
+# SCRUB, LIRF through train_forget_cl, Retrain through train_forget
+FP32_BASELINE_RUNS = [("train_forget_cl", flag) for flag in
+                      ("--ewc", "--DER_plus", "--SCRUB", "--LIRF")] + \
+    [("train_forget", "--retrain")]
 # K1 forward and backward launches per training step, in units of depth:
 # each student forward with its backward (the patch embedding trains, so
 # block 0's attention backward runs too), each teacher or deposit forward
@@ -1985,24 +2250,25 @@ def expected_single_step_launches(argv):
             "group_prox": 0, "group_norms": 0, "group_scale": 0}
 
 
-def baseline_phase():
-    """Every baseline through train_forget_cl (2 tasks) and --ewc and
-    --retrain through train_forget, at the flagship's width on the card;
-    each run's K1 counts against those its flags and data imply, finite
-    accuracies of every task (open and old-class ones included), both task
-    snapshots and, for LIRF, a deployable model with no LoRA. Returns the
-    launch counts summed over the runs."""
+def baseline_phase(base_argv=BASELINE_ARGV, runs=BASELINE_RUNS):
+    """The baselines of ``runs`` at ``base_argv`` (by default every
+    baseline through train_forget_cl (2 tasks) and --ewc and --retrain
+    through train_forget, bf16) at the flagship's width on the card; each
+    run's K1 counts against those its flags and data imply, every launch
+    in the run's compute dtype, finite accuracies of every task (open and
+    old-class ones included), both task snapshots and, for LIRF, a
+    deployable model with no LoRA. Returns the launch counts summed over
+    the runs."""
     total = {k: 0 for k in read_counts()}
     per_run = {}
-    runs = [("train_forget_cl", flag) for flag in BASELINE_FLAGS] + \
-        [("train_forget", flag) for flag in SINGLE_STEP_FLAGS]
+    dtype = run_dtype(base_argv)
     t_phase = time.perf_counter()
     for cli, flag in runs:
         with tempfile.TemporaryDirectory() as out:
-            argv = BASELINE_ARGV + [flag, "--outdir", out]
+            argv = base_argv + [flag, "--outdir", out]
             single = cli == "train_forget"
-            want = (expected_single_step_launches if single else
-                    expected_baseline_launches)(argv)
+            want = as_read((expected_single_step_launches if single else
+                            expected_baseline_launches)(argv), argv)
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
@@ -2042,11 +2308,12 @@ def baseline_phase():
                              for r in tasks]}
         for k in total:
             total[k] += launches[k]
-    print("baselines " + json.dumps({
-        "recipe": "train_forget_cl x 11 methods (2 tasks x 1 epoch) and "
-                  "train_forget --ewc / --retrain, depth 2 dim 512 bs 48, "
-                  "80 + 20 classes, 10 open, 4 images per class, rank 0, "
-                  "bf16 compute", "wall_s": time.perf_counter() - t_phase,
+    tag = dtype_tag(dtype)
+    print(f"baselines{tag} " + json.dumps({
+        "recipe": f"{', '.join(f'{c} {f}' for c, f in runs)} (train_"
+                  f"forget_cl: 2 tasks x 1 epoch), depth 2 dim 512 bs 48, "
+                  f"80 + 20 classes, 10 open, 4 images per class, rank 0, "
+                  f"{dtype} compute", "wall_s": time.perf_counter() - t_phase,
         "runs": per_run, "launches": total}), flush=True)
     return total
 
@@ -2299,10 +2566,10 @@ def integration_phase():
         synthetic_want["attention_fwd"] += depth * (
             batches(len(test), IS.EVAL_BS) + 2 * pre_steps)
         synthetic_want["attention_bwd"] += depth * pre_steps
-        cl_want = {k: sum(baseline_cl_launches(ICL.run_config(
-            m, cl_recipes[m], model, flagship.BS, 2, dev), train,
-            test)[k] for m in INTEGRATION_CL_METHODS)
-            for k in read_counts()}
+        cl_wants = [baseline_cl_launches(ICL.run_config(
+            m, cl_recipes[m], model, flagship.BS, 2, dev), train, test)
+            for m in INTEGRATION_CL_METHODS]
+        cl_want = {k: sum(w[k] for w in cl_wants) for k in cl_wants[0]}
         cl_want["attention_fwd"] += depth * batches(len(test), IB.EVAL_BS)
         continual_want, few_shot_want = (cl_launches(
             IC.run_config(model, few_shot, 4, dev, epochs=1), train, test)
@@ -2357,9 +2624,9 @@ def integration_phase():
                                          f"output: the base is not shared")
                 with open(out(name)) as fh:
                     check_integration_report(name, report, json.load(fh))
-                if got != want:
+                if got != as_read(want):
                     raise AssertionError(f"{name} launched {got}; its recipe "
-                                         f"and data imply {want}")
+                                         f"and data imply {as_read(want)}")
                 launches[name] = got
                 summary[name] = {
                     "wall_s": wall,
@@ -2431,9 +2698,9 @@ def base_split_phase():
                                      "from the report")
     base = report["bases"]["torch0_bf16"]
     (run,) = base["runs"]
-    if got != want:
+    if got != as_read(want):
         raise AssertionError(f"base_split launched {got}; its recipe and "
-                             f"data imply {want}")
+                             f"data imply {as_read(want)}")
     if base["k1_launches"] != {"bfloat16": pre, "float32": [0, 0]}:
         raise AssertionError(f"base_split pretrain launched "
                              f"{base['k1_launches']}; it implies {pre}")
@@ -2460,12 +2727,12 @@ def base_split_phase():
     return got
 
 
-def lirf_check():
-    """One LIRF step at flagship width (bf16, dropout off, forget and
-    remain batches of 8 with pad rows): the gradient of the student's low
-    half, whose path runs back through the frozen teacher's upper blocks,
-    with attention through the kernels against the plain attention,
-    within MODEL_TOL."""
+def lirf_check(dtype=torch.bfloat16):
+    """One LIRF step at flagship width (``dtype`` compute, dropout off,
+    forget and remain batches of 8 with pad rows): the gradient of the
+    student's low half, whose path runs back through the frozen teacher's
+    upper blocks, with attention through the kernels (K1 of that dtype
+    alone) against the plain attention, within MODEL_TOLS[dtype]."""
     model = ViTConfig(dropout=0.0, emb_dropout=0.0)
     lora = LoraConfig(rank=0)
     params = init_vit_params(torch.Generator().manual_seed(2), model, lora)
@@ -2496,23 +2763,28 @@ def lirf_check():
                           deposit_low=low_slice(teacher, half), opt_state={})
         opt = Capture()
         step = make_lirf_step(m, lora, opt, split=20, T=10.0, alpha=0.1,
-                              compute_dtype=torch.bfloat16)
-        A.reset_launch_counts()
+                              compute_dtype=dtype)
+        torch.cuda.synchronize()
+        start = AS.k1_launches()
         _, metrics = step(state, teacher, *streams, 0.0)
         torch.cuda.synchronize()
-        counts[impl] = (A.FWD_LAUNCHES, A.BWD_LAUNCHES)
+        counts[impl] = AS.k1_launches(start)
         names = [n for n, _ in student.named_parameters()]
         out[impl] = dict(zip(names, opt.grads))
         if not all(math.isfinite(float(v)) for v in metrics.values()):
             raise AssertionError(f"LIRF step ({impl}): {metrics}")
     errs = {n: rel_err(out["auto"][n], out["dpa"][n]) for n in out["dpa"]}
-    print("LIRF check, flagship width (student_low gradients through the "
-          "teacher's upper half, kernels vs their plain version, relative "
-          "L2): " + json.dumps(errs), flush=True)
+    name, tol = dtype_name(dtype), MODEL_TOLS[dtype]
+    print(f"LIRF check, flagship width, {name} (student_low gradients "
+          f"through the teacher's upper half, kernels vs their plain "
+          f"version, relative L2, limit {tol:.3g}): " + json.dumps(errs),
+          flush=True)
     depth = model.depth
-    if counts != {"auto": (4 * depth, 2 * depth), "dpa": (0, 0)}:
+    want = {k: [4 * depth, 2 * depth] if k == name else [0, 0]
+            for k in counts["auto"]}
+    if counts != {"auto": want, "dpa": dict.fromkeys(want, [0, 0])}:
         raise AssertionError(f"LIRF step launched {counts}")
-    bad = {n: e for n, e in errs.items() if not e <= MODEL_TOL}
+    bad = {n: e for n, e in errs.items() if not e <= tol}
     if bad:
         raise AssertionError(f"LIRF gradients through the kernels disagree "
                              f"with the plain attention: {bad}")
@@ -2666,9 +2938,20 @@ SERVING_LORA = LoraConfig(rank=8)
 
 def eval_surface_shapes():
     """(batch x heads, tokens, scale) of the eval and serving surface:
-    test_model's batch and the pair verification's, the probe's train
-    batch, its ragged last one and its eval batch, and the serving
-    bench's batches of both models."""
+    :func:`eval_cli_shapes` and the serving bench's batches of both
+    models."""
+    shapes = eval_cli_shapes()
+    for name, batches in BI.BATCHES.items():
+        m = BI.serving_model(name)
+        shapes.update((b * m.heads, m.seq_len, attention_scale(m))
+                      for b in batches)
+    return shapes
+
+
+def eval_cli_shapes():
+    """(batch x heads, tokens, scale) of test_model's batch and the pair
+    verification's, the probe's train batch, its ragged last one and its
+    eval batch (in either compute dtype)."""
     shapes = set()
     cfg = config_from_args(build_parser().parse_args(EVAL_ARGV))
     m = cfg.model
@@ -2681,10 +2964,6 @@ def eval_surface_shapes():
         [n_train % bs] if n_train % bs else [])
     shapes.update((b * m.heads, m.seq_len, attention_scale(m))
                   for b in batches)
-    for name, batches in BI.BATCHES.items():
-        m = BI.serving_model(name)
-        shapes.update((b * m.heads, m.seq_len, attention_scale(m))
-                      for b in batches)
     return shapes
 
 
@@ -2752,8 +3031,9 @@ def expected_probe_launches(argv):
 
 
 def run_counted(fn, argv, want, what):
-    """fn(argv) with the launch counts read around it, held to ``want``;
-    returns (result, launches, wall seconds)."""
+    """fn(argv) with the launch counts read around it, held to ``want``
+    (derived, :func:`as_read`: every K1 launch on the kernel of argv's
+    compute dtype); returns (result, launches, wall seconds)."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -2761,6 +3041,7 @@ def run_counted(fn, argv, want, what):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    want = as_read(want, argv)
     if launches != want:
         raise AssertionError(f"{what} launched {launches}; the path "
                              f"implies {want}")
@@ -2782,13 +3063,15 @@ def eval_base(root):
     return os.path.join(out, last), {"eval_base": launches}
 
 
-def eval_reference(argv, test):
+def eval_reference(argv, test, per_class=True):
     """(test accuracy, {class: accuracy}) of argv's checkpoint through
-    engine/evaluate.eval_accuracy on the card, in padded batches of -b:
-    the whole split, and each class's images alone."""
+    engine/evaluate.eval_accuracy on the card in argv's compute dtype, in
+    padded batches of -b: the whole split, and (``per_class``) each
+    class's images alone, else an empty dict."""
     cfg = config_from_args(build_parser().parse_args(argv))
     params = detached(build_params(cfg), DEV)
-    step = make_eval_step(cfg.model, cfg.lora, compute_dtype=torch.bfloat16)
+    step = make_eval_step(cfg.model, cfg.lora, compute_dtype=getattr(
+        torch, cfg.compute_dtype))
 
     def acc(ds):
         return eval_accuracy(step, params, BatchLoader(
@@ -2797,29 +3080,34 @@ def eval_reference(argv, test):
 
     targets = np.asarray(test.targets)
     return acc(test), {str(c): acc(SubsetDataset(
-        test, np.flatnonzero(targets == c))) for c in np.unique(targets)}
+        test, np.flatnonzero(targets == c))) for c in np.unique(targets)
+        if per_class}
 
 
-def test_model_phase(ckpt, root):
-    """cli.test_model with scripts/test.sh's flags on the eval base: bf16
-    with --ver_targets lfw (a seeded lfw.bin), then --gemm_impl int8.
+def test_model_phase(ckpt, root, dtype="bfloat16"):
+    """cli.test_model with scripts/test.sh's flags on the eval base in
+    ``dtype`` compute: the default product with --ver_targets lfw (a
+    seeded lfw.bin), then --gemm_impl int8.
     Finite accuracies over every test image once (num_samples),
-    report.json and class_accuracy.txt, the ROC artifact; bf16's test_acc
-    at least EVAL_BASE_MIN_ACC and equal to eval_reference's, its class_acc
-    equal to eval_reference's class by class (the same kernels at the same
-    batch shape: padding and the ragged last batch must not move a
-    prediction); int8 within 2.0 points of bf16 (the bound of the JAX
-    package's tests/test_cli.py); K1 counts as derived."""
+    report.json and class_accuracy.txt, the ROC artifact; the default
+    product's test_acc at least EVAL_BASE_MIN_ACC and equal to
+    eval_reference's, in bf16 its class_acc too, class by class (the same
+    kernels at the same batch shape: padding and the ragged last batch
+    must not move a prediction); int8 within 2.0 points of the default
+    product (the bound of the JAX package's tests/test_cli.py); K1 counts
+    as derived, every launch in ``dtype``. Returns the counts by run."""
+    tag = dtype_tag(dtype)
+    eval_argv = EVAL_ARGV + ["--compute_dtype", dtype]
     write_lfw_bin(root, config_from_args(build_parser().parse_args(
         EVAL_ARGV)))
     _, test = build_datasets(config_from_args(build_parser().parse_args(
         EVAL_ARGV)))
     runs = {}
-    for name, extra in (("test_model", ["--data_root", root,
-                                        "--ver_targets", "lfw"]),
-                        ("test_model_int8", ["--gemm_impl", "int8"])):
+    for name, extra in (("test_model" + tag, ["--data_root", root,
+                                              "--ver_targets", "lfw"]),
+                        ("test_model_int8" + tag, ["--gemm_impl", "int8"])):
         out = os.path.join(root, name)
-        argv = EVAL_ARGV + ["-r", ckpt, "--outdir", out] + extra
+        argv = eval_argv + ["-r", ckpt, "--outdir", out] + extra
         report, launches, wall = run_counted(
             test_model.main, argv, expected_eval_launches(argv), name)
         vals = [report["test_acc"]] + ([report["lfw_verification_acc"]]
@@ -2837,25 +3125,28 @@ def test_model_phase(ckpt, root):
             class_acc = json.load(fh)["class_acc"]
         runs[name] = {"wall_s": wall, "launches": launches, **report,
                       "class_acc": class_acc}
-    bf16 = runs["test_model"]
-    ref_acc, ref_class = eval_reference(EVAL_ARGV + ["-r", ckpt], test)
-    if bf16["test_acc"] < EVAL_BASE_MIN_ACC or \
-            bf16["test_acc"] != ref_acc or bf16["class_acc"] != ref_class:
+    default = runs["test_model" + tag]
+    # class by class once, in bf16 (100 evals of one class each)
+    ref_acc, ref_class = eval_reference(eval_argv + ["-r", ckpt], test,
+                                        per_class=not tag)
+    acc = default["test_acc"]
+    if acc < EVAL_BASE_MIN_ACC or acc != ref_acc or \
+            not tag and default["class_acc"] != ref_class:
         wrong = {c: (a, ref_class.get(c)) for c, a in
-                 bf16["class_acc"].items() if ref_class.get(c) != a}
-        raise AssertionError(f"test_model: test_acc {bf16['test_acc']} "
+                 default["class_acc"].items() if ref_class.get(c) != a}
+        raise AssertionError(f"test_model{tag}: test_acc {acc} "
                              f"where eval_accuracy reads {ref_acc} (at "
                              f"least {EVAL_BASE_MIN_ACC}); classes that "
                              f"differ {wrong}")
-    gap = abs(runs["test_model_int8"]["test_acc"] - bf16["test_acc"])
+    gap = abs(runs["test_model_int8" + tag]["test_acc"] - acc)
     if gap > 2.0:
-        raise AssertionError(f"test_model: int8 {gap:.2f} points from "
-                             f"bf16 (bound 2.0)")
+        raise AssertionError(f"test_model{tag}: int8 {gap:.2f} points from "
+                             f"the default product (bound 2.0)")
     for run in runs.values():
         accs = run.pop("class_acc").values()
         run["class_acc_min"] = min(accs)
-    print("test_model " + json.dumps({**runs, "eval_accuracy": ref_acc}),
-          flush=True)
+    print(f"test_model{tag} " + json.dumps({**runs, "eval_accuracy":
+                                            ref_acc}), flush=True)
     return {k: v["launches"] for k, v in runs.items()}
 
 
@@ -2946,22 +3237,22 @@ def int8_check(ckpt):
     print("int8 eval vs bf16 " + json.dumps(envelope), flush=True)
 
 
-def probe_phase(ckpt, root):
-    """cli.backbone_probe from the pretrain phase's checkpoint, 2 epochs:
-    backbone frozen, head trained, finite curves, K1 counts as derived
-    (no backward)."""
-    argv = PROBE_ARGV + ["-r", ckpt, "--outdir", os.path.join(root,
-                                                              "probe")]
+def probe_phase(ckpt, root, dtype="bfloat16"):
+    """cli.backbone_probe from the pretrain phase's checkpoint in
+    ``dtype`` compute, 2 epochs: backbone frozen, head trained, finite
+    curves, K1 counts as derived (no backward), every launch in
+    ``dtype``."""
+    what = "backbone_probe" + dtype_tag(dtype)
+    argv = in_dtype(PROBE_ARGV, dtype) + [
+        "-r", ckpt, "--outdir", os.path.join(root, what)]
     report, launches, wall = run_counted(
-        backbone_probe.main, argv, expected_probe_launches(argv),
-        "backbone_probe")
+        backbone_probe.main, argv, expected_probe_launches(argv), what)
     curves = report["forget_acc_curve"] + report["remain_acc_curve"]
     if not (report["backbone_frozen"] and report["head_trained"] and
             len(curves) == 4 and all(math.isfinite(v) for v in curves)):
-        raise AssertionError(f"backbone_probe: {report}")
-    print("backbone_probe " + json.dumps({"wall_s": wall, **report,
-                                          "launches": launches}),
-          flush=True)
+        raise AssertionError(f"{what}: {report}")
+    print(f"{what} " + json.dumps({"wall_s": wall, **report,
+                                   "launches": launches}), flush=True)
     return launches
 
 
@@ -3008,9 +3299,9 @@ def recovery_phase(root, steps=10, cut=6):
     torch.cuda.synchronize()
     launches = read_counts()
     depth = model.depth
-    want = {"attention_fwd": 2 * depth * 2 * steps,
-            "attention_bwd": 2 * (depth - 1) * 2 * steps,
-            "group_prox": 0, "group_norms": 0, "group_scale": 0}
+    want = as_read({"attention_fwd": 2 * depth * 2 * steps,
+                    "attention_bwd": 2 * (depth - 1) * 2 * steps,
+                    "group_prox": 0, "group_norms": 0, "group_scale": 0})
     if launches != want:
         raise AssertionError(f"recovery launched {launches}; the path "
                              f"implies {want}")
@@ -3100,9 +3391,10 @@ def serving_phase(card):
                                BI.FWD_GFLOP[name], DEV, params=params)
                 torch.cuda.synchronize()
                 got = read_counts()
-                if got["attention_fwd"] != model.depth * (SERVING_K + 1) or \
-                        got["attention_bwd"] or not math.isfinite(
-                            r["images_per_sec"]):
+                if got != as_read({"attention_fwd": model.depth * (
+                        SERVING_K + 1), "attention_bwd": 0, "group_prox": 0,
+                        "group_norms": 0, "group_scale": 0}) or \
+                        not math.isfinite(r["images_per_sec"]):
                     raise AssertionError(f"serving {name} {bs}: {r}, "
                                          f"launches {got}")
                 for k, v in got.items():
@@ -3680,7 +3972,7 @@ def dp_phase(card):
         "ranks": [r["dcp"] for r in ranks]}), flush=True)
     launches = {}
     for name, (_, argv, accum) in DP_RUNS.items():
-        want = dp_expected(name, accum)
+        want = as_read(dp_expected(name, accum), argv)
         got = [r[name] for r in ranks]
         for r, run in enumerate(got):
             if run["launches"] != want:
@@ -3755,6 +4047,7 @@ DCN2 = ["--mesh_slices", "2"]
 # slice 10's from slice 11 on); forget_subworld keeps 5, to reuse the dp
 # phase's one process
 LAYOUT_FORGET_ARGV = DP_FORGET_ARGV + ["-e", "2"]
+LAYOUT_FORGET_FP32_ARGV = in_dtype(LAYOUT_FORGET_ARGV, "float32")
 # the ImageNet recipe's flags cut to one task (slice 12's ViT-B/16 runs)
 LAYOUT_IMAGENET_ARGV = IMAGENET_ARGV + ["--num_tasks", "1"]
 # where layout_phase writes the seeded ImageNet folder and ViT-B/16
@@ -3814,6 +4107,12 @@ LAYOUT_RUNS = {
                      TP2 + ["--fsdp"], 4),
     "attn_pp": (train_forget, LAYOUT_FORGET_ARGV + ["--lora_pos",
                                                     "Attention"], PP2, 2),
+    # fp32 compute (slice 21): fp32 K1 on a tp rank's half of the heads
+    # over whole sequences (tp + sp), and on pp's micro-batches
+    "forget_tp_sp_fp32": (train_forget, LAYOUT_FORGET_FP32_ARGV,
+                          TP2 + ["--sp"], 2),
+    "forget_pp_fp32": (train_forget, LAYOUT_FORGET_FP32_ARGV,
+                       PP2 + ["--pp_micro", "2"], 2),
 }
 # the ranks each run is spawned in, by name (others: the world's size;
 # the pretrains share one spawn, so that no two run at once on the
@@ -3832,7 +4131,9 @@ LAYOUT_SPAWN = {**{name: "2b" for name in ("forget_sp", "forget_tp_sp",
                 # the runs of the old spawns
                 "b16_tp_fsdp": "4", "b16_sp_prox": "b16",
                 "ewc_tp": "2", "attn_pp": "2", "derpp_sp": "2b",
-                "scrub_fsdp_model": "4b", "lirf_tp_fsdp": "4b"}
+                "scrub_fsdp_model": "4b", "lirf_tp_fsdp": "4b",
+                # slice 21: the fp32 runs in a spawn of their own
+                "forget_tp_sp_fp32": "2f", "forget_pp_fp32": "2f"}
 # a spawn started only once another has ended (the card's memory)
 LAYOUT_AFTER = {"b16": "4"}
 # a run held to the bit against plain --dp on the same world (the same
@@ -4089,10 +4390,12 @@ def layout_run(name, layout, accum=None, rank=0):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         stage = rank % layout_shape(name)[2]
-        out, launches, wall = run_counted(
-            fn, argv, layout_expected(name, layout, accum, stage, idle),
-            name)
+        with plain_attention_on_card() as plain:
+            out, launches, wall = run_counted(
+                fn, argv, layout_expected(name, layout, accum, stage, idle),
+                name)
         seen["peak_bytes"] = torch.cuda.max_memory_allocated()
+        seen["plain_on_card"] = plain
     finally:
         for (mod, attr), v in saved.items():
             setattr(mod, attr, v)
@@ -4152,10 +4455,11 @@ def layout_accuracy_tolerances(name):
     return tolerances_of(module, layout_argv(name, False))
 
 
-def layout_phase(card, refs):
+def layout_phase(card, refs, imagenet_root):
     """Every LAYOUT_RUNS layout on gloo ranks sharing the card, against
     one process of the same flags with --grad_accum S·D (``refs`` holds
-    the dp phase's one-process runs, reused where they ran the same):
+    the dp phase's one-process runs, reused where they ran the same; the
+    ViT-B/16 runs read ``imagenet_root``, :func:`imagenet_inputs`):
     each rank's K1 and K2 counts as derived, every used rank's gathered
     parameters equal to the bit, the final parameters within
     LAYOUT_FLOOR_FACTOR times the noise floor of the one process's (to
@@ -4172,14 +4476,7 @@ def layout_phase(card, refs):
         spawns.setdefault(LAYOUT_SPAWN.get(name, str(w)), (w, []))[1].append(
             name)
     tmp = tempfile.TemporaryDirectory()
-    # the ViT-B/16 runs' seeded folder and torchvision-named checkpoint,
-    # read until the phase's last check
-    imagenet_tmp = tempfile.TemporaryDirectory()
-    root = imagenet_tmp.name
-    imagenet_folder(root)
-    vit_b16_checkpoint(os.path.join(root, "vit_b16.pth"), config_from_args(
-        build_parser().parse_args(LAYOUT_IMAGENET_ARGV)).model)
-    os.environ[IMAGENET_ROOT_ENV] = root
+    os.environ[IMAGENET_ROOT_ENV] = imagenet_root
     # every spawn's ranks run together (those of LAYOUT_AFTER once the
     # spawn they follow has ended), while this process runs the references
     spawned = {}
@@ -4269,11 +4566,12 @@ def layout_phase(card, refs):
                                                        SUBWORLD_DCP.data},
             "world": len(got), "ranks": got[:used]}), flush=True)
     launches = {}
-    for name, (_, _, flags, world) in LAYOUT_RUNS.items():
+    for name, (_, argv, flags, world) in LAYOUT_RUNS.items():
         slices, data, model = layout_shape(name)
         ways, used = layout_ways(name), layout_used(name)
-        wants = [layout_expected(name, True, stage=r % model,
-                                 idle=r >= used) for r in range(world)]
+        wants = [as_read(layout_expected(name, True, stage=r % model,
+                                         idle=r >= used), argv)
+                 for r in range(world)]
         got, ref = ranks[name][:used], refs[name]
         idle = ranks[name][used:]
         for r, run in enumerate(ranks[name]):
@@ -4281,6 +4579,12 @@ def layout_phase(card, refs):
                 raise AssertionError(f"{name} rank {r} launched "
                                      f"{run['launches']}; its flags imply "
                                      f"{wants[r]}")
+        # (the data-parallel phase's one-process runs did not count it)
+        plain = [run.get("plain_on_card", {"fwd": 0, "bwd": 0})
+                 for run in ranks[name] + [ref]]
+        if any(p != {"fwd": 0, "bwd": 0} for p in plain):
+            raise AssertionError(f"{name}: the plain attention ran on the "
+                                 f"card (ranks, then one process): {plain}")
         for r, run in enumerate(idle, used):
             if not run["idle"] or run["report"] is not None or \
                     run["peak_bytes"] != 0:
@@ -4395,7 +4699,6 @@ def layout_phase(card, refs):
             "report_rank0": got[0]["report"] if not isinstance(
                 got[0]["report"], list) else None}), flush=True)
     del os.environ[IMAGENET_ROOT_ENV]
-    imagenet_tmp.cleanup()
     print(f"layout phase in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
@@ -4404,18 +4707,41 @@ def layout_phase(card, refs):
 def eval_phase(card):
     """The eval and serving surface (slice 8): the base it evaluates,
     test_model (bf16 with pair verification, int8), the int8 checks,
-    backbone_probe, recovery, the keep boundary and the serving bench."""
+    backbone_probe, the same test_model and backbone_probe runs in fp32
+    compute and the open-set recipes from that base (slice 21), recovery,
+    the keep boundary and the serving bench."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         ckpt, launches = eval_base(root)
         launches.update(test_model_phase(ckpt, root))
         int8_check(ckpt)
         launches["backbone_probe"] = probe_phase(ckpt, root)
+        # the same base evaluated in fp32 compute (slice 21)
+        launches.update(fp32_runs("fp32 test_model", test_model_phase,
+                                  ckpt, root, "float32"))
+        launches["backbone_probe_fp32"] = fp32_runs(
+            "fp32 backbone_probe", probe_phase, ckpt, root, "float32")
+        launches.update(open_set_phase(ckpt))
         launches["recovery"] = recovery_phase(root)
     launches["cl_keep"] = keep_phase()
     launches["serving"] = serving_phase(card)
     print(f"eval phase in {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
+
+
+def fill_launches(rows, paths):
+    """Each kernel row's launches: those of the path it serves (K1 the
+    single-step main path, in fp32 for the fp32 kernel; K2 the continual
+    path; K3 is on neither), and by path (``paths``: each path's counts,
+    an fp32 run's K1 under the fp32 keys)."""
+    for row in rows:
+        name = row["name"]
+        own = "train_forget_fp32" if name.endswith("_fp32") else \
+            "train_forget" if name.startswith("attention") else \
+            "train_forget_cl"
+        row["launches"] = paths[own][name]
+        row["launches_by_path"] = {path: counts[name]
+                                   for path, counts in paths.items()}
 
 
 def main():
@@ -4430,69 +4756,74 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     share_datasets()
 
-    t0 = time.perf_counter()
-    builds = build_all()
-    print(f"built kernels in {time.perf_counter() - t0:.1f} s: " +
-          ", ".join(f"{k} {v:.1f} s" for k, v in builds.items()), flush=True)
+    def lap(what):
+        print(f"chip_smoke: {what} done at "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
 
+    builds = build_all()
+    built(builds, ("attention", "group_lasso"))
     k1_rows = kernel_phase(bw, peak)
-    k1_fp32_rows = fp32_kernel_phase(bw, fp32_peak, tf32_peak, k1_rows)
-    rows = k1_rows + group_phase(bw, fp32_peak) + k1_fp32_rows
-    model_check(ViTConfig(dropout=0.0, emb_dropout=0.0))
-    model_check(ViTConfig.vit_b16())
-    lirf_check()
-    main_launches = main_path_phase()
+    group_rows = group_phase(bw, fp32_peak)
+    lap("bf16 and group kernel phases")
+    # the fp32 kernel compiles the longest: it builds on through the
+    # phases above
+    built(builds, ("attention_fp32",))
+    rows = k1_rows + group_rows + fp32_kernel_phase(bw, fp32_peak,
+                                                    tf32_peak, k1_rows)
+    for dtype in (torch.bfloat16, torch.float32):
+        model_check(ViTConfig(dropout=0.0, emb_dropout=0.0), dtype)
+        model_check(ViTConfig.vit_b16(), dtype)
+        lirf_check(dtype)
+    lap("fp32 kernel phase and model checks")
+    # every driven path's counts (an fp32 run's K1 under the fp32 keys)
+    paths = {"train_forget": main_path_phase()}
     # each step is traced right after it is timed, then dropped, so no
     # step's tensors count in a later one's peak memory
     profiler_phase([("bench recipe step", *bench_phase(card), 5)], card)
-    cl_launches = continual_phase()
-    fp32_launches = fp32_path_phase()
-    imagenet_launches = imagenet_phase()
+    paths["train_forget_cl"] = continual_phase()
+    paths.update(fp32_path_phase())
+    lap("main, continual and fp32 phases")
+    # one seeded folder and checkpoint for every ViT-B/16 run
+    imagenet_tmp = tempfile.TemporaryDirectory()
+    imagenet = imagenet_inputs(imagenet_tmp.name)
+    paths["train_forget_cl_imagenet"] = imagenet_phase(imagenet)
+    paths["train_forget_cl_imagenet_fp32"] = fp32_runs(
+        "fp32 ViT-B/16", imagenet_phase, imagenet, IMAGENET_FP32_ARGV,
+        "imagenet_fp32")
     profiler_phase([("ViT-B/16 forget step", *imagenet_bench(card), 2)],
                    card)
-    pre_launches, pre_lora_launches = pretrain_phase()
+    lap("ImageNet phase")
+    paths["train_pretrain"], paths["train_pretrain_lora_remat"] = \
+        pretrain_phase()
+    paths["train_pretrain_fp32"], paths["train_pretrain_lora_remat_fp32"] = \
+        fp32_runs("fp32 pretrain", pretrain_phase, "float32")
     pre_run, pre_ms = pretrain_bench(card)
     profiler_phase([("pretrain step bs 480", pre_run, pre_ms, 2)], card)
     del pre_run
-    folder_launches = native_phase(card, pre_ms)
+    lap("pretrain phase")
+    paths["train_pretrain_folder"] = native_phase(card, pre_ms)
+    lap("native phase")
     dp_launches, dp_refs = dp_phase(card)
-    layout_launches = layout_phase(card, dp_refs)
+    paths.update(dp_launches)
+    lap("dp phase")
+    paths.update({f"layout_{path}": counts for path, counts in
+                  layout_phase(card, dp_refs, imagenet_tmp.name).items()})
     del dp_refs
-    baseline_launches = baseline_phase()
-    integration_launches = integration_phase()
-    split_launches = base_split_phase()
+    imagenet_tmp.cleanup()
+    lap("layout phase")
+    paths["baselines"] = baseline_phase()
+    paths["baselines_fp32"] = fp32_runs(
+        "fp32 baselines", baseline_phase, in_dtype(BASELINE_ARGV, "float32"),
+        FP32_BASELINE_RUNS)
+    lap("baseline phase")
+    paths.update(integration_phase())
+    paths["base_split"] = base_split_phase()
+    lap("integration phase and base_split")
     baseline_bench(card)
-    eval_launches = eval_phase(card)
-    for row in rows:
-        # each kernel's count from the path it serves: K1 the single-step
-        # main path (in fp32 for the fp32 kernel), K2 the continual path;
-        # K3 is on neither
-        name = row["name"]
-        if name.endswith("_fp32"):
-            row["launches"] = fp32_launches["train_forget_fp32"][name]
-            row["launches_by_path"] = {path: counts[name] for path, counts
-                                       in fp32_launches.items()}
-            continue
-        own = main_launches if name.startswith("attention") else cl_launches
-        row["launches"] = own[name]
-        row["launches_by_path"] = {
-            "train_forget": main_launches[name],
-            "train_forget_cl": cl_launches[name],
-            "train_forget_cl_imagenet": imagenet_launches[name],
-            "train_pretrain": pre_launches[name],
-            "train_pretrain_lora_remat": pre_lora_launches[name],
-            "baselines": baseline_launches[name],
-            "train_pretrain_folder": folder_launches[name],
-            **{path: counts[name] for path, counts in dp_launches.items()},
-            **{f"layout_{path}": counts[name]
-               for path, counts in layout_launches.items()},
-            **{path: counts[name] for path, counts in
-               eval_launches.items()},
-            **{path: counts[name] for path, counts in
-               integration_launches.items()},
-            "base_split": split_launches[name],
-            **{path: counts[name] for path, counts in
-               fp32_launches.items()}}
+    lap("baseline bench")
+    paths.update(eval_phase(card))
+    lap("eval phase")
+    fill_launches(rows, paths)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
